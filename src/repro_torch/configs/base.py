@@ -1,0 +1,102 @@
+"""The pHNSW configuration (port of ``PHNSWConfig`` from
+``repro/configs/base.py``; the LM ``ModelConfig`` is not ported yet).
+It holds the reference's fields that this slice reads, with the same
+names, defaults and methods; the filter, re-ranking and mutable-index
+fields come with the slices that read them."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class PHNSWConfig:
+    """Configuration of the paper's SIFT1M experiment (Section V)."""
+    name: str = "sift1m"
+    n_points: int = 1_000_000
+    dim: int = 128              # SIFT descriptor dim
+    d_low: int = 15             # PCA dim (paper Step 1: 128 -> 15)
+    n_layers: int = 6           # six-layer search graph
+    M: int = 16                 # graph degree, layers 1..5
+    M0: int = 32                # graph degree at layer 0 (2M)
+    ef_upper: int = 1           # ef for layers 1..5
+    ef0: int = 10               # ef for layer 0
+    # per-layer top-k filter sizes (paper Section III-B):
+    #   layers 2..5 -> 3 (3x ef per pKNN recommendation), layer1 -> 8,
+    #   layer0 -> 16
+    k_schedule: Tuple[int, ...] = (16, 8, 3, 3, 3, 3)
+    ef_construction: int = 100
+    recall_at: int = 10
+    # ---- construction pipeline (core/build.py) ----
+    # "wave": batched device-accelerated builder — insert in waves of
+    # ``wave_size``, one fused-kernel beam search per wave against the
+    # current snapshot, vectorized diversity selection + bidirectional
+    # linking over the whole wave. "ref": the sequential host builder
+    # (build_hnsw_ref), kept as the recall/structure oracle.
+    builder: str = "wave"
+    # vectors per construction wave. Larger waves amortize the per-wave
+    # snapshot + probe overhead; smaller waves reduce snapshot staleness
+    # (wave members probe a graph that predates the wave — the
+    # intra-wave distance block covers wave-internal neighbors).
+    wave_size: int = 2048
+    # upper-layer beam width of the wave builder's device probe (layers
+    # >= 1 mostly supply descent seeds; the sequential oracle descends
+    # with ef=1, and M upper-layer links only need ~M candidates — the
+    # intra-wave block supplements them). None = full ef_construction
+    # at every layer. Does NOT apply to MutableIndex inserts (their
+    # probe keeps the full beam).
+    wave_ef_upper: Optional[int] = 16
+    # storage dtype of the inline low-dim vectors in layout (3)
+    # ("bfloat16" halves the dominant HBM stream and the paper's ~2.9x
+    # memory blow-up; distances still accumulate in f32). Only float32
+    # is ported; build_packed raises for anything else.
+    low_dtype: str = "float32"
+    # per-layer expansion-step budgets for the batched engine (layer 0
+    # first). None -> the default linear-in-ef budget. Tune from the
+    # steps_mean/steps_p99 telemetry in BENCH_table3.json: the batch
+    # convoys on its slowest query, so capping tail steps trades a
+    # bounded recall loss for wall-clock.
+    step_budget: Optional[Tuple[int, ...]] = None
+    # batched engine: expand the W nearest frontier candidates per loop
+    # iteration (DESIGN.md). Exact w.r.t. the per-candidate expansion
+    # rule (a popped candidate beyond F.max can never re-qualify) and
+    # cuts while_loop trips ~W-fold, but widens every per-iteration
+    # matrix ~W-fold — a win only where fixed per-iteration overhead
+    # dominates element throughput (measured: not on CPU; revisit per
+    # backend via BENCH_table3.json).
+    expand_width: int = 1
+    # top-k width of the construction probe (the wave builder passes it
+    # as the probe's k; the identity-filter probe keeps W*M0 survivors
+    # whatever its value)
+    ef_construction_k: int = 16
+
+    def k_for_layer(self, layer: int) -> int:
+        return self.k_schedule[min(layer, len(self.k_schedule) - 1)]
+
+    def k_schedule_for(self, filter_kind: str,
+                       deferred: bool) -> Tuple[int, ...]:
+        """Effective default per-layer expansion k for a filter kind.
+        The deferred CASCADE keeps ALL M0 neighbors at layer 0 (no
+        kSort.L pruning): its in-loop distances are ~free ADC lookups,
+        but 256-way sub-codebooks rank too coarsely for a tight
+        per-step top-k — pruned edges are exactly how true neighbors
+        become unreachable, and no promote/re-rank width can recover a
+        node the traversal never visited. In per-step mode k also
+        bounds the per-expansion Dist.H count, so the configured
+        schedule stands there. An explicit ``k_schedule=`` argument to
+        any search entry point overrides this default verbatim."""
+        if deferred and filter_kind == "cascade":
+            return (max(self.k_schedule[0], self.M0),) \
+                + tuple(self.k_schedule[1:])
+        return tuple(self.k_schedule)
+
+    def ef_for_layer(self, layer: int) -> int:
+        return self.ef0 if layer == 0 else self.ef_upper
+
+    def degree(self, layer: int) -> int:
+        return self.M0 if layer == 0 else self.M
+
+    def max_steps_for_layer(self, layer: int) -> int:
+        if self.step_budget is not None:
+            return self.step_budget[min(layer, len(self.step_budget) - 1)]
+        return 4 * self.ef_for_layer(layer) + 16

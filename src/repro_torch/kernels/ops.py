@@ -1,0 +1,88 @@
+"""The traversal ops, dispatched by tensor device (port of
+``repro/kernels/ops.py`` for ``dist_h``, ``fused_expand`` and
+``merge_topk_sorted``).
+
+Same op names, signatures and sentinels as the reference. A CPU tensor
+takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
+launches the hand-written kernel, and a kernel that fails to build or
+launch raises — there is no switch and no fallback. Each CUDA wrapper
+counts its launches in a plain integer (``launch_counts``)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.constants import VALID_MAX  # noqa: F401  (re-export:
+# callers of fused_expand test returned vals against this sentinel)
+from repro_torch.kernels import ref
+from repro_torch.kernels.dist_h import dist_h_cuda
+from repro_torch.kernels.fused_filter import fused_expand_cuda
+from repro_torch.kernels.merge_sorted import merge_sorted_cuda
+
+_KERNELS = {"fused_expand": fused_expand_cuda,
+            "merge_sorted": merge_sorted_cuda,
+            "dist_h": dist_h_cuda}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _KERNELS.values():
+        fn.launches = 0
+
+
+def _on_cuda(*ts) -> bool:
+    """True iff every tensor is on CUDA, False iff every one is on the
+    CPU; anything else raises."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on devices {sorted(kinds)}: expected all "
+                     "on the CPU or all on CUDA")
+
+
+def dist_h(x, q):
+    """x: [B, K, D]; q: [B, D] -> [B, K] f32 squared distances."""
+    if _on_cuda(x, q):
+        return dist_h_cuda(x.to(torch.float32).contiguous(),
+                           q.to(torch.float32).contiguous())
+    return ref.dist_h_ref(x, q)
+
+
+def fused_expand(x, q, valid, th, k: int):
+    """One traversal expansion's full filter stage (Dist.L + validity
+    mask + C_pca threshold + kSort.L) in a single kernel.
+    x: [B, M, dl]; q: [B, dl]; valid: [B, M] bool; th: [B] f32.
+    Returns (vals [B, k] ascending, idx [B, k]); filtered-out slots get
+    vals >= VALID_MAX. k must not exceed M (the reference would leave
+    slots M..k-1 as (0.0, 0))."""
+    if k > x.shape[1]:
+        raise ValueError(f"fused_expand: k={k} exceeds M={x.shape[1]}")
+    if _on_cuda(x, q, valid, th):
+        return fused_expand_cuda(x.to(torch.float32).contiguous(),
+                                 q.to(torch.float32).contiguous(),
+                                 valid.to(torch.bool).contiguous(),
+                                 th.to(torch.float32).contiguous(), k)
+    return ref.fused_expand_ref(x, q, valid, th, k)
+
+
+def merge_topk_sorted(d_a, i_a, d_b, i_b, k: int):
+    """Merge two ascending-sorted (dist, idx) lists, keep the k smallest
+    (ties -> a side, then lower slot). d_a: [B, Na]; d_b: [B, Nb]."""
+    if d_b.shape[1] > k:
+        # only the first k of a sorted b can reach a k-wide output
+        d_b, i_b = d_b[:, :k], i_b[:, :k]
+    if k > d_a.shape[1] + d_b.shape[1]:
+        raise ValueError(f"merge_topk_sorted: k={k} exceeds Na + Nb = "
+                         f"{d_a.shape[1] + d_b.shape[1]}")
+    if _on_cuda(d_a, i_a, d_b, i_b):
+        return merge_sorted_cuda(d_a.to(torch.float32).contiguous(),
+                                 i_a.to(torch.int32).contiguous(),
+                                 d_b.to(torch.float32).contiguous(),
+                                 i_b.to(torch.int32).contiguous(), k)
+    return ref.merge_topk_sorted_ref(d_a, i_a, d_b, i_b, k)

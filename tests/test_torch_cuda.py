@@ -1,0 +1,108 @@
+"""repro_torch's CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs a CUDA device and skips without one; on
+the card run them with ``python -m pytest -m cuda tests/test_torch_cuda.py``
+(this file imports no jax, so it runs where only PyTorch is installed).
+
+Integer-valued inputs make every f32 sum exact in any order, so there
+distances and indices must be identical; on float inputs distances agree
+to rtol 1e-5 / atol 1e-3 (the summation order differs)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.constants import INF
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _t(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("B,M,dl,k", [(1024, 32, 15, 16), (1024, 16, 15, 8),
+                                      (1024, 16, 15, 3), (64, 64, 15, 32),
+                                      (8, 100, 4, 1)])
+def test_fused_expand_matches_plain(cuda, B, M, dl, k):
+    rng = np.random.default_rng(B + M + k)
+    x = rng.integers(0, 8, (B, M, dl)).astype(np.float32)
+    x[1] = x[1, :1]                       # all-equal distances
+    q = rng.integers(0, 8, (B, dl)).astype(np.float32)
+    valid = rng.random((B, M)) < 0.8
+    valid[0] = False                      # all invalid
+    th = np.where(rng.random(B) < 0.5, 64.0 * dl, INF).astype(np.float32)
+    args = _t(cuda, x, q, valid, th)
+    d, i = ops.fused_expand(*args, k)
+    d0, i0 = ref.fused_expand_ref(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+    assert ops.launch_counts()["fused_expand"] > 0
+
+
+@pytest.mark.parametrize("Na,Nb,k", [(10, 16, 10), (26, 16, 26),
+                                     (100, 32, 100), (132, 32, 132),
+                                     (8, 3, 8), (16, 16, 1), (3, 2, 5)])
+def test_merge_sorted_matches_plain(cuda, Na, Nb, k):
+    rng = np.random.default_rng(Na + Nb)
+    B = 1024
+    pool = rng.integers(0, 8, 16)
+    a = np.sort(rng.choice(pool, (B, Na)), 1).astype(np.float32)
+    b = np.sort(rng.choice(pool, (B, Nb)), 1).astype(np.float32)
+    a[0, Na // 2:] = INF
+    b[1] = INF
+    ia = rng.integers(0, 999, (B, Na)).astype(np.int32)
+    ib = rng.integers(0, 999, (B, Nb)).astype(np.int32)
+    args = _t(cuda, a, ia, b, ib)
+    d, i = ops.merge_topk_sorted(*args, k)
+    d0, i0 = ref.merge_topk_sorted_ref(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+
+
+@pytest.mark.parametrize("B,K,D", [(1024, 16, 128), (2048, 32, 128),
+                                   (8, 3, 130), (4, 1, 7)])
+def test_dist_h_matches_plain(cuda, B, K, D):
+    rng = np.random.default_rng(B + K + D)
+    x = rng.standard_normal((B, K, D)).astype(np.float32)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    tx, tq = _t(cuda, x, q)
+    got = ops.dist_h(tx, tq)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ref.dist_h_ref(tx, tq).cpu().numpy(),
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_build_and_search_card_equals_cpu(cuda):
+    """On integer data the whole slice is exact: the wave build and the
+    PCA-filtered search give the same graph and bit-identical results on
+    the card and on the CPU."""
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.core.graph import build_hnsw
+    from repro_torch.core.search_torch import build_packed, search_batched
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 8, (1500, 16)).astype(np.float32)
+    q = rng.integers(0, 8, (64, 16)).astype(np.float32)
+    cfg = PHNSWConfig(name="int1500", n_points=1500, dim=16, d_low=4, M=8,
+                      M0=16, ef_construction=32, wave_size=256)
+    graphs = {d: build_hnsw(x, cfg, seed=2, device=d) for d in ("cuda",
+                                                                "cpu")}
+    for a, b in zip(graphs["cuda"].layers, graphs["cpu"].layers):
+        np.testing.assert_array_equal(a, b)
+    out = {}
+    for d in ("cuda", "cpu"):
+        db = build_packed(graphs["cpu"], x[:, :4], device=d)
+        fd, fi, st = search_batched(db, q, q[:, :4], return_stats=True,
+                                    device=d)
+        out[d] = [fd.cpu(), fi.cpu(), st["steps_per_layer"].cpu(),
+                  st["dist_h_evals"].cpu()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)

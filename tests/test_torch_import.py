@@ -1,0 +1,41 @@
+"""repro_torch stands alone: importing every one of its modules pulls in
+neither jax nor any module of the JAX package ``repro``, and builds no
+CUDA kernel (kernels build at first use, on the card)."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+from repro_torch.kernels import _build, ops
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad, "built": _build.loaded(),
+                  "launches": ops.launch_counts()}))
+"""
+
+
+def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    for m in ("repro_torch.core.search_torch", "repro_torch.core.build",
+              "repro_torch.kernels.ops", "repro_torch.data.vectors",
+              "repro_torch.configs.sift1m_phnsw"):
+        assert m in got["modules"]
+    assert got["bad"] == []
+    assert got["built"] == []
+    assert set(got["launches"].values()) == {0}

@@ -1,0 +1,192 @@
+"""repro_torch kernel ops against the JAX reference ops.
+
+On the CPU each op in ``repro_torch.kernels.ops`` runs its plain PyTorch
+version; it is held against ``repro.kernels.ops`` both on the jnp
+oracles (``REPRO_KERNEL_IMPL=ref``) and on the Pallas kernels in
+interpret mode (``REPRO_FORCE_PALLAS_INTERPRET=1``), over the shape
+sweeps and edge cases of ``tests/test_kernels.py``. Inputs are made with
+numpy from a seed. Distances are compared at rtol 1e-6 / atol 1e-3 (the
+f32 reduction order differs between the frameworks); indices exactly.
+The CUDA kernels themselves are held against these plain versions on
+the card by ``tests/test_torch_cuda.py``."""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.constants import INF, VALID_MAX
+from repro_torch.kernels import ops, ref
+
+RTOL, ATOL = 1e-6, 1e-3
+
+
+@pytest.fixture(params=["ref", "interpret"])
+def jax_impl(request, monkeypatch):
+    """Route the JAX ops to the jnp oracles or to the Pallas kernels in
+    interpret mode; the dispatch is read at trace time, so compiled
+    programs are dropped around the switch."""
+    if request.param == "ref":
+        monkeypatch.setenv("REPRO_KERNEL_IMPL", "ref")
+        monkeypatch.delenv("REPRO_FORCE_PALLAS_INTERPRET", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_FORCE_PALLAS_INTERPRET", "1")
+    jax.clear_caches()
+    yield request.param
+    jax.clear_caches()
+
+
+def _both(*arrays):
+    """The same numpy inputs as (jax arrays, torch CPU tensors)."""
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays])
+
+
+def _expand_inputs(rng, B, M, dl):
+    x = rng.standard_normal((B, M, dl)).astype(np.float32)
+    q = rng.standard_normal((B, dl)).astype(np.float32)
+    valid = rng.integers(0, 2, (B, M)).astype(bool)
+    th = np.where(rng.random(B) < 0.5, 2.0 * dl, INF).astype(np.float32)
+    return x, q, valid, th
+
+
+def _sorted_lists(rng, B, Na, Nb):
+    """Ascending rows drawn from a small pool, so ties are plentiful."""
+    a = np.sort(rng.choice(rng.standard_normal(16), (B, Na)), axis=1)
+    b = np.sort(rng.choice(rng.standard_normal(16), (B, Nb)), axis=1)
+    ia = rng.integers(0, 999, (B, Na)).astype(np.int32)
+    ib = rng.integers(0, 999, (B, Nb)).astype(np.int32)
+    return a.astype(np.float32), ia, b.astype(np.float32), ib
+
+
+def _check(got_d, got_i, want_d, want_i):
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+# ------------------------- shape sweeps vs JAX -----------------------------
+
+@pytest.mark.parametrize("B,K,D", [(8, 16, 128), (8, 3, 128), (16, 32, 64)])
+def test_dist_h_sweep(B, K, D, jax_impl):
+    rng = np.random.default_rng(B * 1000 + K * 10 + D)
+    x = rng.standard_normal((B, K, D)).astype(np.float32)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    (jx, jq), (tx, tq) = _both(x, q)
+    np.testing.assert_allclose(ops.dist_h(tx, tq).numpy(),
+                               np.asarray(jops.dist_h(jx, jq)),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("B,M,dl,k", [(8, 32, 15, 16), (8, 16, 15, 3),
+                                      (16, 64, 16, 8)])
+def test_fused_expand_sweep(B, M, dl, k, jax_impl):
+    rng = np.random.default_rng(M * 100 + k)
+    (jx, jq, jv, jt), (tx, tq, tv, tt) = _both(*_expand_inputs(rng, B, M,
+                                                               dl))
+    _check(*ops.fused_expand(tx, tq, tv, tt, k),
+           *jops.fused_expand(jx, jq, jv, jt, k))
+
+
+@pytest.mark.parametrize("Na,Nb,k", [(36, 16, 36), (10, 16, 10),
+                                     (16, 16, 16), (64, 3, 64),
+                                     (32, 8, 20)])
+def test_merge_sorted_sweep(Na, Nb, k, jax_impl):
+    rng = np.random.default_rng(Na * 100 + Nb)
+    (ja, jia, jb, jib), (ta, tia, tb, tib) = _both(
+        *_sorted_lists(rng, 8, Na, Nb))
+    _check(*ops.merge_topk_sorted(ta, tia, tb, tib, k),
+           *jops.merge_topk_sorted(ja, jia, jb, jib, k))
+
+
+# ------------------------------ edge cases ---------------------------------
+
+def _edge_expand_inputs(B=8, M=32, dl=15):
+    """Rows 0-1 all invalid, rows 2-3 all-equal distances (identical
+    neighbor rows), rows 4-5 all above the threshold (every slot an INF
+    pad), rows 6-7 random; integer-valued so every sum is exact."""
+    rng = np.random.default_rng(88)
+    x = rng.integers(0, 4, (B, M, dl)).astype(np.float32)
+    q = rng.integers(0, 4, (B, dl)).astype(np.float32)
+    x[2:4] = x[2:4, :1]
+    valid = np.ones((B, M), bool)
+    valid[0:2] = False
+    valid[6:8] = rng.integers(0, 2, (2, M)).astype(bool)
+    th = np.full(B, INF, np.float32)
+    th[4:6] = 0.0
+    return x, q, valid, th
+
+
+@pytest.mark.parametrize("k", [1, 16, 32])
+def test_fused_expand_edge_rows(k, jax_impl):
+    (jx, jq, jv, jt), (tx, tq, tv, tt) = _both(*_edge_expand_inputs())
+    d, i = ops.fused_expand(tx, tq, tv, tt, k)
+    _check(d, i, *jops.fused_expand(jx, jq, jv, jt, k))
+    # non-survivors sort last as (INF, ascending index)
+    assert (d[0:2] >= VALID_MAX).all() and (d[4:6] >= VALID_MAX).all()
+    np.testing.assert_array_equal(i[0].numpy(), np.arange(k))
+    np.testing.assert_array_equal(i[2].numpy(), np.arange(k))
+
+
+def test_fused_expand_k_above_m_raises():
+    """The reference's ksort_block leaves slots M..k-1 as (0.0, 0) for
+    k > M; no configuration reaches it, and the port refuses it."""
+    x, q, valid, th = (torch.from_numpy(a) for a in _expand_inputs(
+        np.random.default_rng(0), 8, 16, 15))
+    with pytest.raises(ValueError, match="exceeds M"):
+        ops.fused_expand(x, q, valid, th, 17)
+
+
+def test_merge_sorted_edge_cases(jax_impl):
+    """Duplicate distances (a side wins ties, then lower slot), an
+    all-INF b list (output == a), both all-INF, and k=1."""
+    d_a = np.asarray([[1.0, 1.0, 2.0]], np.float32)
+    i_a = np.asarray([[0, 1, 2]], np.int32)
+    d_b = np.asarray([[1.0, 2.0]], np.float32)
+    i_b = np.asarray([[10, 11]], np.int32)
+    d_inf = np.full((1, 2), INF, np.float32)
+    i_inf = np.full((1, 2), -1, np.int32)
+    for args, k in [((d_a, i_a, d_b, i_b), 5), ((d_a, i_a, d_inf, i_inf), 3),
+                    ((d_inf, i_inf, d_inf, i_inf), 2),
+                    ((d_a, i_a, d_b, i_b), 1)]:
+        j, t = _both(*args)
+        _check(*ops.merge_topk_sorted(*t, k), *jops.merge_topk_sorted(*j, k))
+    d, i = ops.merge_topk_sorted(*_both(d_a, i_a, d_b, i_b)[1], 5)
+    np.testing.assert_array_equal(i.numpy(), [[0, 1, 10, 2, 11]])
+
+
+def test_merge_keeps_first_k_of_b():
+    """The reference's quirk: only the first k rows of b can reach a
+    k-wide output, so a wider b is cut before the merge."""
+    rng = np.random.default_rng(5)
+    (ja, jia, jb, jib), (ta, tia, tb, tib) = _both(
+        *_sorted_lists(rng, 4, 4, 12))
+    _check(*ops.merge_topk_sorted(ta, tia, tb, tib, 4),
+           *jops.merge_topk_sorted(ja, jia, jb, jib, 4))
+
+
+@pytest.mark.parametrize("B,M,k", [(8, 16, 3), (8, 32, 16), (16, 32, 8),
+                                   (8, 64, 16), (8, 128, 32), (4, 8, 12)])
+def test_plain_ksort_and_dist_l_match_reference(B, M, k):
+    """The plain kSort.L (stable sort) gives the reference's comparison-
+    matrix order, including its (0.0, 0) tail for k > M."""
+    rng = np.random.default_rng(M + k)
+    d = rng.choice(rng.standard_normal(8), (B, M)).astype(np.float32)
+    v, i = ref.ksort_l_ref(torch.from_numpy(d), k)
+    v0, i0 = jref.ksort_l_ref(jnp.asarray(d), k)
+    _check(v, i, v0, i0)
+    x = rng.standard_normal((B, M, 15)).astype(np.float32)
+    q = rng.standard_normal((B, 15)).astype(np.float32)
+    np.testing.assert_allclose(
+        ref.dist_l_ref(torch.from_numpy(x), torch.from_numpy(q)).numpy(),
+        np.asarray(jref.dist_l_ref(jnp.asarray(x), jnp.asarray(q))),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_mixed_devices_raise():
+    x = torch.zeros(2, 3, 4)
+    q = torch.zeros(2, 4, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        ops.dist_h(x, q)
