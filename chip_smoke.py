@@ -7,7 +7,7 @@ Phases, each printing one JSON object per line; any failure exits
 non-zero:
 
   1. device   — ``nvidia-smi`` name and power limit, torch's device name;
-  2. build    — ``nvcc`` builds the three kernels from ``kernels/csrc``
+  2. build    — ``nvcc`` builds the five kernels from ``kernels/csrc``
                 (one process per source, started together);
   3. kernels  — each kernel at the main path's shapes (B=1024 for search,
                 2048 for the build probe) plus edge rows, held against its
@@ -18,20 +18,32 @@ non-zero:
                 replays timed with CUDA events;
   4. build    — the wave builder at the paper's SIFT1M configuration
                 (``--n`` points), ``graph_invariants`` must hold;
-  5. search   — PCA-15, layout (3) on the card, ``--queries`` queries in
-                batches of ``--batch``: QPS, recall@10 (must be >= 0.80),
-                ``steps_mean``, ``dist_h_mean``;
-  6. parity   — on the 8k bench fixture, the same graph packed on the card
-                and on the CPU: bit-identical ids, dists, steps and Dist.H
-                counts on integer-valued data, recall within 0.005 and ids
-                equal for >= 99% of queries on float data;
-  7. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+  5. pq_train — the PQ codebook (16 x 256, density-aware, 8 Lloyd
+                iterations on a 20k subsample) and the codes of all
+                points, host numpy, timed as their own stage;
+  6. search   — layout (3) on the card, ``--queries`` queries in batches
+                of ``--batch``, four arms: pca (per-step, the first arm),
+                pca-deferred, pq and cascade-deferred. Per arm: QPS,
+                recall@10 (>= 0.80; >= 0.60 for pq), ``steps_mean``,
+                ``dist_h_mean``, bytes, launches per kernel (each kernel
+                of the arm's path must launch) and one profiled batch;
+  7. parity   — on the 8k bench fixture, the same graph packed on the card
+                and on the CPU, for pca and the pq, pq-deferred,
+                pca-deferred and cascade-deferred modes: bit-identical
+                ids, dists, steps and Dist.H counts on integer-valued data
+                (integer centroids, a coordinate-selecting projection),
+                recall within 0.005 and ids equal for >= 99% of queries on
+                float data;
+  8. filters  — the 8k filters table (first 64 queries, B=64) beside the
+                tracked ``BENCH_table3.json`` -> ``filters`` rows; each
+                recall within 0.02 of the tracked one;
+  9. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
-Launch counts are reset just before each main-path phase (4 and 5) and
-read just after; every kernel of the phase must have launched. It needs
-no network and one card, and exits non-zero without CUDA or without the
-``src/repro_torch`` package beside it.
+Launch counts are reset just before each main-path run (the build, and
+each search arm) and read just after. It needs no network and one card,
+and exits non-zero without CUDA or without the ``src/repro_torch``
+package beside it.
 """
 from __future__ import annotations
 
@@ -146,6 +158,34 @@ def _merge_case(np, rng, B, Na, Nb, integer):
     return a, ia, b, ib
 
 
+def _pq_case(np, rng, B, M, S, integer):
+    """uint8 codes and a flat per-query row [S*256 + 15] whose first
+    S*256 entries are the tables (the cascade's prep layout); integer
+    tables make every sum exact. Edge rows as in ``_expand_case``."""
+    codes = rng.integers(0, 256, (B, M, S)).astype(np.uint8)
+    if integer:
+        flat = rng.integers(0, 1 << 16, (B, S * 256 + 15)).astype(np.float32)
+        th = np.where(rng.random(B) < 0.5, float(S << 15), 3.4e38)
+    else:
+        flat = np.abs(rng.standard_normal((B, S * 256 + 15))) \
+            .astype(np.float32)
+        th = np.where(rng.random(B) < 0.5, 0.8 * S, 3.4e38)
+    valid = rng.random((B, M)) < 0.8
+    if integer and B >= 8:
+        valid[0] = False
+        codes[1] = codes[1, :1]
+        valid[1] = True
+        th[2] = 0.0
+    return codes, flat, valid, th.astype(np.float32)
+
+
+def _library_pq_expand(torch, codes, lut, valid, th, k):
+    """The PQ expand as library calls: gather, sum, mask, stable sort."""
+    d = torch.gather(lut, 2, codes.long().transpose(1, 2)).sum(1)
+    d = torch.where(valid & (d < th[:, None]), d, 3.4e38)
+    return torch.sort(d, dim=1, stable=True)[0][:, :k]
+
+
 def _library_expand(torch, x, q, valid, th, k):
     """The fused expand as library calls: distances, mask, stable sort."""
     d = ((x - q[:, None]) ** 2).sum(-1)
@@ -199,10 +239,12 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
             bound=bound_ms(nbytes, nops))
 
     # --- merge_sorted: search L0 F/C/Cp, L1 C, L2+ C, probe F/C ---
+    # (+ layer 0 of pca-deferred F/C and cascade-deferred F/C/Cp)
     mg_shapes = [(1024, 10, 10, 10), (1024, 26, 16, 26), (1024, 16, 16, 16),
                  (1024, 9, 8, 9), (1024, 8, 3, 8), (1024, 1, 1, 1),
                  (2048, 100, 32, 100), (2048, 132, 32, 132),
-                 (2048, 32, 16, 32)]
+                 (2048, 32, 16, 32), (1024, 30, 16, 30), (1024, 46, 16, 46),
+                 (1024, 60, 32, 60), (1024, 92, 32, 92), (1024, 32, 32, 32)]
     for B, Na, Nb, k in mg_shapes:
         errs = []
         for integer in (True, False):
@@ -224,9 +266,11 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
                 torch.cat([a, b], 1), dim=1, stable=True)[0][:, :k]),
             bound=bound_ms(nbytes, nops))
 
-    # --- dist_h: search K = 16/8/3 and the entry (1); probe K = 32/16 ---
+    # --- dist_h: search K = 16/8/3 and the entry (1); probe K = 32/16;
+    #     the deferred re-rank K = 30 (pca) and 20 (cascade) ---
     dh_shapes = [(1024, 16, 128), (1024, 8, 128), (1024, 3, 128),
-                 (1024, 1, 128), (2048, 32, 128), (2048, 16, 128)]
+                 (1024, 1, 128), (2048, 32, 128), (2048, 16, 128),
+                 (1024, 30, 128), (1024, 20, 128)]
     for B, K, D in dh_shapes:
         errs = []
         for integer in (True, False):
@@ -247,11 +291,70 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
                                 .sum(-1)),
             bound=bound_ms(B * K * D * 4 + B * D * 4 + B * K * 4,
                            B * K * D * 3))
+    # --- dist_l: cascade promote K = promote_mult * ef0 = 60, the
+    #     deferred entry score K = 1 ---
+    for B, K, dl in [(1024, 60, 15), (1024, 1, 15)]:
+        errs = []
+        for integer in (True, False):
+            if integer:
+                xn = rng.integers(-64, 64, (B, K, dl)).astype(np.float32)
+                qn = rng.integers(-64, 64, (B, dl)).astype(np.float32)
+            else:
+                xn = rng.standard_normal((B, K, dl)).astype(np.float32)
+                qn = rng.standard_normal((B, dl)).astype(np.float32)
+            x, q = T(xn, qn)
+            errs.append(compare("dist_l", (B, K, dl), ops.dist_l(x, q),
+                                ref.dist_l_ref(x, q), integer))
+        results[("dist_l", (B, K, dl))] = dict(
+            max_abs_err=max(errs),
+            ms=graph_ms(torch, lambda: ops.dist_l(x, q)),
+            plain_ms=graph_ms(torch, lambda: ref.dist_l_ref(x, q)),
+            library_ms=graph_ms(torch, lambda: ((x - q[:, None]) ** 2)
+                                .sum(-1)),
+            bound=bound_ms(B * K * dl * 4 + B * dl * 4 + B * K * 4,
+                           B * K * dl * 3))
+
+    # --- pq_adc_expand: pq layers 0/1/2+ (M, k) = (32, 16)/(16, 8)/
+    #     (16, 3); cascade-deferred layer 0 keeps all M0 = 32. The
+    #     cascade's tables are a strided view of its flat prep row ---
+    pq_shapes = [(1024, 32, 16, 16), (1024, 16, 16, 8), (1024, 16, 16, 3),
+                 (1024, 32, 16, 32)]
+    for B, M, S, k in pq_shapes:
+        errs = []
+        for integer in (True, False):
+            c, flat, v, th = T(*_pq_case(np, rng, B, M, S, integer))
+            lut = flat[:, :S * 256].reshape(B, S, 256)
+            if k != 32:
+                lut = lut.contiguous()         # the pq filter's own tables
+            errs.append(compare("pq_adc_expand", (B, M, S, k),
+                                ops.pq_adc_expand(c, lut, v, th, k),
+                                ref.pq_adc_expand_ref(c, lut, v, th, k),
+                                integer))
+        # bytes: the table entries the codes name (each read once; the
+        # whole [B, S, 256] table is B*S*1 KB), the codes, mask, th, out
+        touched = torch.zeros((B, S, 256), dtype=torch.bool, device=dev)
+        touched.scatter_(2, c.long().transpose(1, 2), True)
+        nbytes = int(touched.sum()) * 4 + B * M * S + B * M + B * 4 \
+            + B * k * 8
+        results[("pq_adc_expand", (B, M, S, k))] = dict(
+            max_abs_err=max(errs),
+            ms=graph_ms(torch, lambda: ops.pq_adc_expand(c, lut, v, th, k)),
+            plain_ms=graph_ms(torch, lambda: ref.pq_adc_expand_ref(
+                c, lut, v, th, k)),
+            library_ms=graph_ms(torch, lambda: _library_pq_expand(
+                torch, c, lut, v, th, k)),
+            bound=bound_ms(nbytes, B * M * S + B * M * M),
+            bound_full_table_ms=bound_ms(
+                nbytes - int(touched.sum()) * 4 + B * S * 256 * 4,
+                B * M * S + B * M * M)[0])
+
     for (name, shape), r in results.items():
         emit({"phase": "kernel", "name": name, "shape": list(shape),
               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-              "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+              **({"bound_full_table_ms": r["bound_full_table_ms"]}
+                 if "bound_full_table_ms" in r else {})})
     return results
 
 
@@ -302,45 +405,107 @@ def ground_truth(torch, x, q, k: int, device: str):
     return torch.cat(out).numpy()
 
 
-def run_search(torch, np, x, g, n_queries: int, batch: int, seed: int,
+# the search arms at --n points: (name, filter kind, deferred,
+# rerank_mult, recall@10 floor). The pca arm calls search_batched with pca=;
+# the pq floor guards against a broken table (the tracked 8k value is
+# 0.923), the others are the sanity floor of the pca arm.
+ARMS = [("pca", "pca", False, None, 0.80),
+        ("pca-deferred", "pca", True, 3, 0.80),
+        ("pq", "pq", False, None, 0.60),
+        ("cascade-deferred", "cascade", True, 2, 0.80)]
+# the kernels each arm's path must launch
+ARM_KERNELS = {
+    "pca": ("fused_expand", "merge_sorted", "dist_h"),
+    "pca-deferred": ("fused_expand", "merge_sorted", "dist_h", "dist_l"),
+    "pq": ("pq_adc_expand", "merge_sorted", "dist_h"),
+    "cascade-deferred": ("pq_adc_expand", "merge_sorted", "dist_h",
+                         "dist_l"),
+}
+PORTED = ("fused_expand", "merge_sorted", "dist_h", "dist_l",
+          "pq_adc_expand")
+
+
+def train_filters(np, x, g, pca) -> tuple:
+    """The filters of the search arms: the PCA, and ONE PQ codebook
+    trained density-aware (weights ``level + 1``) at the config's
+    ``pq_train_iters`` and shared by the pq and cascade arms, with the
+    codes encoded once. Host numpy, the reference's arithmetic (so the
+    codebook is bit-identical to ``repro.core.pq``'s)."""
+    import dataclasses
+    from repro_torch.core import filters
+    t0 = time.perf_counter()
+    fpq = filters.make_filter(dataclasses.replace(g.cfg, filter_kind="pq"),
+                              x, seed=0, levels=g.levels)
+    t1 = time.perf_counter()
+    codes = fpq.encode(x)
+    t2 = time.perf_counter()
+    filts = {"pca": filters.PCAFilter(pca), "pq": fpq,
+             "cascade": filters.CascadeFilter(fpq.cb, pca)}
+    return filts, codes, {
+        "phase": "pq_train", "n_points": len(x),
+        "n_train": min(len(x), 20_000), "pq_n_sub": g.cfg.pq_n_sub,
+        "pq_train_iters": g.cfg.pq_train_iters,
+        "train_seconds": t1 - t0, "encode_seconds": t2 - t1}
+
+
+def run_search(torch, np, x, g, pca, filts, codes, q, gt, batch: int,
                device: str):
-    from repro_torch.core.pca import fit_pca
+    """Every arm of ``ARMS`` over all queries in batches of ``batch``;
+    launch counts are reset just before each arm's timed run and read
+    just after."""
     from repro_torch.core.search_torch import build_packed, search_batched
-    from repro_torch.data.vectors import make_queries
     from repro_torch.kernels import ops
-    pca = fit_pca(x, g.cfg.d_low)
-    t0 = time.perf_counter()
-    db = build_packed(g, pca.transform(x).astype(np.float32), device=device)
-    pack_s = time.perf_counter() - t0
-    q = make_queries(x, n_queries, seed=seed + 1)
-    gt = ground_truth(torch, x, q, 10, device)
-    search_batched(db, q[:batch], pca=pca, device=device)      # warm-up
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sync()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    fis, steps, dhe = [], [], []
-    for i in range(0, n_queries, batch):
-        _, fi, st = search_batched(db, q[i:i + batch], pca=pca,
-                                   return_stats=True, device=device)
-        fis.append(fi)
-        steps.append(st["steps_total"])
-        dhe.append(st["dist_h_evals"])
-    sync()
-    secs = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    fi = torch.cat(fis).cpu().numpy()
-    prof = profile_batch(torch, lambda: search_batched(
-        db, q[:batch], pca=pca, device=device)) if device == "cuda" else None
-    return {"phase": "search", "n_points": len(x), "queries": n_queries,
-            "batch": batch, "seconds": secs, "qps": n_queries / secs,
-            "recall_at_10": recall_at_10(fi, gt),
+    dbs, pack_s = {}, {}
+    outs = []
+    for name, kind, deferred, rm, floor in ARMS:
+        if kind not in dbs:
+            t0 = time.perf_counter()
+            x_low = codes if kind != "pca" else \
+                pca.transform(x).astype(np.float32)
+            dbs[kind] = build_packed(
+                g, x_low, filt=None if kind == "pca" else filts[kind],
+                device=device)
+            sync()
+            pack_s[kind] = time.perf_counter() - t0
+        db = dbs[kind]
+        kw = {"pca": pca} if name == "pca" else {
+            "filt": filts[kind], "deferred": deferred, "rerank_mult": rm}
+        search_batched(db, q[:batch], device=device, **kw)      # warm-up
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fis, steps, dhe = [], [], []
+        for i in range(0, len(q), batch):
+            _, fi, st = search_batched(db, q[i:i + batch],
+                                       return_stats=True, device=device,
+                                       **kw)
+            fis.append(fi)
+            steps.append(st["steps_total"])
+            dhe.append(st["dist_h_evals"])
+        sync()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        fi = torch.cat(fis).cpu().numpy()
+        prof = profile_batch(torch, lambda: search_batched(
+            db, q[:batch], device=device, **kw)) \
+            if device == "cuda" else None
+        outs.append({
+            "phase": "search", "arm": name, "filter_kind": kind,
+            "deferred": deferred, "rerank_mult": rm or 1,
+            "promote_mult": g.cfg.promote_mult
+            if (deferred and kind == "cascade") else 1,
+            "n_points": len(x), "queries": len(q), "batch": batch,
+            "seconds": secs, "qps": len(q) / secs,
+            "recall_at_10": recall_at_10(fi, gt), "recall_floor": floor,
             "steps_mean": float(torch.cat(steps).float().mean()),
             "dist_h_mean": float(torch.cat(dhe).float().mean()),
-            "pack_seconds": pack_s,
+            "pack_seconds": pack_s[kind],
             "bytes_layout3": db.bytes_layout3,
             "bytes_layout4": db.bytes_layout4,
-            "launches": counts, "profile_one_batch": prof}
+            "bytes_sidecar": db.bytes_sidecar,
+            "launches": counts, "profile_one_batch": prof})
+    return outs
 
 
 def profile_batch(torch, fn, top: int = 10) -> dict:
@@ -366,7 +531,7 @@ def profile_batch(torch, fn, top: int = 10) -> dict:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     ported = {n: sum(us for us, k, _ in rows if f"{n}_kernel" in k) / 1e3
-              for n in ("fused_expand", "merge_sorted", "dist_h")}
+              for n in PORTED}
     return {"wall_ms": wall * 1e3, "device_ms": busy_ms,
             "busy_share": busy_ms / (wall * 1e3),
             "launches": sum(r[2] for r in rows),
@@ -375,10 +540,70 @@ def profile_batch(torch, fn, top: int = 10) -> dict:
                     for us, k, c in rows[:top]]}
 
 
-def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> dict:
+# the 8k filter modes held card vs CPU: (filter kind, deferred,
+# rerank_mult), at the tracked bench's multipliers
+PARITY_MODES = {"pq": ("pq", False, None), "pq-deferred": ("pq", True, 3),
+                "pca-deferred": ("pca", True, 3),
+                "cascade-deferred": ("cascade", True, 2)}
+# the rows of BENCH_table3.json -> filters, as batched_filter_ab runs them
+TABLE_MODES = {"pca": ("pca", False, None), "pq": ("pq", False, None),
+               "none": ("none", False, None),
+               "pca-deferred": ("pca", True, 3),
+               "cascade-deferred": ("cascade", True, 2)}
+
+
+def _bench_filters(np, cfg, x, pca, levels):
+    """The 8k bench's filters (``benchmarks/common.make_bench_filter``):
+    the adopted PCA; PQ at 4 Lloyd iterations; the cascade at the
+    config's 8, adopting the PCA; both density-aware from ``levels``."""
+    import dataclasses
+    from repro_torch.core import filters
+    mk = lambda kind, iters: filters.make_filter(
+        dataclasses.replace(cfg, filter_kind=kind, pq_train_iters=iters),
+        x, pca=pca, levels=levels)
+    return {"pca": filters.PCAFilter(pca), "pq": mk("pq", 4),
+            "cascade": mk("cascade", cfg.pq_train_iters),
+            "none": filters.IdentityFilter(dim=x.shape[1])}
+
+
+def _int_filters(np, filts, d_low: int, dim: int):
+    """Exact-arithmetic twins of the filters: the cascade's codebook
+    rounded to integers, and a 'PCA' that selects the first d_low
+    coordinates (a projection, so still a lower bound)."""
+    from repro_torch.core import filters
+    arrays = {"centroids": np.round(filts["cascade"].cb.centroids),
+              "mean": np.zeros(dim, np.float32),
+              "components": np.eye(dim, d_low, dtype=np.float32),
+              "explained": np.full(d_low, 1.0 / d_low, np.float32)}
+    return {k: filters.from_reference(k, arrays)
+            for k in ("pca", "pq", "cascade")}
+
+
+def _search_all(torch, g, filt, q, deferred, rm, device, dbs, batch=None):
+    from repro_torch.core.search_torch import build_packed, search_batched
+    key = (filt.kind, device)
+    if key not in dbs:
+        dbs[key] = build_packed(g, filt=filt, device=device)
+    db = dbs[key]
+    batch = batch or len(q)
+    outs = [search_batched(db, q[i:i + batch], filt=filt, deferred=deferred,
+                           rerank_mult=rm, return_stats=True, device=device)
+            for i in range(0, len(q), batch)]
+    cat = lambda xs, d=0: torch.cat([t.cpu() for t in xs], d)
+    return (cat([o[0] for o in outs]), cat([o[1] for o in outs]),
+            cat([o[2]["steps_per_layer"] for o in outs], 1),
+            cat([o[2]["dist_h_evals"] for o in outs]), db)
+
+
+def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
     """The 8k bench fixture (SIFT50k-shaped config at 8000 points, seed
-    0, 200 queries): one graph, built on ``device``, packed on ``device``
-    and on the CPU."""
+    0, 200 queries): one graph, built on ``device``, packed on
+    ``device`` and on the CPU; the pca check, then every other filter
+    mode on float data (recall within 0.005, ids equal for >= 99% of
+    queries) and on integer data (bit-identical ids, dists, steps and
+    Dist.H counts). Then the filters table over the first 64 queries at
+    B=64, held to the tracked ``BENCH_table3.json`` -> ``filters``
+    recall within 0.02. Returns (parity dict, table dict)."""
     import dataclasses
     from repro_torch.configs.sift1m_phnsw import SMALL
     from repro_torch.core.graph import HNSWGraph, build_hnsw
@@ -423,13 +648,66 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> dict:
                      st["dist_h_evals"].cpu()]
     bit = all(torch.equal(a, b) for a, b in zip(outs[device], outs["cpu"]))
     need(bit, "8k integer parity: card and CPU differ")
-    return {"phase": "parity_8k", "recall_card": rec_card,
-            "recall_cpu": rec_host, "recall_first64_card": rec64,
-            "ids_equal_frac": same,
-            "dist_h_mean_card": float(card[2].mean()),
-            "dist_h_mean_first64_card": dhe64,
-            "tracked_filters_pca": {"recall": 0.9984, "dist_h_mean": 48.9},
-            "integer_bit_identical": bit}
+
+    # --- every new filter mode, card vs CPU ---
+    filts = _bench_filters(np, cfg, x, pca, g.levels)
+    ifilts = _int_filters(np, filts, cfg.d_low, x.shape[1])
+    dbs, idbs, modes = {}, {}, {}
+    for mode, (kind, deferred, rm) in PARITY_MODES.items():
+        r = {}
+        for dev in (device, "cpu"):
+            r[dev] = _search_all(torch, g, filts[kind], q, deferred, rm,
+                                 dev, dbs)
+        ids_c, ids_h = r[device][1].numpy(), r["cpu"][1].numpy()
+        rc, rh = recall_at_10(ids_c, gt), recall_at_10(ids_h, gt)
+        eq = float((ids_c == ids_h).all(1).mean())
+        need(abs(rc - rh) <= 0.005,
+             f"8k {mode} float parity: recall card {rc} vs cpu {rh}")
+        need(eq >= 0.99, f"8k {mode} float parity: ids equal for {eq:.4f}")
+        ri = {}
+        for dev in (device, "cpu"):
+            ri[dev] = _search_all(torch, gi, ifilts[kind], qi, deferred, rm,
+                                  dev, idbs)
+        ibit = all(torch.equal(a, b)
+                   for a, b in zip(ri[device][:4], ri["cpu"][:4]))
+        need(ibit, f"8k {mode} integer parity: card and CPU differ")
+        modes[mode] = {"recall_card": rc, "recall_cpu": rh,
+                       "ids_equal_frac": eq,
+                       "dist_h_mean_card": float(r[device][3]
+                                                 .float().mean()),
+                       "integer_bit_identical": ibit,
+                       "integer_dist_h_mean": float(ri[device][3]
+                                                    .float().mean())}
+    parity = {"phase": "parity_8k", "recall_card": rec_card,
+              "recall_cpu": rec_host, "recall_first64_card": rec64,
+              "ids_equal_frac": same,
+              "dist_h_mean_card": float(card[2].mean()),
+              "dist_h_mean_first64_card": dhe64,
+              "integer_bit_identical": bit, "modes": modes}
+
+    # --- the filters table: first 64 queries at B=64 on the card ---
+    tracked = json.loads((ROOT / "BENCH_table3.json").read_text())["filters"]
+    rows = {}
+    for mode, (kind, deferred, rm) in TABLE_MODES.items():
+        _, fi, st, dhe, db = _search_all(torch, g, filts[kind], q[:64],
+                                         deferred, rm, device, dbs, 64)
+        rec = recall_at_10(fi.numpy(), gt[:64])
+        t = tracked[mode]
+        rows[mode] = {"recall": rec, "tracked_recall": t["recall"],
+                      "dist_h_mean": float(dhe.float().mean()),
+                      "tracked_dist_h_mean": t["dist_h_mean"],
+                      "steps_mean": float(st.sum(0).float().mean()),
+                      "bytes_per_vec": filts[kind].bytes_per_vec,
+                      "tracked_bytes_per_vec": t["bytes_per_vec"],
+                      "sidecar_bytes_per_vec": getattr(
+                          filts[kind], "mid_bytes_per_vec", 0),
+                      "bytes_layout3": db.bytes_layout3,
+                      "bytes_sidecar": db.bytes_sidecar}
+        need(abs(rec - t["recall"]) <= 0.02,
+             f"8k filters table: {mode} recall {rec} vs tracked "
+             f"{t['recall']}")
+    return parity, {"phase": "filters_8k", "queries": 64, "batch": 64,
+                    "rows": rows}
 
 
 # --------------------------------- main ------------------------------------
@@ -443,6 +721,10 @@ KERNEL_META = {
                      (1024, 26, 16, 26)),
     "dist_h": ("cuda", "src/repro_torch/kernels/csrc/dist_h.cu",
                "src/repro/kernels/dist_h.py:21", (1024, 16, 128)),
+    "dist_l": ("cuda", "src/repro_torch/kernels/csrc/dist_l.cu",
+               "src/repro/kernels/dist_l.py:25", (1024, 60, 15)),
+    "pq_adc_expand": ("cuda", "src/repro_torch/kernels/csrc/pq_adc_expand.cu",
+                      "src/repro/kernels/pq_adc.py:41", (1024, 32, 16, 32)),
 }
 
 
@@ -492,26 +774,40 @@ def main(argv=None) -> int:
             "reference's arithmetic); a 1M build does not fit a third "
             f"of the {TIME_LIMIT_S} s smoke limit")}})
 
-    sout = run_search(torch, np, x, g, args.queries, args.batch, args.seed,
-                      "cuda")
-    emit(sout)
-    for name, c in sout["launches"].items():
-        need(c > 0, f"search never launched {name}")
-    need(sout["recall_at_10"] >= 0.80,
-         f"recall@10 {sout['recall_at_10']} < 0.80")
-    del x, g
+    from repro_torch.core.pca import fit_pca
+    from repro_torch.data.vectors import make_queries
+    pca = fit_pca(x, g.cfg.d_low)
+    filts, codes, tout = train_filters(np, x, g, pca)
+    emit(tout)
+    q = make_queries(x, args.queries, seed=args.seed + 1)
+    gt = ground_truth(torch, x, q, 10, "cuda")
+    souts = run_search(torch, np, x, g, pca, filts, codes, q, gt,
+                       args.batch, "cuda")
+    for sout in souts:
+        emit(sout)
+        arm = sout["arm"]
+        for name in ARM_KERNELS[arm]:
+            need(sout["launches"][name] > 0,
+                 f"search arm {arm} never launched {name}")
+        need(sout["recall_at_10"] >= sout["recall_floor"],
+             f"arm {arm}: recall@10 {sout['recall_at_10']} < "
+             f"{sout['recall_floor']}")
+    del x, g, codes
 
-    emit(run_parity(torch, np))
+    parity, table = run_parity(torch, np)
+    emit(parity)
+    emit(table)
 
     rows = []
     for name, (route, src, replaces, shape) in KERNEL_META.items():
         r = kres[(name, shape)]
+        per_arm = {s["arm"]: s["launches"][name] for s in souts}
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "shape": list(shape),
                      "launches": bout["launches"][name]
-                     + sout["launches"][name],
+                     + sum(per_arm.values()),
                      "launches_build": bout["launches"][name],
-                     "launches_search": sout["launches"][name],
+                     "launches_search": per_arm,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

@@ -1,8 +1,8 @@
 """The pHNSW configuration (port of ``PHNSWConfig`` from
 ``repro/configs/base.py``; the LM ``ModelConfig`` is not ported yet).
-It holds the reference's fields that this slice reads, with the same
-names, defaults and methods; the filter, re-ranking and mutable-index
-fields come with the slices that read them."""
+It holds the reference's fields that the ported paths read, with the
+same names, defaults and methods; the mutable-index fields come with
+the slice that reads them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -46,6 +46,30 @@ class PHNSWConfig:
     # at every layer. Does NOT apply to MutableIndex inserts (their
     # probe keeps the full beam).
     wave_ef_upper: Optional[int] = 16
+    # ---- filter stage (core/filters.py) ----
+    # which low-cost filter ranks candidates before (or instead of)
+    # high-dim re-ranking: "pca" (the paper's dense low-dim projection),
+    # "pq" (Flash-style product quantization, scored by the ADC expand
+    # kernel), "cascade" (PQ-traverse -> PCA-promote -> one deferred
+    # Dist.H pass; requires deferred_rerank), or "none" (filter bypass:
+    # every neighbor goes straight to Dist.H, the HNSW-Std behavior)
+    filter_kind: str = "pca"
+    # PQ filter shape: n_sub subspaces x 256 centroids = n_sub bytes/vec
+    pq_n_sub: int = 16
+    pq_train_iters: int = 8
+    # cascade promote stage: the layer-0 traversal keeps
+    # promote_mult * ef0 PQ-space candidates, the PCA mid-stage score
+    # (batched, once per layer-0 exit) trims them to rerank_mult * ef0
+    # for the single final Dist.H pass
+    promote_mult: int = 6
+    # ---- re-ranking mode ----
+    # "deferred" traverses purely on filter distances and re-ranks only
+    # the final list in high dim: ONE batched Dist.H call per query
+    # instead of k per expansion step. rerank_mult widens the layer-0
+    # result list to rerank_mult * ef0 filter-space candidates before
+    # that single re-rank.
+    deferred_rerank: bool = False
+    rerank_mult: int = 3
     # storage dtype of the inline low-dim vectors in layout (3)
     # ("bfloat16" halves the dominant HBM stream and the paper's ~2.9x
     # memory blow-up; distances still accumulate in f32). Only float32

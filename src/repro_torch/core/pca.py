@@ -31,6 +31,10 @@ class PCA:
     _dev: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = field(
         default_factory=dict, init=False, repr=False, compare=False)
 
+    @property
+    def d_low(self) -> int:
+        return self.components.shape[1]
+
     def transform(self, x):
         return (x - self.mean) @ self.components
 

@@ -19,14 +19,22 @@ B queries run Algorithm 1 together, as in the reference:
     on the host only every ``DONE_CHECK_EVERY`` trips, with results
     bit-identical to an exit at the first all-done trip.
 
-This slice covers the "pca" and "none" filter kinds at float32 low
-storage with per-step re-ranking and no tombstones. Everything else
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+The filter kinds are those of ``core/filters.py``: "pca" (Dist.L on
+float32 rows, the fused expand kernel), "pq" (uint8 ADC codes, the PQ
+expand kernel), "cascade" (PQ codes inline, a PCA side-car ``low2`` for
+the promote stage) and "none" (the filter bypass). Re-ranking is per
+step or deferred: a deferred search traverses on filter distances only
+and re-ranks the final list with ONE batched Dist.H per query (the
+deferred cascade first trims a wider PQ-space list through ``dist_l``
+on the side-car rows). bfloat16 low storage and tombstones are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,15 +64,23 @@ class PackedLayer:
 class PackedDB:
     """Device-resident database in the paper's layout (3).
 
-    ``filter_kind`` is "pca" (dense low-dim rows in ``low`` and inline in
-    every ``packed_low``) or "none" (zero-width payload: every neighbor
-    goes straight to Dist.H). The reference's tombstone bitmap
-    (``deleted``) and cascade side-car (``low2``) are not ported yet."""
+    ``filter_kind`` says which filter stage the payload in ``low`` and
+    every ``packed_low`` belongs to: "pca" (dense float32 low-dim rows),
+    "pq" (uint8 ADC codes), "cascade" (uint8 ADC codes inline plus a PCA
+    side-car) or "none" (zero-width payload: every neighbor goes
+    straight to Dist.H).
+
+    ``low2`` is the cascade's SIDE-CAR: f32 PCA rows ``[N, d_low]``,
+    stored off the layout-(3) hot stream (never inlined per neighbor)
+    and gathered once per query at the promote stage; None for every
+    other kind. The reference's tombstone bitmap (``deleted``) is not
+    ported yet."""
     layers: List[PackedLayer]
     low: torch.Tensor          # [N, P] filter payload rows (P may be 0)
     high: torch.Tensor         # [N, D]
     entry: int
     cfg: PHNSWConfig
+    low2: Optional[torch.Tensor] = None   # [N, dl] promote side-car
     filter_kind: str = "pca"
 
     @property
@@ -85,32 +101,61 @@ class PackedDB:
         return extra + self.high.numel() * 4
 
     @property
+    def bytes_sidecar(self) -> int:
+        """Stored bytes of the cascade's promote side-car (0 without
+        one); not part of the layout-(3) inline stream."""
+        if self.low2 is None:
+            return 0
+        return self.low2.numel() * self.low2.element_size()
+
+    @property
     def bytes_layout4(self) -> int:
         idx = sum(int((l.adj >= 0).sum()) * 4 for l in self.layers)
         return idx + self.low.numel() * self.low.element_size() \
             + self.high.numel() * 4
 
 
+_PAYLOAD_DTYPE = {"pca": "float32", "pq": "uint8", "cascade": "uint8",
+                  "none": "float32"}
+
+
 def _check_slice(filter_kind: str, low_dtype: str) -> None:
-    if filter_kind not in ("pca", "none"):
-        raise _todo(f"filter kind {filter_kind!r}", "A3")
-    if low_dtype != "float32":
+    if filter_kind not in _PAYLOAD_DTYPE:
+        raise ValueError(f"unknown filter kind {filter_kind!r}")
+    if filter_kind == "pca" and low_dtype != "float32":
         raise _todo(f"low_dtype={low_dtype}", "A3")
+    if low_dtype != _PAYLOAD_DTYPE[filter_kind]:
+        raise ValueError(f"a {filter_kind!r} payload is "
+                         f"{_PAYLOAD_DTYPE[filter_kind]}, got {low_dtype}")
 
 
-def build_packed(g: HNSWGraph, x_low: np.ndarray, *,
-                 low_dtype: Optional[str] = None,
+def build_packed(g: HNSWGraph, x_low: Optional[np.ndarray] = None, *,
+                 filt=None, low_dtype: Optional[str] = None,
                  device="cuda") -> PackedDB:
-    """Pack a graph into layout (3) on ``device`` for the PCA filter.
-    ``x_low`` is the payload ([N, dl] rows); ``low_dtype`` (default
-    ``g.cfg.low_dtype``) must be float32 in this slice. All-padding top
-    layers are dropped (the level assignment rarely reaches
-    ``cfg.n_layers``). The neighbor-payload gather runs on ``device``."""
-    _check_slice("pca", low_dtype or g.cfg.low_dtype)
+    """Pack a graph into layout (3) on ``device``. ``x_low`` is the
+    filter payload ([N, P] rows, dense low-dim vectors for the default
+    PCA filter); passing ``filt`` (a ``core.filters.FilterSpec``)
+    instead encodes the payload from the filter and stamps its kind
+    onto the db ("pca" assumed otherwise). ``low_dtype`` (default
+    ``g.cfg.low_dtype``) is the PCA payload's storage dtype and must be
+    float32 here; PQ codes always store uint8. All-padding top layers
+    are dropped (the level assignment rarely reaches ``cfg.n_layers``).
+    The neighbor-payload gather runs on ``device``."""
+    fkind = filt.kind if filt is not None else "pca"
+    if x_low is None:
+        if filt is None:
+            raise ValueError("build_packed needs x_low or filt")
+        x_low = filt.encode(g.x)
+    x_low = np.asarray(x_low)
+    if fkind == "pca":
+        _check_slice(fkind, low_dtype or g.cfg.low_dtype)
+        x_low = x_low.astype(np.float32, copy=False)
+    else:
+        _check_slice(fkind, str(x_low.dtype))
     adjs = list(g.layers)
     while len(adjs) > 1 and not (adjs[-1] >= 0).any():
         adjs.pop()
-    low = torch.as_tensor(np.asarray(x_low, np.float32), device=device)
+    low = torch.as_tensor(x_low, device=device)
     layers = []
     for adj in adjs:
         a = torch.as_tensor(np.asarray(adj, np.int32), device=device)
@@ -118,23 +163,29 @@ def build_packed(g: HNSWGraph, x_low: np.ndarray, *,
         packed[a < 0] = 0
         layers.append(PackedLayer(adj=a, packed_low=packed))
     high = torch.as_tensor(np.asarray(g.x, np.float32), device=device)
+    low2 = None
+    if filt is not None and hasattr(filt, "encode_mid"):
+        # the cascade's promote side-car: PCA rows off the hot stream
+        low2 = torch.as_tensor(filt.encode_mid(g.x), device=device)
     return PackedDB(layers=layers, low=low, high=high, entry=int(g.entry),
-                    cfg=g.cfg)
+                    cfg=g.cfg, low2=low2, filter_kind=fkind)
 
 
 def from_reference(db_np: dict, cfg: PHNSWConfig, *,
                    device="cuda") -> PackedDB:
     """The port's PackedDB from a reference ``PackedDB``'s arrays given as
     numpy: ``{"adj": [..], "packed_low": [..], "low", "high", "entry",
-    "filter_kind"}`` — so both engines search the very same state. This
-    is how an identity-filter ("none") db is made in this slice."""
+    "filter_kind"}`` and, for the cascade, ``"low2"`` — so both engines
+    search the very same state."""
     _check_slice(db_np["filter_kind"], str(np.asarray(db_np["low"]).dtype))
     t = lambda a: torch.tensor(np.asarray(a), device=device)  # a copy
     layers = [PackedLayer(adj=t(a).to(torch.int32), packed_low=t(p))
               for a, p in zip(db_np["adj"], db_np["packed_low"])]
+    low2 = db_np.get("low2")
     return PackedDB(layers=layers, low=t(db_np["low"]),
                     high=t(db_np["high"]), entry=int(db_np["entry"]),
-                    cfg=cfg, filter_kind=db_np["filter_kind"])
+                    cfg=cfg, low2=None if low2 is None else t(low2),
+                    filter_kind=db_np["filter_kind"])
 
 
 def _rank_sort_with_payload(d, p):
@@ -143,6 +194,26 @@ def _rank_sort_with_payload(d, p):
     reference's comparison-matrix rank sort."""
     sd, order = torch.sort(d, dim=1, stable=True)
     return sd, torch.gather(p, 1, order)
+
+
+def _cascade_lut(qprep, S: int):
+    """ADC tables out of the cascade's flat per-query prep:
+    [B, S*256 + d_low] -> [B, S, 256], a strided VIEW (row stride
+    S*256 + d_low) that the PQ expand kernel reads in place."""
+    return qprep[:, :S * 256].reshape(qprep.shape[0], S, 256)
+
+
+def _cascade_qpca(qprep, S: int):
+    """The PCA-projected query out of the cascade's flat prep:
+    [B, S*256 + d_low] -> [B, d_low] (the promote-stage operand)."""
+    return qprep[:, S * 256:]
+
+
+def _gather_rows(table, ids):
+    """table[ids] for ids [B, K] (-1 pads read row 0): [B, K, width]."""
+    B, K = ids.shape
+    return table.index_select(0, ids.clamp(min=0).reshape(-1)) \
+        .reshape(B, K, -1)
 
 
 def _bits(ids):
@@ -175,15 +246,25 @@ def _layer_init(db: PackedDB, start_d, start_i, *, ef: int, k: int,
 
 
 def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
-                k: int, W: int, steps: int):
+                k: int, W: int, steps: int, deferred: bool = False):
     """The ONE-expansion-iteration body over the layer state
     ``(C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe)``. The visited
-    bitmap V is updated in place."""
+    bitmap V is updated in place. ``deferred`` traverses on filter
+    distances: no high-dim gather and no Dist.H inside the loop."""
     B = q_high.shape[0]
     lay = db.layers[layer]
     M = lay.adj.shape[1]
     fkind = db.filter_kind
-    kk = W * M if fkind == "none" else W * k
+    if fkind == "none":
+        kk = W * M          # filter bypass: every neighbor is a candidate
+        deferred = False    # filter space == high-dim space
+    else:
+        kk = W * k                               # survivors per iteration
+    # the PQ tables: the cascade's are a view into its flat prep row,
+    # taken once per layer (no per-step copy)
+    lut = _cascade_lut(qprep, db.low.shape[1]) if fkind == "cascade" \
+        else qprep
+    need_kv_row = fkind != "none" and not deferred
     dev = q_high.device
     lane = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     jj = torch.arange(kk, device=dev)
@@ -213,8 +294,15 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
         else:
             nb_pay = lay.packed_low.index_select(0, c_safe) \
                 .reshape(B, W * M, -1)
-            # -- fused expand: Dist.L + mask + f_pca threshold + kSort.L --
-            kv, ki = ops.fused_expand(nb_pay, qprep, nb_mask, Cp[:, -1], kk)
+            # -- fused expand: filter dist (Dist.L or PQ ADC) + mask +
+            #    f_pca threshold + kSort.L in one kernel --
+            if fkind == "pca":
+                kv, ki = ops.fused_expand(nb_pay, qprep, nb_mask,
+                                          Cp[:, -1], kk)
+            else:
+                # pq and cascade both traverse on ADC codes
+                kv, ki = ops.pq_adc_expand(nb_pay, lut, nb_mask, Cp[:, -1],
+                                           kk)
             cand = torch.gather(nb_i, 1, ki.long())          # [B, W*k]
             valid = (kv < VALID_MAX) & (cand >= 0)
         # -- visited check: one bit gather per candidate --
@@ -227,19 +315,25 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
                    & valid[:, None, :]).any(-1)
             seen |= dup
         valid &= ~seen
-        # -- step 3: kk irregular high-dim fetches + Dist.H --
-        xh = db.high.index_select(0, cand.clamp(min=0).reshape(-1)) \
-            .reshape(B, kk, -1)
-        dh = torch.where(valid, ops.dist_h(xh, q_high), INF)
-        dhe = dhe + valid.sum(1, dtype=torch.int32)
+        if deferred:
+            # -- deferred re-rank: traverse on FILTER distances --
+            dh = torch.where(valid, kv, INF)
+        else:
+            # -- step 3: kk irregular high-dim fetches + Dist.H --
+            dh = torch.where(valid, ops.dist_h(_gather_rows(db.high, cand),
+                                               q_high), INF)
+            dhe = dhe + valid.sum(1, dtype=torch.int32)
         # -- mark visited: disjoint bit masks (valid slots are distinct
         #    ids, so the add is a bitwise or); in place --
         V.scatter_add_(1, cw, torch.where(valid, cm, 0))
         # -- accept: d < F.max or F not full (F starts padded with INF) --
         accept = dh < bnd
+        # one stacked stable sort orders the acceptees for every feed;
+        # a separate kv row for the C_pca heap exists only when the
+        # traversal orders by Dist.H (deferred: dh IS kv)
         rows_d = [torch.where(accept, dh, INF)]
         rows_i = [torch.where(accept, cand, -1)]
-        if fkind != "none":
+        if need_kv_row:
             rows_d.append(torch.where(accept, kv, INF))
             rows_i.append(zeros_kk)
         s_d, s_i = _rank_sort_with_payload(torch.cat(rows_d, 0),
@@ -249,8 +343,10 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
         F_d, F_i = ops.merge_topk_sorted(F_d, F_i, sd, si, ef)
         C_d, C_i = ops.merge_topk_sorted(C_d, C_i, sd, si, C_d.shape[1])
         if fkind != "none":
-            # C_pca feed: the accepted candidates' filter dists
-            Cp, _ = ops.merge_topk_sorted(Cp, zeros_k, s_d[B:], zeros_kk, k)
+            # C_pca feed: the accepted candidates' filter dists, their
+            # own sort row per-step, the dh row itself when deferred
+            pv = s_d[B:] if need_kv_row else sd
+            Cp, _ = ops.merge_topk_sorted(Cp, zeros_k, pv, zeros_kk, k)
         nsteps = nsteps + exp.sum(1, dtype=torch.int32)
         return (C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe)
 
@@ -259,14 +355,18 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
 
 def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
                          start_d, start_i, *, ef: int, k: int,
-                         max_steps: Optional[int] = None):
+                         max_steps: Optional[int] = None,
+                         deferred: bool = False):
     """One layer of Algorithm 1 for a batch of queries.
 
     ``qprep`` is the filter's per-query data (the PCA-projected query
-    [B, dl] for "pca", a zero-width tensor for "none"). start_d/start_i:
-    [B, E] entry candidates ascending. Each trip pops the W =
+    [B, dl] for "pca", ADC tables [B, S, 256] for "pq", the flat row
+    [B, S*256 + dl] for "cascade", a zero-width tensor for "none").
+    start_d/start_i: [B, E] entry candidates ascending (FILTER-space
+    dists when ``deferred``). Each trip pops the W =
     ``cfg.expand_width`` nearest frontier candidates and expands them
-    jointly.
+    jointly. ``deferred`` traverses on filter distances only (a no-op
+    for the identity filter).
 
     Returns (F_dist [B, ef], F_idx [B, ef] ascending, steps [B] int32,
     dist_h [B] int32 = per-query Dist.H evaluations in this layer)."""
@@ -285,7 +385,7 @@ def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
     dhe = torch.zeros((B,), dtype=torch.int32, device=dev)
     state = (C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe)
     body = _layer_body(db, layer, q_high, qprep, ef=ef, k=k, W=W,
-                       steps=steps)
+                       steps=steps, deferred=deferred)
     for t in range(iters):
         if t and t % DONE_CHECK_EVERY == 0 and bool(state[6].all()):
             break
@@ -299,8 +399,7 @@ def _entry_start(db: PackedDB, queries):
     B = queries.shape[0]
     ep = torch.full((B, 1), int(db.entry), dtype=torch.int32,
                     device=db.device)
-    ep_d = ops.dist_h(db.high.index_select(0, ep.reshape(-1))
-                      .reshape(B, 1, -1), queries)
+    ep_d = ops.dist_h(_gather_rows(db.high, ep), queries)
     return ep_d, ep
 
 
@@ -321,7 +420,7 @@ def probe_neighborhoods(db: PackedDB, queries, qprep, ef: int, k: int,
     rows are padded to ef width with INF/-1 when ``ef_upper`` trims
     them."""
     if filter_deleted:
-        raise _todo("filter_deleted (tombstones)", "A3")
+        raise _todo("filter_deleted (tombstones)", "A5")
     _check_device(db, device)
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=db.device)
@@ -344,9 +443,14 @@ def probe_neighborhoods(db: PackedDB, queries, qprep, ef: int, k: int,
 
 
 def search_batched(db: PackedDB, queries, qprep=None, *, pca=None,
+                   filt=None,
+                   ef0: Optional[int] = None,
+                   k_schedule: Optional[Tuple[int, ...]] = None,
+                   entry: Optional[int] = None,
                    return_stats: bool = False,
-                   deferred: bool = False,
+                   deferred: Optional[bool] = None,
                    rerank_mult: Optional[int] = None,
+                   promote_mult: Optional[int] = None,
                    device="cuda"):
     """Full multi-layer pHNSW search for a batch. queries: [B, D] (numpy
     or tensor; moved to the db's device, which must be ``device``).
@@ -357,24 +461,63 @@ def search_batched(db: PackedDB, queries, qprep=None, *, pca=None,
     single shard).
 
     ``qprep`` is the filter's per-query data; leave it None and pass
-    ``pca`` for the PCA filter. The identity filter needs neither.
-    ``ef0`` and the per-layer k come from ``db.cfg``. Deferred
-    re-ranking (``deferred``, ``rerank_mult``) is not in this slice."""
-    if deferred or rerank_mult is not None:
-        raise _todo("deferred re-ranking (deferred, rerank_mult)", "A3")
+    ``filt`` (a ``core.filters.FilterSpec``) or ``pca`` (the PCA-filter
+    convenience) to compute it here. The identity filter needs neither.
+
+    ``deferred`` / ``rerank_mult`` select the re-ranking mode (defaults
+    from ``db.cfg.deferred_rerank`` / ``db.cfg.rerank_mult``): deferred
+    traverses on filter distances only and re-ranks the final
+    ``rerank_mult * ef0`` candidates in high dim with ONE batched
+    Dist.H call per query. ``promote_mult`` (cascade + deferred only;
+    default ``db.cfg.promote_mult``) widens the layer-0 traversal to
+    ``promote_mult * ef0`` PQ-space candidates that the PCA promote
+    stage trims back to ``rerank_mult * ef0`` before that Dist.H pass.
+    ``ef0`` and ``k_schedule`` default to the config's; ``entry``
+    overrides the descent entry point."""
+    if filt is not None and filt.kind != db.filter_kind:
+        raise ValueError(f"filter mismatch: db carries a "
+                         f"{db.filter_kind!r} payload, filt is "
+                         f"{filt.kind!r}")
     _check_device(db, device)
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=db.device)
     if qprep is None:
-        if pca is not None:
+        if filt is not None:
+            qprep = filt.prepare_torch(queries)
+        elif pca is not None:
             qprep = pca.transform_torch(queries)
         elif db.filter_kind == "none":
             qprep = queries[:, :0]
         else:
-            raise ValueError("qprep or pca required for the "
+            raise ValueError("qprep, filt or pca required for the "
                              f"{db.filter_kind!r} filter")
     qprep = torch.as_tensor(qprep, dtype=torch.float32, device=db.device)
-    fd, fi, steps, dhe = _search_batched_impl(db, queries, qprep)
+    if entry is not None:
+        db = dataclasses.replace(db, entry=int(entry))
+    if deferred is None:
+        deferred = db.cfg.deferred_rerank
+    if rerank_mult is None:
+        rerank_mult = db.cfg.rerank_mult
+    if promote_mult is None:
+        promote_mult = db.cfg.promote_mult
+    # the reference's normalisation of the no-op combinations: deferred
+    # is a no-op for the identity filter, rerank_mult exists only in
+    # deferred mode, promote_mult only for the deferred cascade
+    if db.filter_kind == "none":
+        deferred = False
+    if not deferred:
+        rerank_mult = 1
+    if not (deferred and db.filter_kind == "cascade"):
+        promote_mult = 1
+    else:
+        # the promote pool can never be narrower than the rerank pool
+        promote_mult = max(int(promote_mult), int(rerank_mult))
+    fd, fi, steps, dhe = _search_batched_impl(
+        db, queries, qprep, ef0=ef0 or db.cfg.ef0,
+        k_schedule=k_schedule or db.cfg.k_schedule_for(db.filter_kind,
+                                                       bool(deferred)),
+        deferred=bool(deferred), rerank_mult=int(rerank_mult),
+        promote_mult=int(promote_mult))
     if return_stats:
         return fd, fi, {"steps_per_layer": steps,
                         "steps_total": steps.sum(0),
@@ -383,23 +526,68 @@ def search_batched(db: PackedDB, queries, qprep=None, *, pca=None,
     return fd, fi
 
 
-def _search_batched_impl(db: PackedDB, queries, qprep):
-    """Descend the upper routing layers, then run the layer-0 beam."""
+def _search_batched_impl(db: PackedDB, queries, qprep, *, ef0: int,
+                         k_schedule: Tuple[int, ...], deferred: bool,
+                         rerank_mult: int, promote_mult: int):
+    """Descend the upper routing layers, then run the layer-0 beam.
+
+    Deferred mode runs the whole descent in filter space (the entry is
+    scored against the payload, every layer traverses on filter
+    distances, layer 0 keeps ``rerank_mult * ef0`` candidates) and
+    finishes with a single batched Dist.H over the final list. The
+    deferred CASCADE widens layer 0 further to ``promote_mult * ef0``
+    PQ-space candidates and inserts the PCA promote stage (one batched
+    ``dist_l`` over side-car rows, once per query) that trims them back
+    to ``rerank_mult * ef0`` before the Dist.H pass."""
     cfg = db.cfg
-    ks = cfg.k_schedule_for(db.filter_kind, False)
-    k_of = lambda l: ks[min(l, len(ks) - 1)]
-    ep_d, ep = _entry_start(db, queries)
-    dhe = torch.ones((queries.shape[0],), dtype=torch.int32,
-                     device=db.device)
+    B = queries.shape[0]
+    k_of = lambda l: k_schedule[min(l, len(k_schedule) - 1)]
+    deferred = deferred and db.filter_kind != "none"
+    cascade = deferred and db.filter_kind == "cascade"
+    if deferred:
+        ep = torch.full((B, 1), int(db.entry), dtype=torch.int32,
+                        device=db.device)
+        pay = _gather_rows(db.low, ep)                  # [B, 1, P]
+        if db.filter_kind == "pca":
+            ep_d = ops.dist_l(pay, qprep)
+        elif cascade:
+            ep_d = ops.pq_adc(pay, _cascade_lut(qprep, pay.shape[-1]))
+        else:
+            ep_d = ops.pq_adc(pay, qprep)
+        dhe = torch.zeros((B,), dtype=torch.int32, device=db.device)
+    else:
+        ep_d, ep = _entry_start(db, queries)
+        dhe = torch.ones((B,), dtype=torch.int32, device=db.device)
     steps = []
     for layer in range(len(db.layers) - 1, 0, -1):
         ep_d, ep, st, de = search_layer_batched(
             db, layer, queries, qprep, ep_d, ep,
-            ef=cfg.ef_for_layer(layer), k=k_of(layer))
+            ef=cfg.ef_for_layer(layer), k=k_of(layer), deferred=deferred)
         steps.append(st)
         dhe = dhe + de
+    wide_mult = promote_mult if cascade else rerank_mult
+    ef_run = ef0 * wide_mult if deferred else ef0
     fd, fi, st, de = search_layer_batched(
-        db, 0, queries, qprep, ep_d, ep, ef=cfg.ef0, k=k_of(0))
+        db, 0, queries, qprep, ep_d, ep, ef=ef_run, k=k_of(0),
+        deferred=deferred)
     steps.append(st)
     dhe = dhe + de
+    if deferred:
+        if cascade:
+            # promote stage: ONE batched PCA score over side-car rows
+            # trims the PQ-space pool to the Dist.H rerank pool
+            ok = fi >= 0
+            qpca = _cascade_qpca(qprep, db.low.shape[1])
+            dm = torch.where(ok, ops.dist_l(_gather_rows(db.low2, fi), qpca),
+                             INF)
+            pd, pi = _rank_sort_with_payload(dm, torch.where(ok, fi, -1))
+            fd, fi = pd[:, :ef0 * rerank_mult], pi[:, :ef0 * rerank_mult]
+        # the deferred high-dim re-rank: ONE batched Dist.H over the
+        # final filter-space list, then a single sort back to ef0
+        ok = fi >= 0
+        dh = torch.where(ok, ops.dist_h(_gather_rows(db.high, fi), queries),
+                         INF)
+        dhe = dhe + ok.sum(1, dtype=torch.int32)
+        rd, ri = _rank_sort_with_payload(dh, torch.where(ok, fi, -1))
+        fd, fi = rd[:, :ef0], ri[:, :ef0]
     return fd, fi, torch.stack(steps), dhe

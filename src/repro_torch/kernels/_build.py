@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers:
 a file builds in seconds). Libraries go to ``build/repro_torch/`` at the
-repository root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. Nothing is built
+repository root, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. Nothing is built
 when this module is imported: ``load(name)`` builds at first use, and
 ``build_all()`` starts one ``nvcc`` per source, all together."""
 from __future__ import annotations
@@ -22,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("fused_expand", "merge_sorted", "dist_h")
+SOURCES = ("fused_expand", "merge_sorted", "dist_h", "dist_l",
+           "pq_adc_expand")
 
 # loaded libraries by source name; filled only by load()/build_all()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -48,7 +50,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{h}.so"
 

@@ -9,17 +9,16 @@
 // M=32, dl=15) and the work is ~3*M*dl flops, far below Hopper's
 // operations-per-byte line. Design: one warp per query row, so the
 // distances never leave registers. Lane l owns elements l, l+32, ...
-// (PER_LANE of them, M <= 32*PER_LANE). Each element's rank is
-// #{j : d_j < d_i or (d_j == d_i and j < i)}, counted by broadcasting
-// every d_j through warp shuffles; ranks are a permutation of 0..M-1,
-// so the lanes whose rank is below k write slot `rank` directly: no
-// sort network, no shared memory, no one-hot contraction.
+// (PER_LANE of them, M <= 32*PER_LANE); the top-k is the warp-shuffle
+// rank count of warp_topk.cuh, shared with pq_adc_expand.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_topk.cuh"
+
 namespace {
 
-constexpr float kInf = 3.4e38f;        // repro_torch.constants.INF
+using warp_topk::kInf;
 constexpr int kWarpsPerBlock = 4;
 
 template <int PER_LANE>
@@ -55,32 +54,8 @@ __global__ void fused_expand_kernel(const float* __restrict__ x,
     d[e] = v;
   }
 
-  int rank[PER_LANE];
-#pragma unroll
-  for (int e = 0; e < PER_LANE; ++e) rank[e] = 0;
-#pragma unroll
-  for (int e2 = 0; e2 < PER_LANE; ++e2) {
-    if (e2 * 32 >= M) break;  // uniform across the warp
-    for (int src = 0; src < 32; ++src) {
-      const float dj = __shfl_sync(0xffffffffu, d[e2], src);
-      const int j = e2 * 32 + src;
-      if (j >= M) break;      // uniform: j does not depend on the lane
-#pragma unroll
-      for (int e = 0; e < PER_LANE; ++e) {
-        const int i = e * 32 + lane;
-        rank[e] += (dj < d[e]) || (dj == d[e] && j < i);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int e = 0; e < PER_LANE; ++e) {
-    const int i = e * 32 + lane;
-    if (i < M && rank[e] < k) {
-      out_d[(size_t)row * k + rank[e]] = d[e];
-      out_i[(size_t)row * k + rank[e]] = i;
-    }
-  }
+  warp_topk::write_topk<PER_LANE>(d, M, k, lane, out_d + (size_t)row * k,
+                                  out_i + (size_t)row * k);
 }
 
 }  // namespace

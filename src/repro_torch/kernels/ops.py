@@ -1,6 +1,6 @@
 """The traversal ops, dispatched by tensor device (port of
-``repro/kernels/ops.py`` for ``dist_h``, ``fused_expand`` and
-``merge_topk_sorted``).
+``repro/kernels/ops.py`` for ``dist_l``, ``dist_h``, ``fused_expand``,
+``pq_adc_expand``, ``pq_adc`` and ``merge_topk_sorted``).
 
 Same op names, signatures and sentinels as the reference. A CPU tensor
 takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
@@ -17,12 +17,16 @@ from repro_torch.constants import VALID_MAX  # noqa: F401  (re-export:
 # callers of fused_expand test returned vals against this sentinel)
 from repro_torch.kernels import ref
 from repro_torch.kernels.dist_h import dist_h_cuda
+from repro_torch.kernels.dist_l import dist_l_cuda
 from repro_torch.kernels.fused_filter import fused_expand_cuda
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
+from repro_torch.kernels.pq_adc import lut_rows_ok, pq_adc_expand_cuda
 
 _KERNELS = {"fused_expand": fused_expand_cuda,
             "merge_sorted": merge_sorted_cuda,
-            "dist_h": dist_h_cuda}
+            "dist_h": dist_h_cuda,
+            "dist_l": dist_l_cuda,
+            "pq_adc_expand": pq_adc_expand_cuda}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -44,6 +48,14 @@ def _on_cuda(*ts) -> bool:
         return False
     raise ValueError(f"tensors on devices {sorted(kinds)}: expected all "
                      "on the CPU or all on CUDA")
+
+
+def dist_l(x, q):
+    """x: [B, M, dl]; q: [B, dl] -> [B, M] f32 squared distances."""
+    if _on_cuda(x, q):
+        return dist_l_cuda(x.to(torch.float32).contiguous(),
+                           q.to(torch.float32).contiguous())
+    return ref.dist_l_ref(x, q)
 
 
 def dist_h(x, q):
@@ -69,6 +81,36 @@ def fused_expand(x, q, valid, th, k: int):
                                  valid.to(torch.bool).contiguous(),
                                  th.to(torch.float32).contiguous(), k)
     return ref.fused_expand_ref(x, q, valid, th, k)
+
+
+def pq_adc_expand(codes, lut, valid, th, k: int):
+    """One traversal expansion's PQ filter stage (ADC gather-accumulate
+    + validity mask + C_pca threshold + kSort.L) in a single kernel, the
+    PQ analogue of ``fused_expand``.
+    codes: [B, M, S] integer PQ codes; lut: [B, S, 256] f32 (a strided
+    view with unit strides inside a row is read in place); valid:
+    [B, M] bool; th: [B] f32. Returns (vals [B, k] ascending, idx
+    [B, k]); filtered-out slots get vals >= VALID_MAX. k must not
+    exceed M, as for ``fused_expand``."""
+    if k > codes.shape[1]:
+        raise ValueError(f"pq_adc_expand: k={k} exceeds M={codes.shape[1]}")
+    if _on_cuda(codes, lut, valid, th):
+        lut = lut.to(torch.float32)
+        if not lut_rows_ok(lut):
+            lut = lut.contiguous()
+        return pq_adc_expand_cuda(codes.to(torch.uint8).contiguous(), lut,
+                                  valid.to(torch.bool).contiguous(),
+                                  th.to(torch.float32).contiguous(), k)
+    return ref.pq_adc_expand_ref(codes, lut, valid, th, k)
+
+
+def pq_adc(codes, lut):
+    """Plain batched ADC distances (no mask, no sort): codes [B, K, S],
+    lut [B, S, 256] -> [B, K] f32. It scores only the deferred entry
+    point ([B, 1, S]) once per search, and the reference has no Pallas
+    kernel for it (it always runs the jnp oracle), so on both devices it
+    is the plain PyTorch version: no kernel, no launch count."""
+    return ref.pq_adc_ref(codes, lut)
 
 
 def merge_topk_sorted(d_a, i_a, d_b, i_b, k: int):

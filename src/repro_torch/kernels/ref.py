@@ -54,6 +54,27 @@ def fused_expand_ref(x, q, valid, th, k: int):
     return ksort_l_ref(d, k)
 
 
+def pq_adc_ref(codes, lut):
+    """Asymmetric-distance computation (the PQ filter's Dist.L):
+    d[b, m] = sum_s lut[b, s, codes[b, m, s]].
+    codes: [B, M, S] integer PQ codes; lut: [B, S, 256] f32 per-query
+    ADC tables -> [B, M] f32 approximate squared distances."""
+    ct = codes.to(torch.int64).transpose(1, 2)                # [B, S, M]
+    picked = torch.gather(lut.to(torch.float32), 2, ct)       # [B, S, M]
+    return picked.sum(1)
+
+
+def pq_adc_expand_ref(codes, lut, valid, th, k: int):
+    """The PQ filter's whole expansion step (ADC + adjacency/active
+    masking + C_pca threshold + kSort.L), the PQ analogue of
+    ``fused_expand_ref``. codes: [B, M, S]; lut: [B, S, 256]; valid:
+    [B, M] bool; th: [B] f32. Returns (vals [B, k] ascending, idx
+    [B, k]); non-survivors carry vals >= VALID_MAX."""
+    d = pq_adc_ref(codes, lut)
+    d = torch.where(valid & (d < th[:, None]), d, torch.full_like(d, INF))
+    return ksort_l_ref(d, k)
+
+
 def merge_topk_sorted_ref(d_a, i_a, d_b, i_b, k: int):
     """Merge two ASCENDING-sorted (dist, idx) lists, keep the k smallest.
     Each element's merged position is its slot plus its count in the

@@ -81,6 +81,89 @@ def test_dist_h_matches_plain(cuda, B, K, D):
                                rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("B,K,dl", [(1024, 60, 15), (1024, 1, 15),
+                                    (1024, 30, 15), (5, 7, 3)])
+def test_dist_l_matches_plain(cuda, B, K, dl):
+    rng = np.random.default_rng(B + K + dl)
+    for integer in (True, False):
+        if integer:
+            x = rng.integers(-64, 64, (B, K, dl)).astype(np.float32)
+            q = rng.integers(-64, 64, (B, dl)).astype(np.float32)
+        else:
+            x = rng.standard_normal((B, K, dl)).astype(np.float32)
+            q = rng.standard_normal((B, dl)).astype(np.float32)
+        tx, tq = _t(cuda, x, q)
+        got = ops.dist_l(tx, tq)
+        want = ref.dist_l_ref(tx, tq)
+        torch.cuda.synchronize()
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    assert ops.launch_counts()["dist_l"] > 0
+
+
+@pytest.mark.parametrize("B,M,S,k", [(1024, 32, 16, 16), (1024, 16, 16, 8),
+                                     (1024, 16, 16, 3), (1024, 32, 16, 32),
+                                     (64, 64, 16, 64), (8, 100, 4, 1),
+                                     (16, 32, 8, 5)])
+def test_pq_adc_expand_matches_plain(cuda, B, M, S, k):
+    """Integer-valued tables: bit-exact; rows 0-2 are all invalid,
+    all-equal distances and th = 0. The table is read both contiguous
+    and as the cascade's strided view of a flat row."""
+    rng = np.random.default_rng(B + M + S + k)
+    codes = rng.integers(0, 256, (B, M, S)).astype(np.uint8)
+    codes[1] = codes[1, :1]
+    flat = rng.integers(0, 1 << 16, (B, S * 256 + 15)).astype(np.float32)
+    valid = rng.random((B, M)) < 0.8
+    valid[0] = False
+    th = np.where(rng.random(B) < 0.5, float(S << 15), INF) \
+        .astype(np.float32)
+    th[2] = 0.0
+    tc, tf, tv, tt = _t(cuda, codes, flat, valid, th)
+    view = tf[:, :S * 256].reshape(B, S, 256)
+    d0, i0 = ref.pq_adc_expand_ref(tc, view, tv, tt, k)
+    for lut in (view, view.contiguous()):
+        d, i = ops.pq_adc_expand(tc, lut, tv, tt, k)
+        torch.cuda.synchronize()
+        assert torch.equal(d, d0) and torch.equal(i, i0)
+    assert ops.launch_counts()["pq_adc_expand"] > 0
+
+
+@pytest.mark.parametrize("kind,deferred,rm", [("pq", False, None),
+                                              ("cascade", True, 2),
+                                              ("pca", True, 3)])
+def test_filtered_search_card_equals_cpu(cuda, kind, deferred, rm):
+    """On integer data with integer centroids and a coordinate-selecting
+    'PCA' every sum is exact: the pq, cascade-deferred and pca-deferred
+    searches give bit-identical results on the card and on the CPU."""
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.core import filters
+    from repro_torch.core.graph import build_hnsw
+    from repro_torch.core.search_torch import build_packed, search_batched
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 8, (1500, 16)).astype(np.float32)
+    q = rng.integers(0, 8, (64, 16)).astype(np.float32)
+    cfg = PHNSWConfig(name="int1500", n_points=1500, dim=16, d_low=4, M=8,
+                      M0=16, ef_construction=32, wave_size=256)
+    g = build_hnsw(x, cfg, seed=2, device="cpu")
+    filt = filters.from_reference(kind, {
+        "centroids": rng.integers(0, 8, (4, 256, 4)).astype(np.float32),
+        "mean": np.zeros(16, np.float32),
+        "components": np.eye(16, 4, dtype=np.float32),
+        "explained": np.full(4, 0.25, np.float32)})
+    out = {}
+    for d in ("cuda", "cpu"):
+        db = build_packed(g, filt=filt, device=d)
+        fd, fi, st = search_batched(db, q, filt=filt, deferred=deferred,
+                                    rerank_mult=rm, return_stats=True,
+                                    device=d)
+        out[d] = [fd.cpu(), fi.cpu(), st["steps_per_layer"].cpu(),
+                  st["dist_h_evals"].cpu()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
 def test_build_and_search_card_equals_cpu(cuda):
     """On integer data the whole slice is exact: the wave build and the
     PCA-filtered search give the same graph and bit-identical results on

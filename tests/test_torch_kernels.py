@@ -101,6 +101,99 @@ def test_merge_sorted_sweep(Na, Nb, k, jax_impl):
            *jops.merge_topk_sorted(ja, jia, jb, jib, k))
 
 
+@pytest.mark.parametrize("B,K,dl", [(8, 1, 15), (8, 60, 15), (16, 32, 4)])
+def test_dist_l_sweep(B, K, dl, jax_impl):
+    rng = np.random.default_rng(B * 1000 + K * 10 + dl)
+    x = rng.standard_normal((B, K, dl)).astype(np.float32)
+    q = rng.standard_normal((B, dl)).astype(np.float32)
+    (jx, jq), (tx, tq) = _both(x, q)
+    np.testing.assert_allclose(ops.dist_l(tx, tq).numpy(),
+                               np.asarray(jops.dist_l(jx, jq)),
+                               rtol=RTOL, atol=ATOL)
+
+
+def _pq_inputs(rng, B, M, S, integer=False):
+    """uint8 codes, non-negative tables (integer-valued when asked, so
+    every sum is exact), a random mask and thresholds half at S."""
+    codes = rng.integers(0, 256, (B, M, S)).astype(np.uint8)
+    if integer:
+        lut = rng.integers(0, 1 << 16, (B, S, 256)).astype(np.float32)
+    else:
+        lut = np.abs(rng.standard_normal((B, S, 256)) * 2.0) \
+            .astype(np.float32)
+    valid = rng.integers(0, 2, (B, M)).astype(bool)
+    th = np.where(rng.random(B) < 0.5, float(S), INF).astype(np.float32)
+    return codes, lut, valid, th
+
+
+@pytest.mark.parametrize("B,M,S,k", [(8, 32, 16, 16), (8, 16, 8, 3),
+                                     (16, 64, 4, 8)])
+def test_pq_adc_expand_sweep(B, M, S, k, jax_impl):
+    """The sweep of tests/test_kernels.py::test_pq_adc_expand_sweep; the
+    reference takes int32 codes (its TPU kernel's dtype), the port
+    uint8."""
+    rng = np.random.default_rng(M * 100 + S + k)
+    codes, lut, valid, th = _pq_inputs(rng, B, M, S)
+    (jc, jl, jv, jt), (tc, tl, tv, tt) = _both(codes.astype(np.int32), lut,
+                                               valid, th)
+    _check(*ops.pq_adc_expand(torch.from_numpy(codes), tl, tv, tt, k),
+           *jops.pq_adc_expand(jc, jl, jv, jt, k))
+
+
+@pytest.mark.parametrize("B,K,S", [(8, 1, 16), (4, 12, 8)])
+def test_pq_adc_matches_reference(B, K, S, jax_impl):
+    rng = np.random.default_rng(K + S)
+    codes, lut, _, _ = _pq_inputs(rng, B, K, S)
+    (jc, jl), (tc, tl) = _both(codes.astype(np.int32), lut)
+    np.testing.assert_allclose(
+        ops.pq_adc(torch.from_numpy(codes), tl).numpy(),
+        np.asarray(jops.pq_adc(jc, jl)), rtol=RTOL, atol=ATOL)
+
+
+def test_pq_adc_expand_exact_on_integer_tables(jax_impl):
+    """Integer-valued tables make every f32 sum exact in any order:
+    distances and indices are bit-equal to the reference (plenty of
+    exact ties from repeated code rows), and the plain ADC equals
+    ``repro.core.pq.adc_distances``."""
+    from repro.core.pq import adc_distances
+    rng = np.random.default_rng(41)
+    codes, lut, valid, th = _pq_inputs(rng, 8, 32, 16, integer=True)
+    codes[:, 16:] = codes[:, :16]                 # exact duplicate rows
+    th[:] = INF
+    (jc, jl, jv, jt), (tc, tl, tv, tt) = _both(codes.astype(np.int32), lut,
+                                               valid, th)
+    d, i = ops.pq_adc_expand(tc, tl, tv, tt, 32)
+    d0, i0 = jops.pq_adc_expand(jc, jl, jv, jt, 32)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d0))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i0))
+    plain = ref.pq_adc_ref(tc, tl).numpy()
+    for b in range(8):
+        np.testing.assert_array_equal(plain[b],
+                                      adc_distances(lut[b], codes[b]))
+
+
+def test_pq_adc_expand_reads_a_strided_table():
+    """The cascade's tables are a strided view into its flat per-query
+    row [S*256 + d_low]; the op gives the same result as on a copy."""
+    rng = np.random.default_rng(7)
+    codes, lut, valid, th = _pq_inputs(rng, 8, 32, 16)
+    flat = np.concatenate([lut.reshape(8, -1),
+                           rng.standard_normal((8, 15)).astype(np.float32)],
+                          axis=1)
+    view = torch.from_numpy(flat)[:, :16 * 256].reshape(8, 16, 256)
+    assert not view.is_contiguous()
+    tc, tl, tv, tt = (torch.from_numpy(a) for a in (codes, lut, valid, th))
+    _check(*ops.pq_adc_expand(tc, view, tv, tt, 16),
+           *ops.pq_adc_expand(tc, tl, tv, tt, 16))
+
+
+def test_pq_adc_expand_k_above_m_raises():
+    tc, tl, tv, tt = (torch.from_numpy(a) for a in _pq_inputs(
+        np.random.default_rng(0), 8, 16, 8))
+    with pytest.raises(ValueError, match="exceeds M"):
+        ops.pq_adc_expand(tc, tl, tv, tt, 17)
+
+
 # ------------------------------ edge cases ---------------------------------
 
 def _edge_expand_inputs(B=8, M=32, dl=15):
@@ -117,6 +210,27 @@ def _edge_expand_inputs(B=8, M=32, dl=15):
     th = np.full(B, INF, np.float32)
     th[4:6] = 0.0
     return x, q, valid, th
+
+
+@pytest.mark.parametrize("k", [1, 16, 32])
+def test_pq_adc_expand_edge_rows(k, jax_impl):
+    """All invalid, all-equal distances (identical code rows) and
+    th = 0, on integer tables: bit-equal to the reference."""
+    rng = np.random.default_rng(99)
+    codes, lut, valid, th = _pq_inputs(rng, 8, 32, 16, integer=True)
+    valid[:] = True
+    valid[0:2] = False
+    codes[2:4] = codes[2:4, :1]
+    th[:] = INF
+    th[4:6] = 0.0
+    (jc, jl, jv, jt), (tc, tl, tv, tt) = _both(codes.astype(np.int32), lut,
+                                               valid, th)
+    d, i = ops.pq_adc_expand(torch.from_numpy(codes), tl, tv, tt, k)
+    d0, i0 = jops.pq_adc_expand(jc, jl, jv, jt, k)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d0))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i0))
+    assert (d[0:2] >= VALID_MAX).all() and (d[4:6] >= VALID_MAX).all()
+    np.testing.assert_array_equal(i[2].numpy(), np.arange(k))
 
 
 @pytest.mark.parametrize("k", [1, 16, 32])

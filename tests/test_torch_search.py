@@ -2,12 +2,14 @@
 
 Both engines search the very same index state: the reference
 ``PackedDB``'s arrays are carried into the port with
-``search_torch.from_reference``, and the PCA through its
-``mean``/``components``. On an exact-arithmetic fixture (small-integer
-vectors and payloads, so every f32 sum is exact in any order and ties
-are plentiful) ids, dists, ``steps_per_layer`` and ``dist_h_evals`` are
-bit-equal; on the 4k float fixture recall@10 stays within 0.02 of the
-host reference ``search_ref``."""
+``search_torch.from_reference``, the PCA through its
+``mean``/``components`` and a filter's parameters with
+``filters.from_reference``. On an exact-arithmetic fixture (small-integer
+vectors, payloads and PQ centroids, so every f32 sum is exact in any
+order and ties are plentiful) ids, dists, ``steps_per_layer`` and
+``dist_h_evals`` are bit-equal in every filter and re-ranking mode; on
+the 4k float fixture recall@10 stays within 0.02 of the host reference
+``search_ref``."""
 import dataclasses
 
 import numpy as np
@@ -17,10 +19,13 @@ import torch
 
 from repro.configs.base import PHNSWConfig as RefConfig
 from repro.core import search_jax
+from repro.core import filters as rfilters
 from repro.core.filters import IdentityFilter
 from repro.core.graph import HNSWGraph as RefGraph
+from repro.core.pca import PCA as RefPCA
+from repro.core.pq import PQCodebook as RefCodebook
 from repro_torch.configs.base import PHNSWConfig
-from repro_torch.core import search_torch
+from repro_torch.core import filters, search_torch
 from repro_torch.core.graph import HNSWGraph, build_hnsw
 from repro_torch.core.pca import PCA
 
@@ -35,6 +40,7 @@ def ref_db_arrays(db) -> dict:
     return {"adj": [np.asarray(l.adj) for l in db.layers],
             "packed_low": [np.asarray(l.packed_low) for l in db.layers],
             "low": np.asarray(db.low), "high": np.asarray(db.high),
+            "low2": None if db.low2 is None else np.asarray(db.low2),
             "entry": int(db.entry), "filter_kind": db.filter_kind}
 
 
@@ -52,12 +58,85 @@ def int_fixture():
     return cfg, g, x, q
 
 
-def _ref_db(cfg, g, kind):
+def _ref_db(cfg, g, kind, filt=None):
     rg = RefGraph(cfg=RefConfig(**dataclasses.asdict(cfg)), x=g.x,
                   levels=g.levels, layers=g.layers, entry=g.entry)
+    if filt is not None:
+        return search_jax.build_packed(rg, filt=filt)
     if kind == "pca":
         return search_jax.build_packed(rg, g.x[:, :4].copy())
     return search_jax.build_packed(rg, filt=IdentityFilter(dim=g.x.shape[1]))
+
+
+def _int_filters(kind):
+    """(reference filter, port filter) with exact arithmetic on the
+    integer fixture: small-integer centroids (4 subspaces of 4 dims) and
+    a 'PCA' that selects the first 4 coordinates."""
+    arrays = {"centroids": np.random.default_rng(5).integers(
+                  0, 8, (4, 256, 4)).astype(np.float32),
+              "mean": np.zeros(16, np.float32),
+              "components": np.eye(16, 4, dtype=np.float32),
+              "explained": np.full(4, 0.25, np.float32)}
+    pca = RefPCA(arrays["mean"], arrays["components"], arrays["explained"])
+    cb = RefCodebook(arrays["centroids"])
+    ref = {"pca": rfilters.PCAFilter(pca), "pq": rfilters.PQFilter(cb),
+           "cascade": rfilters.CascadeFilter(cb, pca)}[kind]
+    return ref, filters.from_reference(kind, arrays)
+
+
+# (filter kind, deferred, rerank_mult) of the filter/re-rank modes, at
+# the tracked bench's multipliers (promote_mult is the config's 6)
+MODES = {"pq": ("pq", False, None), "pq-deferred": ("pq", True, 3),
+         "pca-deferred": ("pca", True, 3),
+         "cascade-deferred": ("cascade", True, 2)}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("W", [1, 2])
+def test_filter_modes_bit_equal_on_integer_fixture(int_fixture, mode, W):
+    kind, deferred, rm = MODES[mode]
+    cfg, g, x, q = int_fixture
+    cfg = dataclasses.replace(cfg, expand_width=W)
+    g = dataclasses.replace(g, cfg=cfg)
+    rfilt, tfilt = _int_filters(kind)
+    jdb = _ref_db(cfg, g, kind, rfilt)
+    jd, ji, js = search_jax.search_batched(
+        jdb, jnp.asarray(q), filt=rfilt, deferred=deferred, rerank_mult=rm,
+        return_stats=True)
+    tdb = search_torch.build_packed(g, filt=tfilt, device="cpu")
+    td, ti, ts = search_torch.search_batched(
+        tdb, q, filt=tfilt, deferred=deferred, rerank_mult=rm,
+        return_stats=True, device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ts["steps_per_layer"].numpy(),
+                                  np.asarray(js["steps_per_layer"]))
+    np.testing.assert_array_equal(ts["dist_h_evals"].numpy(),
+                                  np.asarray(js["dist_h_evals"]))
+    assert tdb.bytes_layout3 == jdb.bytes_layout3
+    assert tdb.bytes_sidecar == jdb.bytes_sidecar
+    assert tdb.bytes_layout4 == jdb.bytes_layout4
+    # the port's own packing gives the reference's arrays, uint8 codes
+    # included, and from_reference carries them (and the side-car) back
+    back = search_torch.from_reference(ref_db_arrays(jdb), cfg,
+                                       device="cpu")
+    for own in (tdb, back):
+        assert len(own.layers) == len(jdb.layers)
+        for a, b in zip(own.layers, jdb.layers):
+            np.testing.assert_array_equal(a.adj.numpy(), np.asarray(b.adj))
+            np.testing.assert_array_equal(a.packed_low.numpy(),
+                                          np.asarray(b.packed_low))
+        np.testing.assert_array_equal(own.low.numpy(), np.asarray(jdb.low))
+        assert (own.low2 is None) == (jdb.low2 is None)
+        if own.low2 is not None:
+            np.testing.assert_array_equal(own.low2.numpy(),
+                                          np.asarray(jdb.low2))
+    if kind != "pca":
+        assert tdb.low.dtype == torch.uint8
+        assert tdb.layers[0].packed_low.dtype == torch.uint8
+    if deferred:
+        # deferred re-ranking spends exactly one Dist.H pass per query
+        assert int(ts["dist_h_evals"].max()) <= 10 * rm
 
 
 @pytest.mark.parametrize("kind", ["pca", "none"])
@@ -132,8 +211,106 @@ def test_recall_parity_with_search_ref(small_dataset, small_graph,
     assert abs(r_port - r_ref) <= 0.02, (r_port, r_ref)
 
 
-@pytest.mark.parametrize("case", ["deferred", "rerank_mult", "bf16",
-                                  "tombstones", "pq", "device"])
+@pytest.mark.parametrize("mode", ["pq", "cascade-deferred"])
+def test_search_keywords_bit_equal_on_integer_fixture(int_fixture, mode):
+    """``ef0``, ``k_schedule``, ``entry`` and ``promote_mult`` override
+    the config as in the reference."""
+    kind, deferred, rm = MODES[mode]
+    cfg, g, x, q = int_fixture
+    rfilt, tfilt = _int_filters(kind)
+    kw = dict(deferred=deferred, rerank_mult=rm, ef0=6,
+              k_schedule=(12, 4, 2), entry=int(np.argmax(g.levels)),
+              promote_mult=4)
+    jd, ji, js = search_jax.search_batched(
+        _ref_db(cfg, g, kind, rfilt), jnp.asarray(q), filt=rfilt,
+        return_stats=True, **kw)
+    td, ti, ts = search_torch.search_batched(
+        search_torch.build_packed(g, filt=tfilt, device="cpu"), q,
+        filt=tfilt, return_stats=True, device="cpu", **kw)
+    assert ti.shape == (len(q), 6)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ts["steps_per_layer"].numpy(),
+                                  np.asarray(js["steps_per_layer"]))
+    np.testing.assert_array_equal(ts["dist_h_evals"].numpy(),
+                                  np.asarray(js["dist_h_evals"]))
+
+
+@pytest.mark.parametrize("mode", ["pca-deferred", "cascade-deferred"])
+def test_deferred_recall_parity_with_search_ref(small_dataset, small_graph,
+                                                small_pca, mode):
+    """recall@10 of the deferred modes within 0.02 of the host
+    reference ``search_filtered`` on the 4k fixture. The cascade's
+    codebook is trained by the port (density-aware, the config's 8
+    Lloyd iterations) and handed to the reference as numpy."""
+    from repro.core.search_ref import recall_at, search_filtered
+    kind, _, rm = MODES[mode]
+    x, q, gt = small_dataset
+    cfg = port_cfg(small_graph.cfg)
+    g = HNSWGraph(cfg=cfg, x=small_graph.x, levels=small_graph.levels,
+                  layers=small_graph.layers, entry=small_graph.entry)
+    arrays = {"mean": small_pca.mean, "components": small_pca.components,
+              "explained": small_pca.explained}
+    if kind == "cascade":
+        tfilt = filters.make_filter(
+            dataclasses.replace(cfg, filter_kind="cascade"), x, seed=0,
+            pca=filters.from_reference("pca", arrays).pca,
+            levels=g.levels)
+        rfilt = rfilters.CascadeFilter(RefCodebook(tfilt.cb.centroids),
+                                       small_pca)
+    else:
+        tfilt = filters.from_reference("pca", arrays)
+        rfilt = rfilters.PCAFilter(small_pca)
+    db = search_torch.build_packed(g, filt=tfilt, device="cpu")
+    _, fi = search_torch.search_batched(db, q, filt=tfilt, deferred=True,
+                                        rerank_mult=rm, device="cpu")
+    fi = fi.numpy()
+    pay = rfilt.encode(x)
+    mid = rfilt.encode_mid(x) if kind == "cascade" else None
+    pm = max(cfg.promote_mult, rm)
+    r_ref, r_port = [], []
+    for i in range(len(q)):
+        ids, _ = search_filtered(small_graph, rfilt, pay, q[i],
+                                 deferred=True, rerank_mult=rm,
+                                 promote_mult=pm, payload_mid=mid)
+        r_ref.append(recall_at(ids, gt[i], 10))
+        r_port.append(recall_at(fi[i], gt[i], 10))
+    assert abs(np.mean(r_port) - np.mean(r_ref)) <= 0.02, \
+        (mode, np.mean(r_port), np.mean(r_ref))
+    assert np.mean(r_port) >= 0.9
+
+
+def test_identity_filter_ignores_deferred(int_fixture):
+    """Deferred re-ranking is a no-op for the identity filter, and
+    ``rerank_mult`` outside deferred mode changes nothing (the
+    reference's normalisation)."""
+    cfg, g, x, q = int_fixture
+    db = search_torch.from_reference(ref_db_arrays(_ref_db(cfg, g, "none")),
+                                     cfg, device="cpu")
+    base = search_torch.search_batched(db, q, device="cpu")
+    for kw in ({"deferred": True, "rerank_mult": 3}, {"rerank_mult": 5}):
+        got = search_torch.search_batched(db, q, device="cpu", **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, base))
+    pdb = search_torch.build_packed(g, x[:, :4], device="cpu")
+    a = search_torch.search_batched(pdb, q, q[:, :4], device="cpu")
+    b = search_torch.search_batched(pdb, q, q[:, :4], rerank_mult=7,
+                                    promote_mult=9, device="cpu")
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_filter_mismatch_and_bad_payload_raise(int_fixture):
+    cfg, g, x, q = int_fixture
+    _, tpq = _int_filters("pq")
+    db = search_torch.build_packed(g, x[:, :4], device="cpu")
+    with pytest.raises(ValueError, match="filter mismatch"):
+        search_torch.search_batched(db, q, filt=tpq, device="cpu")
+    arrays = ref_db_arrays(_ref_db(cfg, g, "pca"))
+    arrays["filter_kind"] = "pq"           # float rows are no PQ codes
+    with pytest.raises(ValueError, match="uint8"):
+        search_torch.from_reference(arrays, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["bf16", "tombstones", "device"])
 def test_outside_the_slice_raises(int_fixture, case):
     cfg, g, x, q = int_fixture
     if case == "bf16":
@@ -141,19 +318,9 @@ def test_outside_the_slice_raises(int_fixture, case):
             search_torch.build_packed(g, x[:, :4], low_dtype="bfloat16",
                                       device="cpu")
         return
-    if case == "pq":
-        arrays = ref_db_arrays(_ref_db(cfg, g, "pca"))
-        arrays["filter_kind"] = "pq"
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-            search_torch.from_reference(arrays, cfg, device="cpu")
-        return
     db = search_torch.build_packed(g, x[:, :4], device="cpu")
-    if case in ("deferred", "rerank_mult"):
-        kw = {"deferred": True} if case == "deferred" else {"rerank_mult": 3}
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-            search_torch.search_batched(db, q, q[:, :4], device="cpu", **kw)
-    elif case == "tombstones":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+    if case == "tombstones":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
             search_torch.probe_neighborhoods(db, q, q[:, :4], 8, 4,
                                              filter_deleted=True,
                                              device="cpu")
