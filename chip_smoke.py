@@ -1,49 +1,82 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--n N] [--queries Q] [--batch B] [--seed S]
+    python3 chip_smoke.py [--n N] [--shards P] [--queries Q] [--batch B]
+                          [--seed S]
 
 Phases, each printing one JSON object per line; any failure exits
 non-zero:
 
   1. device   — ``nvidia-smi`` name and power limit, torch's device name;
-  2. build    — ``nvcc`` builds the five kernels from ``kernels/csrc``
+  2. build    — ``nvcc`` builds the six kernels from ``kernels/csrc``
                 (one process per source, started together);
   3. kernels  — each kernel at the main path's shapes (B=1024 for search,
                 2048 for the build probe) plus edge rows, held against its
                 plain PyTorch version on the card (indices and distances
                 exact on integer-valued inputs, distances to rtol 1e-5 /
                 atol 1e-3 on float inputs: the f32 summation order
-                differs); kernel, plain and library times from CUDA-graph
-                replays timed with CUDA events;
-  4. build    — the wave builder at the paper's SIFT1M configuration
-                (``--n`` points), ``graph_invariants`` must hold;
-  5. pq_train — the PQ codebook (16 x 256, density-aware, 8 Lloyd
-                iterations on a 20k subsample) and the codes of all
-                points, host numpy, timed as their own stage;
-  6. search   — layout (3) on the card, ``--queries`` queries in batches
-                of ``--batch``, four arms: pca (per-step, the first arm),
-                pca-deferred, pq and cascade-deferred. Per arm: QPS,
-                recall@10 (>= 0.80; >= 0.60 for pq), ``steps_mean``,
+                differs; ``ksort_l`` exact on every input, it does no
+                arithmetic); kernel, plain and library times from
+                CUDA-graph replays timed with CUDA events;
+  4. build    — the wave builder at the paper's SIFT1M configuration:
+                ``--shards`` graphs over ``shard_bounds(--n, P)``, shard s
+                with seed ``seed + s``; ``graph_invariants`` must hold for
+                each;
+  5. pq_train — the PQ codebook (16 x 256, density-aware from the shard
+                graphs' levels in shard order, 8 Lloyd iterations on a 20k
+                subsample) and the codes of all ``--n`` points, host
+                numpy, timed as their own stage; the PCA is fitted on all
+                points;
+  6. search   — single-shard: shard 0's graph in layout (3) on the card,
+                ``--queries`` queries in batches of ``--batch``, four
+                arms: pca (per-step, the first arm), pca-deferred, pq and
+                cascade-deferred. Per arm: QPS, recall@10 against shard
+                0's points (>= 0.80; >= 0.60 for pq), ``steps_mean``,
                 ``dist_h_mean``, bytes, launches per kernel (each kernel
                 of the arm's path must launch) and one profiled batch;
-  7. parity   — on the 8k bench fixture, the same graph packed on the card
+  7. sharded  — all ``--n`` points over the P shards (``build_sharded``
+                reusing the graphs), ``shard_search_host`` in the four
+                arms' modes: QPS, recall@10 against all points (>= 0.80;
+                >= 0.60 for pq, and for cascade-deferred, whose merge
+                ranks on PQ distances), launches (``ksort_l`` and the
+                arm's kernels must launch), the stacked db's bytes, peak
+                device memory and one profiled batch;
+  8. degraded — the first 4 batches, the pca arm with shard 0 dead:
+                coverage equals ``shard_live_counts`` exactly, no id of
+                shard 0 comes back, and ids and dists are bit-identical to
+                searching ``select([1..P-1])``;
+  9. tombstones — the first 4 batches, pca and pca-deferred, with 1% of
+                the points deleted plus every query's true nearest
+                neighbour: no deleted id comes back, recall@10 against the
+                live points >= 0.78;
+ 10. resilient — one batch: ``probe_shard`` over every shard then
+                ``merge_surviving`` is bit-identical to
+                ``shard_search_host``; under a ``FaultPlan`` killing shard
+                2 the probe raises ``ShardKilledError`` and the merge over
+                the survivors equals the live-masked search; a corrupted
+                answer fails ``check_shard_result``;
+ 11. parity   — on the 8k bench fixture, the same graph packed on the card
                 and on the CPU, for pca and the pq, pq-deferred,
                 pca-deferred and cascade-deferred modes: bit-identical
                 ids, dists, steps and Dist.H counts on integer-valued data
                 (integer centroids, a coordinate-selecting projection),
                 recall within 0.005 and ids equal for >= 99% of queries on
-                float data;
-  8. filters  — the 8k filters table (first 64 queries, B=64) beside the
+                float data; then the sharded search at P=4 on the card
+                and on the CPU in every mode: bit-identical on integer
+                data with and without tombstones, the same recall and id
+                bars on float data;
+ 12. filters  — the 8k filters table (first 64 queries, B=64) beside the
                 tracked ``BENCH_table3.json`` -> ``filters`` rows; each
                 recall within 0.02 of the tracked one;
-  9. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+ 13. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
-Launch counts are reset just before each main-path run (the build, and
-each search arm) and read just after. It needs no network and one card,
-and exits non-zero without CUDA or without the ``src/repro_torch``
-package beside it.
+Launch counts are reset just before each main-path run (the build, each
+single-shard arm and each sharded arm) and read just after. The degraded
+and resilient phases need P >= 2 and are skipped at ``--shards 1``, which
+otherwise gives the single-shard smoke over all ``--n`` points. It needs
+no network and one card, and exits non-zero without CUDA or without the
+``src/repro_torch`` package beside it.
 """
 from __future__ import annotations
 
@@ -177,6 +210,21 @@ def _pq_case(np, rng, B, M, S, integer):
         valid[1] = True
         th[2] = 0.0
     return codes, flat, valid, th.astype(np.float32)
+
+
+def _ksort_case(np, rng, B, M, integer):
+    """Rows to rank: small integers (tie-rich) or 3x standard normal
+    (negatives included); where B allows, edge rows: all INF, -0.0
+    beside 0.0 (they tie by index), and a tie pool of four values."""
+    if integer:
+        d = rng.integers(0, 8, (B, M)).astype(np.float32)
+    else:
+        d = (3.0 * rng.standard_normal((B, M))).astype(np.float32)
+    if B >= 4:
+        d[0] = 3.4e38
+        d[1] = rng.choice(np.asarray([-0.0, 0.0, 1.0], np.float32), M)
+        d[2] = rng.choice(np.asarray([0.0, 1.0, 1.0, 2.0], np.float32), M)
+    return d
 
 
 def _library_pq_expand(torch, codes, lut, valid, th, k):
@@ -348,6 +396,29 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
                 nbytes - int(touched.sum()) * 4 + B * S * 256 * 4,
                 B * M * S + B * M * M)[0])
 
+    # --- ksort_l: the cross-shard merge at P=4, M = P * E, k = E for the
+    #     per-step arms (E = ef0 = 10), pca-deferred (E = 30) and the
+    #     cascade (E = 60); then edge shapes (M not a multiple of 32,
+    #     k == M, B == 1), checked but not timed ---
+    for B, M, k in [(1024, 40, 10), (1024, 120, 30), (1024, 240, 60),
+                    (8, 33, 5), (4, 64, 64), (1, 40, 10)]:
+        errs = []
+        for integer in (True, False):
+            (d,) = T(_ksort_case(np, rng, B, M, integer))
+            errs.append(compare("ksort_l", (B, M, k), ops.ksort_l(d, k),
+                                ref.ksort_l_ref(d, k), True))
+        if B < 1024:
+            continue
+        results[("ksort_l", (B, M, k))] = dict(
+            max_abs_err=max(errs),
+            ms=graph_ms(torch, lambda: ops.ksort_l(d, k)),
+            plain_ms=graph_ms(torch, lambda: ref.ksort_l_ref(d, k)),
+            library_ms=graph_ms(torch, lambda: [
+                t[:, :k] for t in torch.sort(d, dim=1, stable=True)]),
+            # a comparison sort's M * log2(M) compares per row
+            bound=bound_ms(B * M * 4 + B * k * 8,
+                           B * M * max(M - 1, 1).bit_length()))
+
     for (name, shape), r in results.items():
         emit({"phase": "kernel", "name": name, "shape": list(shape),
               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -360,32 +431,47 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
 
 # --------------------------- main-path phases ------------------------------
 
-def run_build(torch, np, n: int, seed: int, device: str):
+def run_build(torch, np, n: int, shards: int, seed: int, device: str):
+    """The ``shards`` wave graphs over ``shard_bounds(n, shards)``, shard
+    s with seed ``seed + s`` (as ``build_sharded`` builds them). Returns
+    (x, graphs, per-shard lines, the build line); launch counts cover
+    all the shard builds."""
     from repro_torch.configs.sift1m_phnsw import CONFIG
     from repro_torch.core.build import graph_invariants
+    from repro_torch.core.distributed import shard_bounds
     from repro_torch.core.graph import build_hnsw
     from repro_torch.data.vectors import make_sift_like
     from repro_torch.kernels import ops
     import dataclasses
     cfg = dataclasses.replace(CONFIG, n_points=n)
     x = make_sift_like(n, seed=seed)
-    timings = {}
+    timings, graphs, lines = {}, [], []
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    g = build_hnsw(x, cfg, seed=seed, device=device, timings=timings)
-    if device == "cuda":
-        torch.cuda.synchronize()
+    for s, (a, b) in enumerate(shard_bounds(n, shards)):
+        t1 = time.perf_counter()
+        g = build_hnsw(x[a:b], cfg, seed=seed + s, device=device,
+                       timings=timings)
+        sync()
+        secs = time.perf_counter() - t1
+        inv = graph_invariants(g)
+        graphs.append(g)
+        lines.append({"phase": "build_shard", "shard": s, "rows": [a, b],
+                      "seed": seed + s, "seconds": secs,
+                      "vec_per_s": (b - a) / secs,
+                      "invariants_ok": inv["ok"],
+                      "violations": inv["violations"][:5],
+                      "reachable_frac": inv["reachable_frac"],
+                      "mean_degree": inv["mean_degree"],
+                      "levels_max": int(g.levels.max()),
+                      "entry": int(g.entry)})
     secs = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    inv = graph_invariants(g)
-    out = {"phase": "build", "n_points": n, "seconds": secs,
-           "vec_per_s": n / secs, "invariants_ok": inv["ok"],
-           "violations": inv["violations"][:5],
-           "reachable_frac": inv["reachable_frac"],
-           "mean_degree": inv["mean_degree"],
-           "levels_max": int(g.levels.max()), "entry": int(g.entry),
-           "stage_seconds": timings, "launches": counts}
-    return x, g, out
+    out = {"phase": "build", "n_points": n, "shards": shards,
+           "seconds": secs, "vec_per_s": n / secs,
+           "invariants_ok": all(ln["invariants_ok"] for ln in lines),
+           "stage_seconds": timings, "launches": ops.launch_counts()}
+    return x, graphs, lines, out
 
 
 def recall_at_10(fi, gt) -> float:
@@ -393,10 +479,14 @@ def recall_at_10(fi, gt) -> float:
                      for a, b in zip(fi, gt)) / (10 * len(gt)))
 
 
-def ground_truth(torch, x, q, k: int, device: str):
-    """Exact top-k by squared L2 in f32, chunked matmul on ``device``."""
+def ground_truth(torch, x, q, k: int, device: str, deleted=None):
+    """Exact top-k by squared L2 in f32, chunked matmul on ``device``;
+    ``deleted`` ([n] bool) rows are never returned."""
     xt = torch.as_tensor(x, device=device)
     n2 = (xt * xt).sum(1)
+    if deleted is not None:
+        n2 = torch.where(torch.as_tensor(deleted, device=device),
+                         torch.tensor(float("inf"), device=device), n2)
     out = []
     for i in range(0, len(q), 1024):
         qt = torch.as_tensor(q[i:i + 1024], device=device)
@@ -422,20 +512,21 @@ ARM_KERNELS = {
                          "dist_l"),
 }
 PORTED = ("fused_expand", "merge_sorted", "dist_h", "dist_l",
-          "pq_adc_expand")
+          "pq_adc_expand", "ksort_l")
 
 
-def train_filters(np, x, g, pca) -> tuple:
-    """The filters of the search arms: the PCA, and ONE PQ codebook
-    trained density-aware (weights ``level + 1``) at the config's
+def train_filters(np, x, cfg, levels, pca) -> tuple:
+    """The filters of every arm, fitted once on all points: the PCA, and
+    ONE PQ codebook trained density-aware (weights ``level + 1``, the
+    shard graphs' levels in shard order) at the config's
     ``pq_train_iters`` and shared by the pq and cascade arms, with the
     codes encoded once. Host numpy, the reference's arithmetic (so the
     codebook is bit-identical to ``repro.core.pq``'s)."""
     import dataclasses
     from repro_torch.core import filters
     t0 = time.perf_counter()
-    fpq = filters.make_filter(dataclasses.replace(g.cfg, filter_kind="pq"),
-                              x, seed=0, levels=g.levels)
+    fpq = filters.make_filter(dataclasses.replace(cfg, filter_kind="pq"),
+                              x, seed=0, levels=levels)
     t1 = time.perf_counter()
     codes = fpq.encode(x)
     t2 = time.perf_counter()
@@ -443,8 +534,8 @@ def train_filters(np, x, g, pca) -> tuple:
              "cascade": filters.CascadeFilter(fpq.cb, pca)}
     return filts, codes, {
         "phase": "pq_train", "n_points": len(x),
-        "n_train": min(len(x), 20_000), "pq_n_sub": g.cfg.pq_n_sub,
-        "pq_train_iters": g.cfg.pq_train_iters,
+        "n_train": min(len(x), 20_000), "pq_n_sub": cfg.pq_n_sub,
+        "pq_train_iters": cfg.pq_train_iters,
         "train_seconds": t1 - t0, "encode_seconds": t2 - t1}
 
 
@@ -506,6 +597,220 @@ def run_search(torch, np, x, g, pca, filts, codes, q, gt, batch: int,
             "bytes_sidecar": db.bytes_sidecar,
             "launches": counts, "profile_one_batch": prof})
     return outs
+
+
+# the kernels each sharded arm must launch: the arm's own and the merge
+SHARD_ARM_KERNELS = {arm: ks + ("ksort_l",)
+                     for arm, ks in ARM_KERNELS.items()}
+# recall@10 floors of the sharded arms. The deferred cascade merges the
+# shards' lists on PQ distances (the top promote_mult * ef0 of P times as
+# many) before its PCA promote, so, like pq, its floor guards against a
+# broken table: the same 0.60 (PERF.md, § 2).
+SHARD_FLOORS = {"pca": 0.80, "pca-deferred": 0.80, "pq": 0.60,
+                "cascade-deferred": 0.60}
+
+
+def _arm_kwargs(cfg, kind, deferred, rm):
+    return {"deferred": deferred, "rerank_mult": rm,
+            "promote_mult": cfg.promote_mult if kind == "cascade" else None}
+
+
+def build_sharded_dbs(torch, np, x, graphs, filts, codes, device,
+                      deleted=None, kinds=("pca", "pq", "cascade")):
+    """One ``ShardedDB`` per filter kind over the same shard graphs; the
+    PQ codes are encoded once and sliced per shard. Returns
+    ({kind: sdb}, {kind: seconds})."""
+    from repro_torch.core.distributed import build_sharded, shard_bounds
+    bounds = shard_bounds(len(x), len(graphs))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sdbs, secs = {}, {}
+    for kind in kinds:
+        t0 = time.perf_counter()
+        pays = None if kind == "pca" else [codes[a:b] for a, b in bounds]
+        sdbs[kind] = build_sharded(x, graphs[0].cfg, filts[kind],
+                                   len(graphs), graphs=graphs,
+                                   payloads=pays, deleted=deleted,
+                                   device=device)
+        sync()
+        secs[kind] = time.perf_counter() - t0
+    return sdbs, secs
+
+
+def _sharded_all(torch, sdb, filt, q, batch, device, **kw):
+    """``shard_search_host`` over all of ``q`` in batches: (dists, ids)
+    on the host and the last batch's stats."""
+    from repro_torch.core.distributed import shard_search_host
+    fds, fis, st = [], [], None
+    for i in range(0, len(q), batch):
+        fd, fi, st = shard_search_host(sdb, q[i:i + batch], filt=filt,
+                                       return_stats=True, device=device,
+                                       **kw)
+        fds.append(fd)
+        fis.append(fi)
+    return torch.cat(fds).cpu(), torch.cat(fis).cpu(), st
+
+
+def run_sharded(torch, np, sdbs, filts, q, gt, batch: int, device: str,
+                pack_s: dict):
+    """Every arm of ``ARMS`` through ``shard_search_host``; launch counts
+    and the peak device memory are reset just before each arm's timed
+    run and read just after."""
+    from repro_torch.core.distributed import shard_search_host
+    from repro_torch.kernels import ops
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    outs = []
+    for name, kind, deferred, rm, _ in ARMS:
+        sdb, filt = sdbs[kind], filts[kind]
+        floor = SHARD_FLOORS[name]
+        kw = _arm_kwargs(sdb.cfg, kind, deferred, rm)
+        shard_search_host(sdb, q[:batch], filt=filt, device=device, **kw)
+        sync()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, fi, _ = _sharded_all(torch, sdb, filt, q, batch, device, **kw)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" \
+            else None
+        prof = profile_batch(torch, lambda: shard_search_host(
+            sdb, q[:batch], filt=filt, device=device, **kw)) \
+            if device == "cuda" else None
+        outs.append({
+            "phase": "sharded", "arm": name, "filter_kind": kind,
+            "deferred": deferred, "rerank_mult": rm or 1,
+            "promote_mult": kw["promote_mult"] or 1,
+            "shards": sdb.n_shards, "n_points": int(sdb.counts.sum()),
+            "queries": len(q), "batch": batch, "seconds": secs,
+            "qps": len(q) / secs, "recall_at_10": recall_at_10(fi.numpy(),
+                                                               gt),
+            "recall_floor": floor, "pack_seconds": pack_s[kind],
+            "sharded_db_bytes": sdb.nbytes,
+            "max_memory_allocated": peak, "launches": counts,
+            "profile_one_batch": prof})
+    return outs
+
+
+def run_degraded(torch, np, sdb, filt, q, batch: int, device: str) -> dict:
+    """The pca arm with shard 0 dead, against the survivors' db."""
+    from repro_torch.core.distributed import shard_live_counts
+    P = sdb.n_shards
+    live = np.arange(P) != 0
+    t0 = time.perf_counter()
+    fd, fi, st = _sharded_all(torch, sdb, filt, q, batch, device, live=live)
+    secs = time.perf_counter() - t0
+    od, oi, _ = _sharded_all(torch, sdb.select(np.arange(1, P)), filt, q,
+                             batch, device)
+    lc = shard_live_counts(sdb)
+    want = int(lc[1:].sum()) / int(lc.sum())
+    ids = fi.numpy()
+    shard0 = int(((ids >= 0) & (ids < int(sdb.counts[0]))).sum())
+    out = {"phase": "degraded", "arm": "pca", "dead_shards": [0],
+           "queries": len(q), "seconds": secs, "qps": len(q) / secs,
+           "coverage": st["coverage"], "coverage_expected": want,
+           "live_shards": st["live_shards"], "shard0_ids_returned": shard0,
+           "bit_identical_to_survivors": bool(torch.equal(fi, oi)
+                                               and torch.equal(fd, od))}
+    need(st["coverage"] == want and st["degraded"],
+         f"degraded: coverage {st['coverage']} != {want}")
+    need(shard0 == 0, f"degraded: {shard0} ids of the dead shard returned")
+    need(out["bit_identical_to_survivors"],
+         "degraded: differs from searching the survivors only")
+    return out
+
+
+def run_tombstones(torch, np, x, graphs, filts, q, gt, batch: int,
+                   device: str, seed: int) -> list:
+    """pca and pca-deferred with 1% of the points deleted plus every
+    query's true nearest neighbour."""
+    rng = np.random.default_rng(seed + 7)
+    deleted = np.zeros(len(x), bool)
+    deleted[rng.choice(len(x), len(x) // 100, replace=False)] = True
+    deleted[gt[:, 0]] = True
+    t0 = time.perf_counter()
+    sdbs, _ = build_sharded_dbs(torch, np, x, graphs, filts, None, device,
+                                deleted=deleted, kinds=("pca",))
+    pack = time.perf_counter() - t0
+    gt_live = ground_truth(torch, x, q, 10, device, deleted=deleted)
+    outs = []
+    for name, deferred, rm in (("pca", False, None),
+                               ("pca-deferred", True, 3)):
+        t0 = time.perf_counter()
+        _, fi, st = _sharded_all(torch, sdbs["pca"], filts["pca"], q, batch,
+                                 device, deferred=deferred, rerank_mult=rm)
+        secs = time.perf_counter() - t0
+        ids = fi.numpy()
+        n_bad = int(deleted[ids[ids >= 0]].sum())
+        rec = recall_at_10(ids, gt_live)
+        outs.append({"phase": "tombstones", "arm": name,
+                     "deleted": int(deleted.sum()), "queries": len(q),
+                     "seconds": secs, "qps": len(q) / secs,
+                     "pack_seconds": pack, "deleted_ids_returned": n_bad,
+                     "recall_at_10_live": rec, "recall_floor": 0.78,
+                     "coverage": st["coverage"]})
+        need(n_bad == 0, f"tombstones {name}: {n_bad} deleted ids returned")
+        need(rec >= 0.78, f"tombstones {name}: recall {rec} < 0.78")
+    return outs
+
+
+def run_resilient(torch, np, sdb, filt, q, device: str) -> dict:
+    """One batch through the resilient path, healthy and under faults."""
+    from repro_torch.core.distributed import (check_shard_result,
+                                              merge_surviving, probe_shard,
+                                              shard_search_host)
+    from repro_torch.distributed import faults
+    P = sdb.n_shards
+    qt = torch.as_tensor(q, device=sdb.device)
+    qp = filt.prepare_torch(qt)
+    victim = min(2, P - 1)
+    out = {"phase": "resilient", "queries": len(q), "killed_shard": victim}
+    same = lambda a, b: all(torch.equal(u.cpu(), v.cpu())
+                            for u, v in zip(a, b))
+    for mode, deferred, rm in (("pca", False, None),
+                               ("pca-deferred", True, 3)):
+        kw = {"deferred": deferred, "rerank_mult": rm}
+        probes = [probe_shard(sdb, s, qt, qp, **kw) for s in range(P)]
+        fd_all = np.stack([p[0] for p in probes])
+        gi_all = np.stack([p[1] for p in probes])
+        ok = all(check_shard_result(p[0], p[1], int(sdb.offsets[s]),
+                                    int(sdb.counts[s]))
+                 for s, p in enumerate(probes))
+        healthy = same(merge_surviving(sdb, fd_all, gi_all, None, qt, **kw),
+                       shard_search_host(sdb, qt, qp, device=device, **kw))
+        with faults.inject(faults.FaultPlan()) as plan:
+            plan.add("kill_shard", victim)
+            answered = np.ones(P, bool)
+            raised = False
+            for s in range(P):
+                try:
+                    fd_all[s], gi_all[s], _ = probe_shard(sdb, s, qt, qp,
+                                                          **kw)
+                except faults.ShardKilledError:
+                    raised = s == victim
+                    answered[s] = False
+            killed = same(merge_surviving(sdb, fd_all, gi_all, answered, qt,
+                                          **kw),
+                          shard_search_host(sdb, qt, qp, live=answered,
+                                            device=device, **kw))
+            plan.heal()
+            plan.add("corrupt_shard", 0)
+            cfd, cgi, _ = probe_shard(sdb, 0, qt, qp, **kw)
+            caught = not check_shard_result(cfd, cgi, int(sdb.offsets[0]),
+                                            int(sdb.counts[0]))
+            log = [list(e) for e in plan.log]
+        out[mode] = {"probe_wall_ms": [p[2] * 1e3 for p in probes],
+                     "all_checks_pass": ok, "merge_equals_search": healthy,
+                     "kill_raised": raised, "answered": answered.tolist(),
+                     "merge_survivors_equals_live_mask": killed,
+                     "corrupt_caught": caught, "fault_log": log}
+        need(ok and healthy, f"resilient {mode}: probe + merge differs "
+             "from shard_search_host")
+        need(raised and killed, f"resilient {mode}: the killed shard did "
+             "not raise, or the survivors' merge differs")
+        need(caught, f"resilient {mode}: corrupt answer passed the check")
+    return out
 
 
 def profile_batch(torch, fn, top: int = 10) -> dict:
@@ -683,7 +988,9 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
               "ids_equal_frac": same,
               "dist_h_mean_card": float(card[2].mean()),
               "dist_h_mean_first64_card": dhe64,
-              "integer_bit_identical": bit, "modes": modes}
+              "integer_bit_identical": bit, "modes": modes,
+              "sharded": _sharded_parity(torch, np, cfg, x, q, gt, filts,
+                                         ifilts, seed, device)}
 
     # --- the filters table: first 64 queries at B=64 on the card ---
     tracked = json.loads((ROOT / "BENCH_table3.json").read_text())["filters"]
@@ -710,6 +1017,81 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
                     "rows": rows}
 
 
+# the sharded modes held card vs CPU on the 8k fixture
+SHARD_PARITY_MODES = {"pca": ("pca", False, None), **PARITY_MODES,
+                      "none": ("none", False, None)}
+
+
+def _sharded_parity(torch, np, cfg, x, q, gt, filts, ifilts, seed: int,
+                    device: str, shards: int = 4) -> dict:
+    """The 8k fixture over ``shards`` shard graphs (built on ``device``,
+    seed ``seed + s``), searched by ``shard_search_host`` on the card and
+    on the CPU in every mode: float data within 0.005 recall and >= 99%
+    of ids equal; integer data (the rounded points on the same graphs,
+    integer filters) bit-identical in ids, dists and coverage, with and
+    without tombstones (1% of the points plus every query's nearest
+    neighbour)."""
+    from repro_torch.core import filters
+    from repro_torch.core.distributed import (build_sharded, shard_bounds,
+                                              shard_search_host)
+    from repro_torch.core.graph import HNSWGraph, build_hnsw
+    t0 = time.perf_counter()
+    bounds = shard_bounds(len(x), shards)
+    graphs = [build_hnsw(x[a:b], cfg, seed=seed + s, device=device)
+              for s, (a, b) in enumerate(bounds)]
+    xi, qi = np.round(x), np.round(q)
+    igraphs = [HNSWGraph(cfg=cfg, x=xi[a:b], levels=g.levels,
+                         layers=g.layers, entry=g.entry)
+               for g, (a, b) in zip(graphs, bounds)]
+    ifilts = dict(ifilts, none=filters.IdentityFilter(dim=x.shape[1]))
+    rng = np.random.default_rng(seed + 11)
+    deleted = np.zeros(len(x), bool)
+    deleted[rng.choice(len(x), len(x) // 100, replace=False)] = True
+    deleted[gt[:, 0]] = True
+    out = {"shards": shards, "modes": {}}
+    for mode, (kind, deferred, rm) in SHARD_PARITY_MODES.items():
+        kw = _arm_kwargs(cfg, kind, deferred, rm)
+        res = {}
+        for dev in (device, "cpu"):
+            sdb = build_sharded(x, cfg, filts[kind], shards, graphs=graphs,
+                                device=dev)
+            res[dev] = shard_search_host(sdb, q, filt=filts[kind],
+                                         device=dev, **kw)[1].cpu().numpy()
+        rc, rh = recall_at_10(res[device], gt), recall_at_10(res["cpu"], gt)
+        eq = float((res[device] == res["cpu"]).all(1).mean())
+        need(abs(rc - rh) <= 0.005,
+             f"8k sharded {mode} float parity: recall card {rc} vs cpu {rh}")
+        need(eq >= 0.99, f"8k sharded {mode} float parity: ids equal for "
+             f"{eq:.4f}")
+        bits = {}
+        for tombs in (False, True):
+            got = {}
+            for dev in (device, "cpu"):
+                sdb = build_sharded(xi, cfg, ifilts[kind], shards,
+                                    graphs=igraphs,
+                                    deleted=deleted if tombs else None,
+                                    device=dev)
+                fd, fi, st = shard_search_host(
+                    sdb, qi, filt=ifilts[kind], live=[False, True, True,
+                                                      True][:shards]
+                    if tombs else None, return_stats=True, device=dev, **kw)
+                got[dev] = (fd.cpu(), fi.cpu(), st["coverage"])
+            ok = torch.equal(got[device][0], got["cpu"][0]) \
+                and torch.equal(got[device][1], got["cpu"][1]) \
+                and got[device][2] == got["cpu"][2]
+            ids = got[device][1].numpy()
+            if tombs:
+                ok = ok and not deleted[ids[ids >= 0]].any()
+            bits["tombstones" if tombs else "plain"] = ok
+            need(ok, f"8k sharded {mode} integer parity "
+                 f"(tombstones={tombs}): card and CPU differ")
+        out["modes"][mode] = {"recall_card": rc, "recall_cpu": rh,
+                              "ids_equal_frac": eq,
+                              "integer_bit_identical": bits}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # --------------------------------- main ------------------------------------
 
 KERNEL_META = {
@@ -725,6 +1107,8 @@ KERNEL_META = {
                "src/repro/kernels/dist_l.py:25", (1024, 60, 15)),
     "pq_adc_expand": ("cuda", "src/repro_torch/kernels/csrc/pq_adc_expand.cu",
                       "src/repro/kernels/pq_adc.py:41", (1024, 32, 16, 32)),
+    "ksort_l": ("cuda", "src/repro_torch/kernels/csrc/ksort_l.cu",
+                "src/repro/kernels/ksort_l.py:36", (1024, 40, 10)),
 }
 
 
@@ -732,6 +1116,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=DEFAULT_N,
                     help="points in the SIFT1M-shaped build and search")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="shards the points are split into (1: the "
+                         "single-shard smoke over all points)")
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
@@ -763,9 +1150,14 @@ def main(argv=None) -> int:
 
     kres = phase_kernels(torch, np, args.seed)
 
-    x, g, bout = run_build(torch, np, args.n, args.seed, "cuda")
+    P = args.shards
+    x, graphs, blines, bout = run_build(torch, np, args.n, P, args.seed,
+                                        "cuda")
+    for line in blines:
+        emit(line)
     emit(bout)
-    need(bout["invariants_ok"], f"graph invariants: {bout['violations']}")
+    need(bout["invariants_ok"], "graph invariants: " + "; ".join(
+        str(ln["violations"]) for ln in blines if not ln["invariants_ok"]))
     for name in ("merge_sorted", "dist_h"):
         need(bout["launches"][name] > 0, f"build never launched {name}")
     if args.n < FULL_N:
@@ -773,16 +1165,25 @@ def main(argv=None) -> int:
             "the wave builder links on the host in numpy (the "
             "reference's arithmetic); a 1M build does not fit a third "
             f"of the {TIME_LIMIT_S} s smoke limit")}})
+    g0 = graphs[0]
+    n0 = len(g0.x)
+    if P > 1:
+        emit({"reduced": {"single_shard_n_points": n0, "of": args.n,
+                          "why": (
+            "the single-shard arms search shard 0's graph: the shard "
+            "graphs replace the one graph over all points, so the sharded "
+            "search keeps every point inside the time limit")}})
 
     from repro_torch.core.pca import fit_pca
     from repro_torch.data.vectors import make_queries
-    pca = fit_pca(x, g.cfg.d_low)
-    filts, codes, tout = train_filters(np, x, g, pca)
+    pca = fit_pca(x, g0.cfg.d_low)
+    filts, codes, tout = train_filters(
+        np, x, g0.cfg, np.concatenate([g.levels for g in graphs]), pca)
     emit(tout)
     q = make_queries(x, args.queries, seed=args.seed + 1)
-    gt = ground_truth(torch, x, q, 10, "cuda")
-    souts = run_search(torch, np, x, g, pca, filts, codes, q, gt,
-                       args.batch, "cuda")
+    gt0 = ground_truth(torch, x[:n0], q, 10, "cuda")
+    souts = run_search(torch, np, x[:n0], g0, pca, filts, codes[:n0], q,
+                       gt0, args.batch, "cuda")
     for sout in souts:
         emit(sout)
         arm = sout["arm"]
@@ -792,7 +1193,39 @@ def main(argv=None) -> int:
         need(sout["recall_at_10"] >= sout["recall_floor"],
              f"arm {arm}: recall@10 {sout['recall_at_10']} < "
              f"{sout['recall_floor']}")
-    del x, g, codes
+
+    gt = ground_truth(torch, x, q, 10, "cuda")
+    sdbs, pack_s = build_sharded_dbs(torch, np, x, graphs, filts, codes,
+                                     "cuda")
+    del codes
+    shouts = run_sharded(torch, np, sdbs, filts, q, gt, args.batch, "cuda",
+                         pack_s)
+    for sout in shouts:
+        emit(sout)
+        arm = sout["arm"]
+        for name in SHARD_ARM_KERNELS[arm]:
+            need(sout["launches"][name] > 0,
+                 f"sharded arm {arm} never launched {name}")
+        need(sout["recall_at_10"] >= sout["recall_floor"],
+             f"sharded arm {arm}: recall@10 {sout['recall_at_10']} < "
+             f"{sout['recall_floor']}")
+    # the degraded and tombstone phases check properties, not rates: the
+    # first four batches are enough
+    nq = 4 * args.batch
+    if P > 1:
+        emit(run_degraded(torch, np, sdbs["pca"], filts["pca"], q[:nq],
+                          args.batch, "cuda"))
+    del sdbs["pq"], sdbs["cascade"]
+    for tout in run_tombstones(torch, np, x, graphs, filts, q[:nq], gt[:nq],
+                               args.batch, "cuda", args.seed):
+        emit(tout)
+    if P > 1:
+        emit(run_resilient(torch, np, sdbs["pca"], filts["pca"],
+                           q[:args.batch], "cuda"))
+    else:
+        emit({"phase": "degraded+resilient", "skipped": "needs --shards "
+              ">= 2"})
+    del x, graphs, g0, sdbs
 
     parity, table = run_parity(torch, np)
     emit(parity)
@@ -802,17 +1235,22 @@ def main(argv=None) -> int:
     for name, (route, src, replaces, shape) in KERNEL_META.items():
         r = kres[(name, shape)]
         per_arm = {s["arm"]: s["launches"][name] for s in souts}
+        per_sharded = {s["arm"]: s["launches"][name] for s in shouts}
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "shape": list(shape),
                      "launches": bout["launches"][name]
-                     + sum(per_arm.values()),
+                     + sum(per_arm.values()) + sum(per_sharded.values()),
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
+                     "launches_sharded": per_sharded,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"]})
-    emit({"total_seconds": time.perf_counter() - t_start})
+    total = time.perf_counter() - t_start
+    emit({"total_seconds": total})
+    need(total < TIME_LIMIT_S, f"the smoke took {total} s, over the "
+         f"{TIME_LIMIT_S} s limit")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -292,7 +292,8 @@ def build_hnsw_wave(x: np.ndarray, cfg: PHNSWConfig, *, seed: int = 0,
             t_probe = time.perf_counter()
             fd, fi = probe_neighborhoods(
                 db, qx, qprep, cfg.ef_construction, cfg.ef_construction_k,
-                ef_upper=cfg.wave_ef_upper, device=device)
+                filter_deleted=False, ef_upper=cfg.wave_ef_upper,
+                device=device)
             fd = fd[:, :b].cpu().numpy()
             fi = fi[:, :b].cpu().numpy()
             t_link = time.perf_counter()

@@ -26,8 +26,9 @@ the promote stage) and "none" (the filter bypass). Re-ranking is per
 step or deferred: a deferred search traverses on filter distances only
 and re-ranks the final list with ONE batched Dist.H per query (the
 deferred cascade first trims a wider PQ-space list through ``dist_l``
-on the side-car rows). bfloat16 low storage and tombstones are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP.md
+on the side-car rows). Tombstones (``PackedDB.deleted``, a word-packed
+bitmap) are traversed but never returned. bfloat16 low storage is not
+ported yet and raises ``NotImplementedError`` naming its ROADMAP.md
 item.
 """
 from __future__ import annotations
@@ -73,13 +74,20 @@ class PackedDB:
     ``low2`` is the cascade's SIDE-CAR: f32 PCA rows ``[N, d_low]``,
     stored off the layout-(3) hot stream (never inlined per neighbor)
     and gathered once per query at the promote stage; None for every
-    other kind. The reference's tombstone bitmap (``deleted``) is not
-    ported yet."""
+    other kind.
+
+    ``deleted`` is the optional word-packed tombstone bitmap,
+    ``[ceil(N/32)] int32`` (bit i of word i >> 5 = node i is deleted,
+    bit 31 included); None means no tombstones. Deleted nodes are
+    TRAVERSED (they stay in the candidate frontier and their neighbors
+    are expanded) but never RETURNED (they are kept out of the result
+    list F on the output layer)."""
     layers: List[PackedLayer]
     low: torch.Tensor          # [N, P] filter payload rows (P may be 0)
     high: torch.Tensor         # [N, D]
     entry: int
     cfg: PHNSWConfig
+    deleted: Optional[torch.Tensor] = None  # [ceil(N/32)] int32 or None
     low2: Optional[torch.Tensor] = None   # [N, dl] promote side-car
     filter_kind: str = "pca"
 
@@ -115,6 +123,26 @@ class PackedDB:
             + self.high.numel() * 4
 
 
+def _tombstone_bit(deleted, ids):
+    """The tombstone bit of each id (any shape) as a bool tensor.
+    Negative ids (padding) read word 0 harmlessly; callers mask them."""
+    safe = ids.clamp(min=0)
+    return ((torch.take(deleted, (safe // 32).long()) >> (safe % 32))
+            & 1) != 0
+
+
+def pack_bitmap(flags: np.ndarray) -> np.ndarray:
+    """bool [n] -> int32 words [ceil(n/32)] in the ``_tombstone_bit``
+    layout (bit i of word i >> 5 = flags[i]); the tail word is
+    zero-padded. The one definition of the tombstone word layout: the
+    sharded builder packs through here."""
+    nw = -(-len(flags) // 32)
+    words = np.zeros(nw, np.uint32)
+    ids = np.nonzero(flags)[0].astype(np.uint32)
+    np.bitwise_or.at(words, ids // 32, np.uint32(1) << (ids % 32))
+    return words.view(np.int32)
+
+
 _PAYLOAD_DTYPE = {"pca": "float32", "pq": "uint8", "cascade": "uint8",
                   "none": "float32"}
 
@@ -131,16 +159,17 @@ def _check_slice(filter_kind: str, low_dtype: str) -> None:
 
 def build_packed(g: HNSWGraph, x_low: Optional[np.ndarray] = None, *,
                  filt=None, low_dtype: Optional[str] = None,
-                 device="cuda") -> PackedDB:
+                 drop_empty_layers: bool = True, device="cuda") -> PackedDB:
     """Pack a graph into layout (3) on ``device``. ``x_low`` is the
     filter payload ([N, P] rows, dense low-dim vectors for the default
     PCA filter); passing ``filt`` (a ``core.filters.FilterSpec``)
     instead encodes the payload from the filter and stamps its kind
     onto the db ("pca" assumed otherwise). ``low_dtype`` (default
     ``g.cfg.low_dtype``) is the PCA payload's storage dtype and must be
-    float32 here; PQ codes always store uint8. All-padding top layers
-    are dropped (the level assignment rarely reaches ``cfg.n_layers``).
-    The neighbor-payload gather runs on ``device``."""
+    float32 here; PQ codes always store uint8. ``drop_empty_layers``
+    drops all-padding top layers (the level assignment rarely reaches
+    ``cfg.n_layers``); pass False where layer counts must stay uniform
+    (stacked shards). The neighbor-payload gather runs on ``device``."""
     fkind = filt.kind if filt is not None else "pca"
     if x_low is None:
         if filt is None:
@@ -153,7 +182,7 @@ def build_packed(g: HNSWGraph, x_low: Optional[np.ndarray] = None, *,
     else:
         _check_slice(fkind, str(x_low.dtype))
     adjs = list(g.layers)
-    while len(adjs) > 1 and not (adjs[-1] >= 0).any():
+    while drop_empty_layers and len(adjs) > 1 and not (adjs[-1] >= 0).any():
         adjs.pop()
     low = torch.as_tensor(x_low, device=device)
     layers = []
@@ -175,16 +204,19 @@ def from_reference(db_np: dict, cfg: PHNSWConfig, *,
                    device="cuda") -> PackedDB:
     """The port's PackedDB from a reference ``PackedDB``'s arrays given as
     numpy: ``{"adj": [..], "packed_low": [..], "low", "high", "entry",
-    "filter_kind"}`` and, for the cascade, ``"low2"`` — so both engines
-    search the very same state."""
+    "filter_kind"}`` and, where present, the cascade's ``"low2"`` and the
+    tombstone words ``"deleted"`` — so both engines search the very same
+    state."""
     _check_slice(db_np["filter_kind"], str(np.asarray(db_np["low"]).dtype))
     t = lambda a: torch.tensor(np.asarray(a), device=device)  # a copy
     layers = [PackedLayer(adj=t(a).to(torch.int32), packed_low=t(p))
               for a, p in zip(db_np["adj"], db_np["packed_low"])]
-    low2 = db_np.get("low2")
+    low2, deleted = db_np.get("low2"), db_np.get("deleted")
     return PackedDB(layers=layers, low=t(db_np["low"]),
                     high=t(db_np["high"]), entry=int(db_np["entry"]),
                     cfg=cfg, low2=None if low2 is None else t(low2),
+                    deleted=None if deleted is None
+                    else t(deleted).to(torch.int32),
                     filter_kind=db_np["filter_kind"])
 
 
@@ -224,16 +256,35 @@ def _bits(ids):
     return (safe // 32).long(), torch.ones_like(safe) << (safe % 32)
 
 
+def _pad_cols(t, width: int, fill):
+    """Pad [B, n] to [B, width] with ``fill`` (no-op when n >= width)."""
+    B, n = t.shape
+    if n >= width:
+        return t
+    return torch.cat([t, t.new_full((B, width - n), fill)], 1)
+
+
 def _layer_init(db: PackedDB, start_d, start_i, *, ef: int, k: int,
-                CAP: int):
+                CAP: int, filter_deleted: bool = False):
     """The fixed-capacity SORTED layer state seeded from a start set:
-    (C_d, C_i, F_d, F_i, V, Cp)."""
-    B, E = start_d.shape
+    (C_d, C_i, F_d, F_i, V, Cp). ``filter_deleted`` seeds F with the
+    live part of the start set only."""
+    B = start_d.shape[0]
     N = db.high.shape[0]
     dev = start_d.device
-    C_d = torch.cat([start_d, start_d.new_full((B, CAP - E), INF)], 1)
-    C_i = torch.cat([start_i, start_i.new_full((B, CAP - E), -1)], 1)
-    F_d, F_i = C_d[:, :ef].contiguous(), C_i[:, :ef].contiguous()
+    C_d = _pad_cols(start_d, CAP, INF)
+    C_i = _pad_cols(start_i, CAP, -1)
+    if filter_deleted:
+        # the routing layers above may hand over tombstoned entry
+        # points: legal to traverse from, illegal to return
+        tomb0 = _tombstone_bit(db.deleted, start_i) | (start_i < 0)
+        s_d, s_i = _rank_sort_with_payload(
+            torch.where(tomb0, INF, start_d),
+            torch.where(tomb0, -1, start_i))
+        F_d = _pad_cols(s_d, ef, INF)[:, :ef].contiguous()
+        F_i = _pad_cols(s_i, ef, -1)[:, :ef].contiguous()
+    else:
+        F_d, F_i = C_d[:, :ef].contiguous(), C_i[:, :ef].contiguous()
     # visited bitmap: one bit per node in int32 words; the insert is a
     # scatter-add of disjoint bit masks (== bitwise or)
     V = torch.zeros((B, -(-N // 32)), dtype=torch.int32, device=dev)
@@ -246,11 +297,14 @@ def _layer_init(db: PackedDB, start_d, start_i, *, ef: int, k: int,
 
 
 def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
-                k: int, W: int, steps: int, deferred: bool = False):
+                k: int, W: int, steps: int, filter_deleted: bool = False,
+                deferred: bool = False):
     """The ONE-expansion-iteration body over the layer state
     ``(C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe)``. The visited
     bitmap V is updated in place. ``deferred`` traverses on filter
-    distances: no high-dim gather and no Dist.H inside the loop."""
+    distances: no high-dim gather and no Dist.H inside the loop.
+    ``filter_deleted`` keeps tombstoned candidates out of F (they still
+    enter C and the C_pca heap)."""
     B = q_high.shape[0]
     lay = db.layers[layer]
     M = lay.adj.shape[1]
@@ -328,24 +382,31 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
         V.scatter_add_(1, cw, torch.where(valid, cm, 0))
         # -- accept: d < F.max or F not full (F starts padded with INF) --
         accept = dh < bnd
-        # one stacked stable sort orders the acceptees for every feed;
-        # a separate kv row for the C_pca heap exists only when the
-        # traversal orders by Dist.H (deferred: dh IS kv)
+        # one stacked stable sort orders the acceptees for every feed:
+        # an okF row (tombstones masked out) first under filter_deleted;
+        # a separate kv row for the C_pca heap only when the traversal
+        # orders by Dist.H (deferred: dh IS kv)
         rows_d = [torch.where(accept, dh, INF)]
         rows_i = [torch.where(accept, cand, -1)]
+        if filter_deleted:
+            okF = accept & ~_tombstone_bit(db.deleted, cand)
+            rows_d.insert(0, torch.where(okF, dh, INF))
+            rows_i.insert(0, torch.where(okF, cand, -1))
         if need_kv_row:
             rows_d.append(torch.where(accept, kv, INF))
             rows_i.append(zeros_kk)
         s_d, s_i = _rank_sort_with_payload(torch.cat(rows_d, 0),
                                            torch.cat(rows_i, 0))
-        sd, si = s_d[:B], s_i[:B]                    # C feed (dh order)
+        r = B if filter_deleted else 0
+        sd, si = s_d[r:r + B], s_i[r:r + B]          # C feed (dh order)
+        fd_n, fi_n = s_d[:B], s_i[:B]                # F feed
         # -- fold into the sorted frontiers: O(ef+k) sorted merges --
-        F_d, F_i = ops.merge_topk_sorted(F_d, F_i, sd, si, ef)
+        F_d, F_i = ops.merge_topk_sorted(F_d, F_i, fd_n, fi_n, ef)
         C_d, C_i = ops.merge_topk_sorted(C_d, C_i, sd, si, C_d.shape[1])
         if fkind != "none":
             # C_pca feed: the accepted candidates' filter dists, their
             # own sort row per-step, the dh row itself when deferred
-            pv = s_d[B:] if need_kv_row else sd
+            pv = s_d[r + B:] if need_kv_row else sd
             Cp, _ = ops.merge_topk_sorted(Cp, zeros_k, pv, zeros_kk, k)
         nsteps = nsteps + exp.sum(1, dtype=torch.int32)
         return (C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe)
@@ -356,6 +417,7 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
 def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
                          start_d, start_i, *, ef: int, k: int,
                          max_steps: Optional[int] = None,
+                         filter_deleted: bool = False,
                          deferred: bool = False):
     """One layer of Algorithm 1 for a batch of queries.
 
@@ -366,7 +428,10 @@ def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
     dists when ``deferred``). Each trip pops the W =
     ``cfg.expand_width`` nearest frontier candidates and expands them
     jointly. ``deferred`` traverses on filter distances only (a no-op
-    for the identity filter).
+    for the identity filter). ``filter_deleted`` (needs ``db.deleted``)
+    applies the tombstone semantics: deleted nodes enter C and the C_pca
+    heap and are expanded, but never enter F, so F.max is over live
+    nodes and the traversal digs on until ef live results converge.
 
     Returns (F_dist [B, ef], F_idx [B, ef] ascending, steps [B] int32,
     dist_h [B] int32 = per-query Dist.H evaluations in this layer)."""
@@ -377,15 +442,20 @@ def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
     CAP = max(ef + kk, 8)
     steps = max_steps or db.cfg.max_steps_for_layer(layer)
     iters = -(-steps // W)                       # expansion budget / W
+    if filter_deleted and db.deleted is None:
+        raise ValueError("filter_deleted needs db.deleted (a tombstone "
+                         "bitmap)")
     C_d, C_i, F_d, F_i, V, Cp = _layer_init(db, start_d, start_i, ef=ef,
-                                            k=k, CAP=CAP)
+                                            k=k, CAP=CAP,
+                                            filter_deleted=filter_deleted)
     dev = q_high.device
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     nsteps = torch.zeros((B,), dtype=torch.int32, device=dev)
     dhe = torch.zeros((B,), dtype=torch.int32, device=dev)
     state = (C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe)
     body = _layer_body(db, layer, q_high, qprep, ef=ef, k=k, W=W,
-                       steps=steps, deferred=deferred)
+                       steps=steps, filter_deleted=filter_deleted,
+                       deferred=deferred)
     for t in range(iters):
         if t and t % DONE_CHECK_EVERY == 0 and bool(state[6].all()):
             break
@@ -409,18 +479,19 @@ def _check_device(db: PackedDB, device) -> None:
 
 
 def probe_neighborhoods(db: PackedDB, queries, qprep, ef: int, k: int,
-                        filter_deleted: bool = False,
+                        filter_deleted: bool = True,
                         ef_upper: Optional[int] = None, *, device="cuda"):
     """Neighborhood probe for a batch of to-be-inserted vectors: the
     serving traversal run at every layer with the construction beam
     (ef = ef_construction), each layer's full top-ef seeding the next.
     The device half of the wave builder (``core/build.py``).
+    ``filter_deleted`` (needs ``db.deleted``) excludes tombstoned nodes
+    at EVERY layer: new nodes must never link to the dead. The one-shot
+    wave builder passes False (a fresh build has no bitmap).
     ``ef_upper`` narrows the beam at layers above 0. Returns
     ([L, B, ef] dists, [L, B, ef] ids), bottom layer FIRST; upper-layer
     rows are padded to ef width with INF/-1 when ``ef_upper`` trims
     them."""
-    if filter_deleted:
-        raise _todo("filter_deleted (tombstones)", "A5")
     _check_device(db, device)
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=db.device)
@@ -432,7 +503,7 @@ def probe_neighborhoods(db: PackedDB, queries, qprep, ef: int, k: int,
         ef_l = ef if layer == 0 else min(ef_upper or ef, ef)
         fd, fi, _, _ = search_layer_batched(
             db, layer, queries, qprep, ep_d, ep, ef=ef_l, k=k,
-            max_steps=2 * ef_l + 16)
+            max_steps=2 * ef_l + 16, filter_deleted=filter_deleted)
         ep_d, ep = fd, fi
         if ef_l < ef:
             fd = torch.cat([fd, fd.new_full((B, ef - ef_l), INF)], 1)
@@ -528,8 +599,11 @@ def search_batched(db: PackedDB, queries, qprep=None, *, pca=None,
 
 def _search_batched_impl(db: PackedDB, queries, qprep, *, ef0: int,
                          k_schedule: Tuple[int, ...], deferred: bool,
-                         rerank_mult: int, promote_mult: int):
-    """Descend the upper routing layers, then run the layer-0 beam.
+                         rerank_mult: int, promote_mult: int,
+                         final_rerank: bool = True):
+    """Descend the upper routing layers, then run the layer-0 beam. The
+    upper layers never filter tombstones (a deleted node is a fine
+    descent waypoint); layer 0 does, iff the db carries a bitmap.
 
     Deferred mode runs the whole descent in filter space (the entry is
     scored against the payload, every layer traverses on filter
@@ -538,7 +612,10 @@ def _search_batched_impl(db: PackedDB, queries, qprep, *, ef0: int,
     deferred CASCADE widens layer 0 further to ``promote_mult * ef0``
     PQ-space candidates and inserts the PCA promote stage (one batched
     ``dist_l`` over side-car rows, once per query) that trims them back
-    to ``rerank_mult * ef0`` before the Dist.H pass."""
+    to ``rerank_mult * ef0`` before the Dist.H pass. ``final_rerank=False``
+    (deferred only) skips the promote stage and the re-rank and returns
+    the WIDE filter-space list: the sharded path merges the shards'
+    lists first and runs both once, globally."""
     cfg = db.cfg
     B = queries.shape[0]
     k_of = lambda l: k_schedule[min(l, len(k_schedule) - 1)]
@@ -569,10 +646,10 @@ def _search_batched_impl(db: PackedDB, queries, qprep, *, ef0: int,
     ef_run = ef0 * wide_mult if deferred else ef0
     fd, fi, st, de = search_layer_batched(
         db, 0, queries, qprep, ep_d, ep, ef=ef_run, k=k_of(0),
-        deferred=deferred)
+        filter_deleted=db.deleted is not None, deferred=deferred)
     steps.append(st)
     dhe = dhe + de
-    if deferred:
+    if deferred and final_rerank:
         if cascade:
             # promote stage: ONE batched PCA score over side-car rows
             # trims the PQ-space pool to the Dist.H rerank pool

@@ -1,6 +1,7 @@
 """The traversal ops, dispatched by tensor device (port of
-``repro/kernels/ops.py`` for ``dist_l``, ``dist_h``, ``fused_expand``,
-``pq_adc_expand``, ``pq_adc`` and ``merge_topk_sorted``).
+``repro/kernels/ops.py`` for ``dist_l``, ``ksort_l``, ``dist_h``,
+``fused_expand``, ``pq_adc_expand``, ``pq_adc`` and
+``merge_topk_sorted``).
 
 Same op names, signatures and sentinels as the reference. A CPU tensor
 takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
@@ -19,6 +20,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.dist_h import dist_h_cuda
 from repro_torch.kernels.dist_l import dist_l_cuda
 from repro_torch.kernels.fused_filter import fused_expand_cuda
+from repro_torch.kernels.ksort_l import ksort_l_cuda
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
 from repro_torch.kernels.pq_adc import lut_rows_ok, pq_adc_expand_cuda
 
@@ -26,7 +28,8 @@ _KERNELS = {"fused_expand": fused_expand_cuda,
             "merge_sorted": merge_sorted_cuda,
             "dist_h": dist_h_cuda,
             "dist_l": dist_l_cuda,
-            "pq_adc_expand": pq_adc_expand_cuda}
+            "pq_adc_expand": pq_adc_expand_cuda,
+            "ksort_l": ksort_l_cuda}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -56,6 +59,17 @@ def dist_l(x, q):
         return dist_l_cuda(x.to(torch.float32).contiguous(),
                            q.to(torch.float32).contiguous())
     return ref.dist_l_ref(x, q)
+
+
+def ksort_l(d, k: int):
+    """kSort.L: d [B, M] -> (vals [B, k] ascending, idx [B, k] int32),
+    ties to the lower index. k must not exceed M (the reference would
+    leave slots M..k-1 as (0.0, 0))."""
+    if k > d.shape[1]:
+        raise ValueError(f"ksort_l: k={k} exceeds M={d.shape[1]}")
+    if _on_cuda(d):
+        return ksort_l_cuda(d.to(torch.float32).contiguous(), k)
+    return ref.ksort_l_ref(d, k)
 
 
 def dist_h(x, q):

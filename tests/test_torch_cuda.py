@@ -189,3 +189,62 @@ def test_build_and_search_card_equals_cpu(cuda):
                   st["dist_h_evals"].cpu()]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,M,k", [(1024, 40, 10), (1024, 120, 30),
+                                   (1024, 240, 60), (8, 33, 5), (1, 40, 40),
+                                   (4, 2048, 7)])
+def test_ksort_l_matches_plain(cuda, B, M, k):
+    """Values and indices exact on every row: floats with negatives, a
+    tie pool, all-INF rows and -0.0 beside 0.0 (they tie by index)."""
+    rng = np.random.default_rng(B + M + k)
+    d = (3.0 * rng.standard_normal((B, M))).astype(np.float32)
+    if B >= 4:
+        d[1] = rng.choice(np.asarray([0.0, 1.0, 1.0, 2.0], np.float32), M)
+        d[2] = INF
+        d[3] = rng.choice(np.asarray([-0.0, 0.0, 1.0], np.float32), M)
+    (td,) = _t(cuda, d)
+    before = ops.launch_counts()["ksort_l"]
+    v, i = ops.ksort_l(td, k)
+    v0, i0 = ref.ksort_l_ref(td, k)
+    torch.cuda.synchronize()
+    assert torch.equal(v, v0) and torch.equal(i, i0)
+    assert torch.equal(torch.signbit(v), torch.signbit(v0))
+    assert ops.launch_counts()["ksort_l"] == before + 1
+
+
+@pytest.mark.parametrize("kind,deferred,rm,tombs", [
+    ("pca", False, None, True), ("pq", False, None, False),
+    ("cascade", True, 2, True), ("pca", True, 3, False)])
+def test_sharded_search_card_equals_cpu(cuda, kind, deferred, rm, tombs):
+    """On integer data the sharded search (three shards, a remainder
+    split) gives bit-identical ids, dists and coverage on the card and
+    on the CPU, with every shard live and with shard 0 dead."""
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.core import distributed, filters
+    from repro_torch.core.graph import build_hnsw
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 8, (1501, 16)).astype(np.float32)
+    q = rng.integers(0, 8, (64, 16)).astype(np.float32)
+    cfg = PHNSWConfig(name="int1501", n_points=1501, dim=16, d_low=4, M=8,
+                      M0=16, ef_construction=32, wave_size=256)
+    graphs = [build_hnsw(x[a:b], cfg, seed=2 + s, device="cpu")
+              for s, (a, b) in enumerate(distributed.shard_bounds(1501, 3))]
+    filt = filters.from_reference(kind, {
+        "centroids": rng.integers(0, 8, (4, 256, 4)).astype(np.float32),
+        "mean": np.zeros(16, np.float32),
+        "components": np.eye(16, 4, dtype=np.float32),
+        "explained": np.full(4, 0.25, np.float32)})
+    deleted = rng.random(1501) < 0.05 if tombs else None
+    out = {}
+    for d in ("cuda", "cpu"):
+        sdb = distributed.build_sharded(x, cfg, filt, 3, graphs=graphs,
+                                        deleted=deleted, device=d)
+        out[d] = []
+        for live in (None, [False, True, True]):
+            fd, fi, st = distributed.shard_search_host(
+                sdb, q, filt=filt, deferred=deferred, rerank_mult=rm,
+                live=live, return_stats=True, device=d)
+            out[d] += [fd.cpu(), fi.cpu(), st["coverage"]]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b

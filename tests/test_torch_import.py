@@ -34,7 +34,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for m in ("repro_torch.core.search_torch", "repro_torch.core.build",
               "repro_torch.kernels.ops", "repro_torch.data.vectors",
-              "repro_torch.configs.sift1m_phnsw"):
+              "repro_torch.configs.sift1m_phnsw",
+              "repro_torch.core.distributed",
+              "repro_torch.distributed.faults"):
         assert m in got["modules"]
     assert got["bad"] == []
     assert got["built"] == []

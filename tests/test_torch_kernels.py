@@ -299,6 +299,53 @@ def test_plain_ksort_and_dist_l_match_reference(B, M, k):
         rtol=RTOL, atol=ATOL)
 
 
+def _ksort_rows(rng, B, M):
+    """The reference sweep's draw (``rnd(scale=3.0)``: negative values
+    included) with edge rows where B allows: a tie pool, all-INF, and
+    -0.0 beside 0.0 (equal as floats, so they tie by index)."""
+    d = (3.0 * rng.standard_normal((B, M))).astype(np.float32)
+    if B >= 4:
+        d[1] = rng.choice(np.asarray([0.0, 1.0, 1.0, 2.0], np.float32), M)
+        d[2] = INF
+        d[3] = rng.choice(np.asarray([-0.0, 0.0, 1.0], np.float32), M)
+    return d
+
+
+@pytest.mark.parametrize("B,M,k", [(8, 16, 3), (8, 32, 16), (16, 32, 8),
+                                   (8, 64, 16), (8, 128, 32),
+                                   (4, 40, 10), (4, 120, 30), (2, 240, 60),
+                                   (4, 33, 5), (1, 40, 40)])
+def test_ksort_l_sweep(B, M, k, jax_impl):
+    """``ops.ksort_l`` against the JAX op and ``ksort_l_pallas`` in
+    interpret mode: the reference's sweep plus the cross-shard merge
+    shapes (M = P * E, k = E) and the edge rows; values and indices
+    exact (no arithmetic touches a value)."""
+    from repro.kernels.ksort_l import ksort_l_pallas
+    import math
+    d = _ksort_rows(np.random.default_rng(B * 1000 + M * 10 + k), B, M)
+    v, i = ops.ksort_l(torch.from_numpy(d), k)
+    assert v.dtype == torch.float32 and i.dtype == torch.int32
+    v0, i0 = jops.ksort_l(jnp.asarray(d), k)
+    v1, i1 = ksort_l_pallas(jnp.asarray(d), k, block_b=math.gcd(B, 8),
+                            interpret=True)
+    for vw, iw in ((v0, i0), (v1, i1)):
+        np.testing.assert_array_equal(v.numpy(), np.asarray(vw))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(iw))
+    if B >= 4:
+        np.testing.assert_array_equal(i[2].numpy(), np.arange(k))
+        assert (v[2] == INF).all()
+
+
+def test_ksort_l_k_above_m_raises():
+    """The plain version keeps the reference's (0.0, 0) tail for k > M;
+    the op refuses it, as ``fused_expand`` does."""
+    d = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="exceeds M"):
+        ops.ksort_l(d, 9)
+    v, i = ref.ksort_l_ref(d, 9)
+    assert v[:, 8].tolist() == [0.0, 0.0] and i[:, 8].tolist() == [0, 0]
+
+
 def test_mixed_devices_raise():
     x = torch.zeros(2, 3, 4)
     q = torch.zeros(2, 4, device="meta")

@@ -184,7 +184,7 @@ def test_probe_bit_equal_on_integer_fixture(int_fixture, ef, ef_upper):
     tdb = search_torch.from_reference(ref_db_arrays(jdb), cfg, device="cpu")
     td, ti = search_torch.probe_neighborhoods(
         tdb, q, np.zeros((len(q), 0), np.float32), ef, 16,
-        ef_upper=ef_upper, device="cpu")
+        filter_deleted=False, ef_upper=ef_upper, device="cpu")
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 
@@ -312,6 +312,8 @@ def test_filter_mismatch_and_bad_payload_raise(int_fixture):
 
 @pytest.mark.parametrize("case", ["bf16", "tombstones", "device"])
 def test_outside_the_slice_raises(int_fixture, case):
+    """bf16 payloads are not ported yet; tombstone filtering needs a
+    bitmap (the reference asserts the same); a db lives on one device."""
     cfg, g, x, q = int_fixture
     if case == "bf16":
         with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
@@ -320,10 +322,124 @@ def test_outside_the_slice_raises(int_fixture, case):
         return
     db = search_torch.build_packed(g, x[:, :4], device="cpu")
     if case == "tombstones":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+        with pytest.raises(ValueError, match="needs db.deleted"):
             search_torch.probe_neighborhoods(db, q, q[:, :4], 8, 4,
                                              filter_deleted=True,
+                                             device="cpu")
+        with pytest.raises(ValueError, match="needs db.deleted"):
+            search_torch.probe_neighborhoods(db, q, q[:, :4], 8, 4,
                                              device="cpu")
     else:
         with pytest.raises(ValueError, match="lives on cpu"):
             search_torch.search_batched(db, q, q[:, :4])
+
+
+# ------------------------------- tombstones --------------------------------
+
+def _doomed(x, q, frac=0.05, seed=9):
+    """Tombstone flags: ``frac`` of the points at random plus every
+    query's exact nearest neighbor (so the filter must bite)."""
+    rng = np.random.default_rng(seed)
+    flags = np.zeros(len(x), bool)
+    flags[rng.choice(len(x), int(frac * len(x)), replace=False)] = True
+    flags[np.argmin(((q[:, None] - x[None]) ** 2).sum(-1), 1)] = True
+    return flags
+
+
+def _tombstoned_pair(cfg, g, kind, flags):
+    """(reference db, port db) over the same state, tombstones set."""
+    rfilt, tfilt = (None, None) if kind in ("pca", "none") \
+        else _int_filters(kind)
+    jdb = _ref_db(cfg, g, kind, rfilt)
+    words = search_torch.pack_bitmap(flags)
+    np.testing.assert_array_equal(words, search_jax.pack_bitmap(flags))
+    jdb = dataclasses.replace(jdb, deleted=jnp.asarray(words))
+    tdb = search_torch.from_reference(ref_db_arrays(jdb) | {
+        "deleted": words}, cfg, device="cpu")
+    return jdb, tdb, rfilt, tfilt
+
+
+@pytest.mark.parametrize("mode", ["pca", "pq", "pca-deferred",
+                                  "cascade-deferred"])
+@pytest.mark.parametrize("W", [1, 2])
+def test_tombstoned_search_bit_equal_on_integer_fixture(int_fixture, mode,
+                                                        W):
+    """Deleted nodes are traversed but never returned: ids, dists,
+    ``steps_per_layer`` and ``dist_h_evals`` bit-equal to the reference
+    with the bitmap set, per step and deferred."""
+    kind, deferred, rm = MODES.get(mode, ("pca", False, None))
+    cfg, g, x, q = int_fixture
+    cfg = dataclasses.replace(cfg, expand_width=W)
+    g = dataclasses.replace(g, cfg=cfg)
+    flags = _doomed(x, q)
+    jdb, tdb, rfilt, tfilt = _tombstoned_pair(cfg, g, kind, flags)
+    kw = dict(deferred=deferred, rerank_mult=rm, return_stats=True)
+    if kind == "pca":
+        jd, ji, js = search_jax.search_batched(
+            jdb, jnp.asarray(q), jnp.asarray(q[:, :4]), **kw)
+        td, ti, ts = search_torch.search_batched(tdb, q, q[:, :4],
+                                                 device="cpu", **kw)
+    else:
+        jd, ji, js = search_jax.search_batched(jdb, jnp.asarray(q),
+                                               filt=rfilt, **kw)
+        td, ti, ts = search_torch.search_batched(tdb, q, filt=tfilt,
+                                                 device="cpu", **kw)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ts["steps_per_layer"].numpy(),
+                                  np.asarray(js["steps_per_layer"]))
+    np.testing.assert_array_equal(ts["dist_h_evals"].numpy(),
+                                  np.asarray(js["dist_h_evals"]))
+    got = ti.numpy()
+    assert not flags[got[got >= 0]].any()
+    assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("ef,ef_upper", [(8, 4), (24, None)])
+def test_tombstoned_probe_bit_equal_on_integer_fixture(int_fixture, ef,
+                                                       ef_upper):
+    """``probe_neighborhoods`` filters tombstones at every layer by
+    default, as the reference's does."""
+    cfg, g, x, q = int_fixture
+    flags = _doomed(x, q, frac=0.1)
+    jdb, tdb, _, _ = _tombstoned_pair(cfg, g, "none", flags)
+    qp = np.zeros((len(q), 0), np.float32)
+    jd, ji = search_jax.probe_neighborhoods(jdb, jnp.asarray(q),
+                                            jnp.asarray(qp), ef, 16,
+                                            ef_upper=ef_upper)
+    td, ti = search_torch.probe_neighborhoods(tdb, q, qp, ef, 16,
+                                              ef_upper=ef_upper,
+                                              device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    got = ti.numpy()
+    assert not flags[got[got >= 0]].any()
+
+
+@pytest.mark.parametrize("mode", ["pca-deferred", "cascade-deferred"])
+def test_deferred_without_final_rerank_is_the_wide_list(int_fixture, mode):
+    """``final_rerank=False`` skips the promote stage and the re-rank:
+    the layer-0 filter-space list of ``promote_mult * ef0`` (cascade) or
+    ``rerank_mult * ef0`` entries, bit-equal to the reference's."""
+    import functools
+    import jax
+    kind, _, rm = MODES[mode]
+    cfg, g, x, q = int_fixture
+    flags = _doomed(x, q)
+    jdb, tdb, rfilt, tfilt = _tombstoned_pair(cfg, g, kind, flags)
+    if kind == "pca":
+        jqp, tqp = jnp.asarray(q[:, :4]), torch.from_numpy(q[:, :4].copy())
+    else:
+        jqp, tqp = rfilt.prepare_jnp(jnp.asarray(q)), \
+            tfilt.prepare_torch(torch.from_numpy(q))
+    ks = cfg.k_schedule_for(kind, True)
+    kw = dict(ef0=10, k_schedule=ks, deferred=True, rerank_mult=rm,
+              promote_mult=6, final_rerank=False)
+    jd, ji, js, _ = jax.jit(functools.partial(
+        search_jax._search_batched_impl, **kw))(jdb, jnp.asarray(q), jqp)
+    td, ti, ts, _ = search_torch._search_batched_impl(
+        tdb, torch.from_numpy(q), tqp, **kw)
+    assert ti.shape == (len(q), 10 * (6 if kind == "cascade" else rm))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
