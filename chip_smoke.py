@@ -8,7 +8,7 @@ Phases, each printing one JSON object per line; any failure exits
 non-zero:
 
   1. device   — ``nvidia-smi`` name and power limit, torch's device name;
-  2. build    — ``nvcc`` builds the six kernels from ``kernels/csrc``
+  2. build    — ``nvcc`` builds the nine kernels from ``kernels/csrc``
                 (one process per source, started together);
   3. kernels  — each kernel at the main path's shapes (B=1024 for search,
                 2048 for the build probe) plus edge rows, held against its
@@ -17,7 +17,35 @@ non-zero:
                 atol 1e-3 on float inputs: the f32 summation order
                 differs; ``ksort_l`` exact on every input, it does no
                 arithmetic); kernel, plain and library times from
-                CUDA-graph replays timed with CUDA events;
+                CUDA-graph replays timed with CUDA events; dist_l,
+                ksort_l and dist_h also at the footprint bench's shapes.
+                Then ``fused_filter`` at the footprint bench's [64, 32, 15]
+                and the search's [1024, 32, 15] k=16 plus edge rows
+                (k = M, k = 1, M = 100, B = 1; exact on integer inputs),
+                ``flash_attention`` at the bench's shape (B=1 H=4
+                S=T=512 d=64 bf16 causal), at starcoder2-3b widths (24
+                heads, d=128, causal: S=T=4096 and a chunked prefill
+                S=512 T=4096, q aligned to the end) and mixtral-8x7b
+                widths (32 heads, d=128, S=T=8192, window 4096; the plain
+                version head by head), ``decode_attention`` at the
+                bench's shape (B=1 H=4 T=4096 d=64 bf16) and starcoder2-3b
+                widths (B=8 H=24 T=16384 d=128 bf16, lengths 0 to T+7),
+                plus edge rows (f32, S=1, S>T, ragged S and T, window >=
+                T, non-causal, d = 30/40/256), each within 2e-3 (f32) or
+                0.05 (bf16) of its plain version and, tighter at model
+                widths where the outputs are ~0.01-0.04, within
+                ``kernel_footprint.attention_excess`` (per element one
+                bf16 ulp plus 1/32 of the row's RMS; 1e-4 of each in
+                f32), and exactly 0 on rows that see no key; the
+                library yardstick for attention is
+                ``scaled_dot_product_attention`` with an explicit mask;
+  3b. footprint — ``python -m repro_torch.bench.kernel_footprint``'s six
+                rows (dist_l, ksort_l, dist_h, fused_filter,
+                flash_attention, decode_attention at the reference
+                bench's shapes and seed) and their JSON, each row's op
+                first held against its plain version on the tensors the
+                bench times; each of the six
+                kernels must launch;
   4. build    — the wave builder at the paper's SIFT1M configuration:
                 ``--shards`` graphs over ``shard_bounds(--n, P)``, shard s
                 with seed ``seed + s``; ``graph_invariants`` must hold for
@@ -71,12 +99,13 @@ non-zero:
  13. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
-Launch counts are reset just before each main-path run (the build, each
-single-shard arm and each sharded arm) and read just after. The degraded
-and resilient phases need P >= 2 and are skipped at ``--shards 1``, which
-otherwise gives the single-shard smoke over all ``--n`` points. It needs
-no network and one card, and exits non-zero without CUDA or without the
-``src/repro_torch`` package beside it.
+Launch counts are reset just before each main-path run (the footprint
+bench, the build, each single-shard arm and each sharded arm) and read
+just after. The degraded and resilient phases need P >= 2 and are
+skipped at ``--shards 1``, which otherwise gives the single-shard smoke
+over all ``--n`` points. It needs no network and one card, and exits
+non-zero without CUDA or without the ``src/repro_torch`` package beside
+it.
 """
 from __future__ import annotations
 
@@ -89,10 +118,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TIME_LIMIT_S = 1200
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# f32 rate outside the tensor cores, used for each kernel's bound
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
 # SIFT1M is 1M points; the smoke builds 200k by default. The wave
 # builder's linking runs in numpy on the host (the reference's
 # arithmetic, kept so the graph can be held bit-for-bit against it) and
@@ -121,39 +146,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-# ------------------------------ timing -------------------------------------
-
-def graph_ms(torch, fn, reps: int = 20, replays: int = 10) -> float:
-    """Device time of one ``fn()`` call: ``reps`` calls captured in one
-    CUDA graph, replayed ``replays`` times between two CUDA events — no
-    host launch overhead in the figure."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(replays):
-        g.replay()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / (reps * replays)
-
-
-def bound_ms(nbytes: float, ops: float) -> tuple:
-    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 # ------------------------------ kernels ------------------------------------
@@ -242,6 +234,7 @@ def _library_expand(torch, x, q, valid, th, k):
 
 
 def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
+    from repro_torch.bench.kernel_footprint import bound_ms, graph_ms
     from repro_torch.kernels import ops, ref
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
@@ -279,10 +272,10 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
         nops = B * M * dl * 3 + B * M * M
         results[("fused_expand", (B, M, dl, k))] = dict(
             max_abs_err=max(errs),
-            ms=graph_ms(torch, lambda: ops.fused_expand(x, q, v, th, k)),
-            plain_ms=graph_ms(torch, lambda: ref.fused_expand_ref(
+            ms=graph_ms(lambda: ops.fused_expand(x, q, v, th, k)),
+            plain_ms=graph_ms(lambda: ref.fused_expand_ref(
                 x, q, v, th, k)),
-            library_ms=graph_ms(torch, lambda: _library_expand(
+            library_ms=graph_ms(lambda: _library_expand(
                 torch, x, q, v, th, k)),
             bound=bound_ms(nbytes, nops))
 
@@ -306,19 +299,20 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
                     + Nb * max(Na, 1).bit_length())
         results[("merge_sorted", (B, Na, Nb, k))] = dict(
             max_abs_err=max(errs),
-            ms=graph_ms(torch, lambda: ops.merge_topk_sorted(a, ia, b, ib,
+            ms=graph_ms(lambda: ops.merge_topk_sorted(a, ia, b, ib,
                                                              k)),
-            plain_ms=graph_ms(torch, lambda: ref.merge_topk_sorted_ref(
+            plain_ms=graph_ms(lambda: ref.merge_topk_sorted_ref(
                 a, ia, b, ib, k)),
-            library_ms=graph_ms(torch, lambda: torch.sort(
+            library_ms=graph_ms(lambda: torch.sort(
                 torch.cat([a, b], 1), dim=1, stable=True)[0][:, :k]),
             bound=bound_ms(nbytes, nops))
 
     # --- dist_h: search K = 16/8/3 and the entry (1); probe K = 32/16;
-    #     the deferred re-rank K = 30 (pca) and 20 (cascade) ---
+    #     the deferred re-rank K = 30 (pca) and 20 (cascade); the
+    #     footprint bench's [64, 16, 128] ---
     dh_shapes = [(1024, 16, 128), (1024, 8, 128), (1024, 3, 128),
                  (1024, 1, 128), (2048, 32, 128), (2048, 16, 128),
-                 (1024, 30, 128), (1024, 20, 128)]
+                 (1024, 30, 128), (1024, 20, 128), (64, 16, 128)]
     for B, K, D in dh_shapes:
         errs = []
         for integer in (True, False):
@@ -333,15 +327,15 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
                                 ref.dist_h_ref(x, q), integer))
         results[("dist_h", (B, K, D))] = dict(
             max_abs_err=max(errs),
-            ms=graph_ms(torch, lambda: ops.dist_h(x, q)),
-            plain_ms=graph_ms(torch, lambda: ref.dist_h_ref(x, q)),
-            library_ms=graph_ms(torch, lambda: ((x - q[:, None]) ** 2)
+            ms=graph_ms(lambda: ops.dist_h(x, q)),
+            plain_ms=graph_ms(lambda: ref.dist_h_ref(x, q)),
+            library_ms=graph_ms(lambda: ((x - q[:, None]) ** 2)
                                 .sum(-1)),
             bound=bound_ms(B * K * D * 4 + B * D * 4 + B * K * 4,
                            B * K * D * 3))
     # --- dist_l: cascade promote K = promote_mult * ef0 = 60, the
-    #     deferred entry score K = 1 ---
-    for B, K, dl in [(1024, 60, 15), (1024, 1, 15)]:
+    #     deferred entry score K = 1; the footprint bench's [64, 32, 15] ---
+    for B, K, dl in [(1024, 60, 15), (1024, 1, 15), (64, 32, 15)]:
         errs = []
         for integer in (True, False):
             if integer:
@@ -355,9 +349,9 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
                                 ref.dist_l_ref(x, q), integer))
         results[("dist_l", (B, K, dl))] = dict(
             max_abs_err=max(errs),
-            ms=graph_ms(torch, lambda: ops.dist_l(x, q)),
-            plain_ms=graph_ms(torch, lambda: ref.dist_l_ref(x, q)),
-            library_ms=graph_ms(torch, lambda: ((x - q[:, None]) ** 2)
+            ms=graph_ms(lambda: ops.dist_l(x, q)),
+            plain_ms=graph_ms(lambda: ref.dist_l_ref(x, q)),
+            library_ms=graph_ms(lambda: ((x - q[:, None]) ** 2)
                                 .sum(-1)),
             bound=bound_ms(B * K * dl * 4 + B * dl * 4 + B * K * 4,
                            B * K * dl * 3))
@@ -386,10 +380,10 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
             + B * k * 8
         results[("pq_adc_expand", (B, M, S, k))] = dict(
             max_abs_err=max(errs),
-            ms=graph_ms(torch, lambda: ops.pq_adc_expand(c, lut, v, th, k)),
-            plain_ms=graph_ms(torch, lambda: ref.pq_adc_expand_ref(
+            ms=graph_ms(lambda: ops.pq_adc_expand(c, lut, v, th, k)),
+            plain_ms=graph_ms(lambda: ref.pq_adc_expand_ref(
                 c, lut, v, th, k)),
-            library_ms=graph_ms(torch, lambda: _library_pq_expand(
+            library_ms=graph_ms(lambda: _library_pq_expand(
                 torch, c, lut, v, th, k)),
             bound=bound_ms(nbytes, B * M * S + B * M * M),
             bound_full_table_ms=bound_ms(
@@ -398,10 +392,11 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
 
     # --- ksort_l: the cross-shard merge at P=4, M = P * E, k = E for the
     #     per-step arms (E = ef0 = 10), pca-deferred (E = 30) and the
-    #     cascade (E = 60); then edge shapes (M not a multiple of 32,
-    #     k == M, B == 1), checked but not timed ---
+    #     cascade (E = 60); then the footprint bench's [64, 32] k=16 and
+    #     edge shapes (M not a multiple of 32, k == M, B == 1), checked
+    #     but not timed ---
     for B, M, k in [(1024, 40, 10), (1024, 120, 30), (1024, 240, 60),
-                    (8, 33, 5), (4, 64, 64), (1, 40, 10)]:
+                    (64, 32, 16), (8, 33, 5), (4, 64, 64), (1, 40, 10)]:
         errs = []
         for integer in (True, False):
             (d,) = T(_ksort_case(np, rng, B, M, integer))
@@ -411,22 +406,280 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
             continue
         results[("ksort_l", (B, M, k))] = dict(
             max_abs_err=max(errs),
-            ms=graph_ms(torch, lambda: ops.ksort_l(d, k)),
-            plain_ms=graph_ms(torch, lambda: ref.ksort_l_ref(d, k)),
-            library_ms=graph_ms(torch, lambda: [
+            ms=graph_ms(lambda: ops.ksort_l(d, k)),
+            plain_ms=graph_ms(lambda: ref.ksort_l_ref(d, k)),
+            library_ms=graph_ms(lambda: [
                 t[:, :k] for t in torch.sort(d, dim=1, stable=True)]),
             # a comparison sort's M * log2(M) compares per row
             bound=bound_ms(B * M * 4 + B * k * 8,
                            B * M * max(M - 1, 1).bit_length()))
+
+    results.update(check_fused_filter(torch, np, rng, T))
+    results.update(check_attention(torch, np, rng))
 
     for (name, shape), r in results.items():
         emit({"phase": "kernel", "name": name, "shape": list(shape),
               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-              **({"bound_full_table_ms": r["bound_full_table_ms"]}
-                 if "bound_full_table_ms" in r else {})})
+              **{key: val for key, val in r.items() if key not in (
+                  "max_abs_err", "ms", "plain_ms", "library_ms", "bound")}})
     return results
+
+
+def _library_filter(torch, x, q, k):
+    """fused_filter as library calls: distances, stable sort, slice."""
+    d = ((x - q[:, None]) ** 2).sum(-1)
+    return [t[:, :k] for t in torch.sort(d, dim=1, stable=True)]
+
+
+def check_fused_filter(torch, np, rng, T) -> dict:
+    """fused_filter at the footprint bench's [64, 32, 15] k=16 and the
+    search's widths [1024, 32, 15] k=16 (timed), then edge rows (k = M,
+    k = 1, M = 100 over four lanes, B = 1), against the plain version:
+    values and indices exact on integer inputs (ties by index: row 1 has
+    all-equal distances); on float inputs distances to rtol 1e-5 / atol
+    1e-3 and each returned index's plain distance equal to the returned
+    one within the same tolerance (a near-tie may order two indices
+    either way when the f32 sums round apart)."""
+    from repro_torch.bench.kernel_footprint import (bound_ms,
+                                                    fused_filter_cost,
+                                                    graph_ms)
+    from repro_torch.kernels import ops, ref
+    out = {}
+    for B, M, dl, k, timed in [(64, 32, 15, 16, True),
+                               (1024, 32, 15, 16, True),
+                               (64, 32, 15, 32, False), (64, 32, 15, 1, False),
+                               (8, 100, 4, 7, False), (1, 33, 15, 33, False)]:
+        errs = []
+        for integer in (True, False):
+            if integer:
+                xn = rng.integers(0, 8, (B, M, dl)).astype(np.float32)
+                qn = rng.integers(0, 8, (B, dl)).astype(np.float32)
+                if B >= 2:
+                    xn[1] = xn[1, :1]
+            else:
+                xn = rng.standard_normal((B, M, dl)).astype(np.float32)
+                qn = rng.standard_normal((B, dl)).astype(np.float32)
+            x, q = T(xn, qn)
+            gd, gi = ops.fused_filter(x, q, k)
+            wd, wi = ref.fused_filter_ref(x, q, k)
+            torch.cuda.synchronize()
+            errs.append(float((gd - wd).abs().max()))
+            shape = (B, M, dl, k)
+            if integer:
+                need(torch.equal(gd, wd) and torch.equal(gi, wi),
+                     f"fused_filter{shape}: differs on exact inputs")
+            else:
+                need(torch.allclose(gd, wd, rtol=1e-5, atol=1e-3),
+                     f"fused_filter{shape}: max abs err {errs[-1]}")
+                dd = ref.dist_l_ref(x, q).gather(1, gi.long())
+                need(torch.allclose(dd, gd, rtol=1e-5, atol=1e-3),
+                     f"fused_filter{shape}: an index's distance differs")
+        if not timed:
+            continue
+        cost = fused_filter_cost(B, M, dl, k)
+        out[("fused_filter", (B, M, dl, k))] = dict(
+            max_abs_err=max(errs),
+            ms=graph_ms(lambda: ops.fused_filter(x, q, k)),
+            plain_ms=graph_ms(lambda: ref.fused_filter_ref(x, q, k)),
+            library_ms=graph_ms(lambda: _library_filter(torch, x, q, k)),
+            bound=bound_ms(cost["bytes"], cost["ops"]))
+    return out
+
+
+# flash_attention rows: (label, B, H, S, T, d, dtype, causal, window,
+# timed, plain head by head). Model widths from src/repro/configs:
+# starcoder2-3b (24 heads after GQA expansion, d=128) and mixtral-8x7b
+# (32 heads, d=128, sliding window 4096). Edge rows check, not timed.
+FLASH_CASES = [
+    ("bench", 1, 4, 512, 512, 64, "bf16", True, 0, True, False),
+    ("starcoder2-3b prefill", 1, 24, 4096, 4096, 128, "bf16", True, 0, True,
+     False),
+    ("starcoder2-3b chunked prefill", 1, 24, 512, 4096, 128, "bf16", True, 0,
+     True, False),
+    ("mixtral-8x7b window", 1, 32, 8192, 8192, 128, "bf16", True, 4096, True,
+     True),
+    ("f32 window", 2, 2, 256, 256, 64, "f32", True, 64, False, False),
+    ("S=1", 2, 3, 1, 300, 64, "bf16", True, 0, False, False),
+    ("S>T", 1, 2, 200, 100, 64, "f32", True, 0, False, False),
+    ("S>T bf16", 1, 2, 130, 70, 128, "bf16", True, 0, False, False),
+    ("ragged", 1, 2, 77, 77, 128, "f32", True, 0, False, False),
+    ("ragged chunk", 1, 2, 100, 1000, 64, "bf16", True, 0, False, False),
+    ("window >= T", 1, 2, 300, 300, 64, "f32", True, 5000, False, False),
+    ("non-causal", 1, 2, 128, 200, 64, "f32", False, 0, False, False),
+    ("non-causal window", 1, 2, 130, 130, 64, "bf16", False, 30, False,
+     False),
+    ("d=40", 1, 2, 96, 96, 40, "bf16", True, 0, False, False),
+    ("d=30", 1, 2, 70, 90, 30, "f32", True, 0, False, False),
+    ("d=256", 1, 2, 128, 128, 256, "f32", True, 0, False, False),
+]
+# decode_attention rows: (label, B, H, T, d, dtype, lengths, timed);
+# starcoder2-3b at its widths with empty, short, ragged, full and
+# past-the-end lengths
+DECODE_CASES = [
+    ("bench", 1, 4, 4096, 64, "bf16", [4096], True),
+    ("starcoder2-3b", 8, 24, 16384, 128, "bf16",
+     [0, 1, 1000, 8191, 16384, 16384 + 7, 5, 12345], True),
+    ("f32", 3, 4, 300, 64, "f32", [0, 150, 300], False),
+    ("ragged", 2, 3, 1000, 128, "bf16", [999, 129], False),
+    ("d=40", 2, 2, 257, 40, "f32", [257, 1], False),
+    ("d=256", 2, 2, 600, 256, "bf16", [600, 300], False),
+    ("d=30", 2, 2, 100, 30, "bf16", [100, 64], False),
+]
+# the JAX suite's attention tolerances (tests/test_kernels.py): the PV
+# products round at other places in the kernel and the plain version.
+# At model widths the outputs are ~0.01-0.04, so each check also holds
+# the kernel to kernel_footprint.attention_excess <= 1, a tolerance that
+# scales with each row's RMS.
+ATTN_TOL = {"f32": 2e-3, "bf16": 0.05}
+
+
+def check_attention(torch, np, rng) -> dict:
+    """flash_attention and decode_attention against their plain versions
+    on the card (allclose at ``ATTN_TOL``, ``attention_excess`` <= 1, rows
+    that see no key exactly 0), and at the timed rows kernel, plain and
+    library times with the bound. The library yardstick is ``scaled_dot_product_attention`` with
+    an explicit boolean mask (its ``is_causal`` aligns to the top left
+    when S != T; the reference aligns to the end); the port never calls
+    it. Inputs are standard normal, drawn on the card from a seed."""
+    import torch.nn.functional as F
+    from repro_torch.bench.kernel_footprint import (
+        PEAK_BF16_OPS_PER_S, PEAK_F32_OPS_PER_S, attention_excess, bound_ms,
+        decode_cost, flash_cost, graph_ms)
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    peak = {"f32": PEAK_F32_OPS_PER_S, "bf16": PEAK_BF16_OPS_PER_S}
+    randn = lambda shape, dt: torch.randn(shape, generator=gen, device=dev,
+                                          dtype=torch.float32).to(dts[dt])
+    out, excess = {}, {}
+    for (label, B, H, S, T, d, dt, causal, window, timed,
+         by_head) in FLASH_CASES:
+        q, k, v = (randn((B, H, n, d), dt) for n in (S, T, T))
+        if by_head:     # bounds the plain version's [S, T] logits
+            plain = lambda: torch.cat([ref.flash_attention_ref(
+                q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1], causal=causal,
+                window=window) for h in range(H)], 1)
+        else:
+            plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                    window=window)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[dt]
+        shape = (B, H, S, T, d, dt, causal, window)
+        need(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+             f"flash_attention {label} {shape}: max abs err {err}")
+        ex = excess["flash " + label] = attention_excess(got, want)
+        need(ex <= 1, f"flash_attention {label} {shape}: error {ex} "
+             f"times the row-scaled tolerance (max abs {err})")
+        blind = max(S - T, 0) if causal else 0
+        need(bool((got[:, :, :blind] == 0).all()),
+             f"flash_attention {label}: a row that sees no key is not 0")
+        del got, want
+        if not timed:
+            continue
+        mask = ref.attention_mask(S, T, causal, window, device=dev)
+        small = B * H * S * T <= 1 << 22
+        reps = {} if small else {"reps": 2, "replays": 3}
+        cost = flash_cost(B, H, S, T, d, 2 if dt == "bf16" else 4, causal,
+                          window)
+        out[("flash_attention", shape)] = dict(
+            label=label, max_abs_err=err, excess=ex,
+            ms=graph_ms(lambda: ops.flash_attention(
+                q, k, v, causal=causal, window=window), **reps),
+            plain_ms=graph_ms(plain, **reps),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), **reps),
+            bound=bound_ms(cost["bytes"], cost["ops"], peak[dt]),
+            flops=cost["ops"])
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    for label, B, H, T, d, dt, lengths, timed in DECODE_CASES:
+        q, k, v = randn((B, H, d), dt), randn((B, H, T, d), dt), \
+            randn((B, H, T, d), dt)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        got = ops.decode_attention(q, k, v, ln)
+        want = ref.decode_attention_ref(q, k, v, ln)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[dt]
+        shape = (B, H, T, d, dt)
+        need(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+             f"decode_attention {label} {shape}: max abs err {err}")
+        ex = excess["decode " + label] = attention_excess(got, want)
+        need(ex <= 1, f"decode_attention {label} {shape}: error {ex} "
+             f"times the row-scaled tolerance (max abs {err})")
+        need(bool((got[ln <= 0] == 0).all()),
+             f"decode_attention {label}: a length-0 row is not 0")
+        if not timed:
+            continue
+        mask = (torch.arange(T, device=dev)[None, :] < ln[:, None])
+        cost = decode_cost(H, d, 2 if dt == "bf16" else 4, lengths, T)
+        out[("decode_attention", shape)] = dict(
+            label=label, lengths=lengths, max_abs_err=err, excess=ex,
+            ms=graph_ms(lambda: ops.decode_attention(q, k, v, ln)),
+            plain_ms=graph_ms(lambda: ref.decode_attention_ref(q, k, v, ln)),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask[:, None, None])),
+            bound=bound_ms(cost["bytes"], cost["ops"], peak[dt]))
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit({"phase": "attention_check", "excess_max": max(excess.values()),
+          "excess": excess})
+    return out
+
+
+def run_footprint(torch) -> dict:
+    """The kernel-footprint bench on the card (``repro_torch.bench.
+    kernel_footprint``): its six CSV rows, then one JSON line. First each
+    row's op is held against its plain version on the very tensors the
+    bench times (dist_l, dist_h and fused_filter's distances to rtol
+    1e-5 / atol 1e-3, ksort_l and fused_filter's indices exact — the
+    bench's normal inputs have no ties —, attention at
+    ``attention_excess`` <= 1). Launch counts are reset after that, just
+    before the timed run, and read just after; each of the six kernels
+    must have launched. The shared memory the bench reports for the
+    attention kernels is held against the kernels' own figure."""
+    import ctypes
+    from repro_torch.bench import kernel_footprint as kf
+    from repro_torch.kernels import _build, ops
+    calls = kf.make_calls(torch.device("cuda"))
+    errs = {}
+    for name, (fn, plain) in calls.items():
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        gd, gi = got if isinstance(got, tuple) else (got, None)
+        wd, wi = want if isinstance(want, tuple) else (want, None)
+        errs[name] = float((gd.float() - wd.float()).abs().max())
+        if "attention" in name:
+            errs[name + ":excess"] = kf.attention_excess(gd, wd)
+            need(errs[name + ":excess"] <= 1, f"footprint: {name} is "
+                 f"{errs[name + ':excess']} times the row-scaled tolerance")
+        else:
+            need(torch.allclose(gd, wd, rtol=1e-5, atol=1e-3),
+                 f"footprint: {name} max abs err {errs[name]} vs plain")
+        if gi is not None:
+            need(torch.equal(gi, wi), f"footprint: {name} indices differ")
+    ops.reset_launch_counts()
+    rows = kf.run(calls)
+    counts = ops.launch_counts()
+    kf.emit(rows)
+    for row in rows:
+        name = row["name"].split("/", 1)[1]
+        need(counts[name] > 0, f"footprint: {name} never launched")
+        if name in ("flash_attention", "decode_attention"):
+            fn = getattr(_build.load(name), f"{name}_smem_bytes")
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+            need(fn(row["shape"][-1]) == row["smem_per_block_bytes"],
+                 f"footprint: {name} shared memory {fn(row['shape'][-1])} "
+                 f"!= the bench's {row['smem_per_block_bytes']}")
+    return {"phase": "footprint", "rows": rows, "launches": counts,
+            "max_abs_err_vs_plain": errs}
 
 
 # --------------------------- main-path phases ------------------------------
@@ -512,7 +765,8 @@ ARM_KERNELS = {
                          "dist_l"),
 }
 PORTED = ("fused_expand", "merge_sorted", "dist_h", "dist_l",
-          "pq_adc_expand", "ksort_l")
+          "pq_adc_expand", "ksort_l", "fused_filter", "flash_attention",
+          "decode_attention")
 
 
 def train_filters(np, x, cfg, levels, pca) -> tuple:
@@ -1109,6 +1363,16 @@ KERNEL_META = {
                       "src/repro/kernels/pq_adc.py:41", (1024, 32, 16, 32)),
     "ksort_l": ("cuda", "src/repro_torch/kernels/csrc/ksort_l.cu",
                 "src/repro/kernels/ksort_l.py:36", (1024, 40, 10)),
+    "fused_filter": ("cuda", "src/repro_torch/kernels/csrc/fused_filter.cu",
+                     "src/repro/kernels/fused_filter.py:47", (64, 32, 15, 16)),
+    "flash_attention": ("cuda",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:77",
+                        (1, 4, 512, 512, 64, "bf16", True, 0)),
+    "decode_attention": ("cuda",
+                         "src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:63",
+                         (1, 4, 4096, 64, "bf16")),
 }
 
 
@@ -1149,6 +1413,8 @@ def main(argv=None) -> int:
           "sources": built})
 
     kres = phase_kernels(torch, np, args.seed)
+    fout = run_footprint(torch)
+    emit(fout)
 
     P = args.shards
     x, graphs, blines, bout = run_build(torch, np, args.n, P, args.seed,
@@ -1239,10 +1505,12 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "shape": list(shape),
                      "launches": bout["launches"][name]
-                     + sum(per_arm.values()) + sum(per_sharded.values()),
+                     + sum(per_arm.values()) + sum(per_sharded.values())
+                     + fout["launches"][name],
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
                      "launches_sharded": per_sharded,
+                     "launches_footprint": fout["launches"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

@@ -1,8 +1,9 @@
 // warp_topk: the one kSort.L of the port's expand kernels (sm_90a).
 //
-// Shared by fused_expand.cu and pq_adc_expand.cu, as the reference keeps
-// one ksort_block (repro/kernels/fused_filter.py:18-24) for both
-// expands: merge determinism depends on the exact (dist, index) order.
+// Shared by filter_rows.cuh (fused_expand.cu, fused_filter.cu) and
+// pq_adc_expand.cu, as the reference keeps one ksort_block
+// (repro/kernels/fused_filter.py:18-24) for both expands: merge
+// determinism depends on the exact (dist, index) order.
 //
 // One warp holds the M <= 32*PER_LANE distances of a row, lane l owning
 // elements l, l+32, ... Each element's rank is #{j : d_j < d_i or

@@ -1,11 +1,16 @@
-"""CUDA wrapper of the fused expand kernel (``csrc/fused_expand.cu``).
+"""CUDA wrappers of the fused filter kernels (``csrc/fused_expand.cu``
+and ``csrc/fused_filter.cu``).
 
-Replaces ``repro/kernels/fused_filter.py: fused_expand_pallas`` (with its
-``ksort_block`` helper): Dist.L + validity mask + C_pca threshold +
-kSort.L for one expansion step, one warp per query row. Bound on the
-card: bytes (the [B, M, dl] neighbor block). The plain version is
-``ref.fused_expand_ref``; ``ops.fused_expand`` picks between them by
-tensor device."""
+``fused_expand_cuda`` replaces ``repro/kernels/fused_filter.py:
+fused_expand_pallas`` (with its ``ksort_block`` helper): Dist.L +
+validity mask + C_pca threshold + kSort.L for one expansion step.
+``fused_filter_cuda`` replaces ``fused_filter_pallas``: Dist.L + kSort.L
+with no mask and no threshold (the kernel-footprint bench's row). Both
+are one body, ``csrc/filter_rows.cuh`` (one warp per query row, the
+top-k of ``csrc/warp_topk.cuh``), with the mask on or off. Bound on
+the card: bytes (the [B, M, dl] neighbor block). The plain versions are
+``ref.fused_expand_ref`` and ``ref.fused_filter_ref``; ``ops`` picks
+between kernel and plain version by tensor device."""
 from __future__ import annotations
 
 import ctypes
@@ -47,3 +52,35 @@ def fused_expand_cuda(x, q, valid, th, k: int):
 
 
 fused_expand_cuda.launches = 0
+
+
+_FILTER_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
+
+
+def fused_filter_cuda(x, q, k: int):
+    """x: [B, M, dl] f32; q: [B, dl] f32 — contiguous on one CUDA device;
+    1 <= k <= M <= 128. Returns (vals [B, k] f32 ascending, idx [B, k]
+    int32)."""
+    B, M, dl = x.shape
+    check_cuda(x, torch.float32, (B, M, dl), "x")
+    check_cuda(q, torch.float32, (B, dl), "q", like=x)
+    if not 1 <= k <= M or M > 128:
+        raise ValueError(f"fused_filter kernel needs 1 <= k <= M <= 128, "
+                         f"got k={k}, M={M}")
+    vals = torch.empty((B, k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((B, k), dtype=torch.int32, device=x.device)
+    if B == 0:
+        return vals, idx
+    lib = _build.load("fused_filter")
+    fn = lib.fused_filter_launch
+    fn.argtypes, fn.restype = _FILTER_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), q.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                 B, M, dl, k, stream_of(x))
+    _build.check(lib, "fused_filter", err)
+    fused_filter_cuda.launches += 1
+    return vals, idx
+
+
+fused_filter_cuda.launches = 0

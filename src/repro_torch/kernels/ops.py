@@ -1,7 +1,7 @@
-"""The traversal ops, dispatched by tensor device (port of
-``repro/kernels/ops.py`` for ``dist_l``, ``ksort_l``, ``dist_h``,
-``fused_expand``, ``pq_adc_expand``, ``pq_adc`` and
-``merge_topk_sorted``).
+"""The kernel ops, dispatched by tensor device (port of
+``repro/kernels/ops.py``: ``dist_l``, ``ksort_l``, ``dist_h``,
+``fused_filter``, ``fused_expand``, ``pq_adc_expand``, ``pq_adc``,
+``merge_topk_sorted``, ``flash_attention`` and ``decode_attention``).
 
 Same op names, signatures and sentinels as the reference. A CPU tensor
 takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
@@ -17,9 +17,12 @@ import torch
 from repro_torch.constants import VALID_MAX  # noqa: F401  (re-export:
 # callers of fused_expand test returned vals against this sentinel)
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.dist_h import dist_h_cuda
 from repro_torch.kernels.dist_l import dist_l_cuda
-from repro_torch.kernels.fused_filter import fused_expand_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.fused_filter import (fused_expand_cuda,
+                                              fused_filter_cuda)
 from repro_torch.kernels.ksort_l import ksort_l_cuda
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
 from repro_torch.kernels.pq_adc import lut_rows_ok, pq_adc_expand_cuda
@@ -29,7 +32,10 @@ _KERNELS = {"fused_expand": fused_expand_cuda,
             "dist_h": dist_h_cuda,
             "dist_l": dist_l_cuda,
             "pq_adc_expand": pq_adc_expand_cuda,
-            "ksort_l": ksort_l_cuda}
+            "ksort_l": ksort_l_cuda,
+            "fused_filter": fused_filter_cuda,
+            "flash_attention": flash_attention_cuda,
+            "decode_attention": decode_attention_cuda}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -78,6 +84,19 @@ def dist_h(x, q):
         return dist_h_cuda(x.to(torch.float32).contiguous(),
                            q.to(torch.float32).contiguous())
     return ref.dist_h_ref(x, q)
+
+
+def fused_filter(x, q, k: int):
+    """pHNSW step 2 with no mask and no threshold: Dist.L + kSort.L.
+    x: [B, M, dl]; q: [B, dl] -> (vals [B, k] ascending, idx [B, k]
+    int32). k must not exceed M (the reference would leave slots
+    M..k-1 as (0.0, 0))."""
+    if k > x.shape[1]:
+        raise ValueError(f"fused_filter: k={k} exceeds M={x.shape[1]}")
+    if _on_cuda(x, q):
+        return fused_filter_cuda(x.to(torch.float32).contiguous(),
+                                 q.to(torch.float32).contiguous(), k)
+    return ref.fused_filter_ref(x, q, k)
 
 
 def fused_expand(x, q, valid, th, k: int):
@@ -142,3 +161,42 @@ def merge_topk_sorted(d_a, i_a, d_b, i_b, k: int):
                                  d_b.to(torch.float32).contiguous(),
                                  i_b.to(torch.int32).contiguous(), k)
     return ref.merge_topk_sorted_ref(d_a, i_a, d_b, i_b, k)
+
+
+def _same_attention_dtype(name, *ts):
+    dt = {t.dtype for t in ts}
+    if len(dt) != 1 or ts[0].dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the kernel takes q, k and v of one dtype, "
+                        f"float32 or bfloat16, got {sorted(map(str, dt))}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    bq: int = 128, bk: int = 128):
+    """q: [B, H, S, d]; k, v: [B, H, T, d] -> [B, H, S, d] in q's dtype.
+    q aligned to the end of the kv axis; ``window`` > 0 adds a sliding
+    window. A row that sees no key gives 0, as the TPU kernel. ``bq`` and
+    ``bk`` are the reference's TPU tile sizes, kept for its signature;
+    the CUDA kernel tiles by its own (64 x 64) and takes any S and T."""
+    del bq, bk
+    if window < 0:
+        raise ValueError(f"flash_attention: window={window} < 0")
+    if _on_cuda(q, k, v):
+        _same_attention_dtype("flash_attention", q, k, v)
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, length, *, bk: int = 512):
+    """q: [B, H, d]; k, v: [B, H, T, d]; length [B] (the valid cache
+    prefix) -> [B, H, d] in q's dtype; a row with length <= 0 gives 0,
+    as the TPU kernel. ``bk`` is the reference's TPU block size, kept for
+    its signature; the CUDA kernel splits the cache by its own plan."""
+    del bk
+    if _on_cuda(q, k, v, length):
+        _same_attention_dtype("decode_attention", q, k, v)
+        return decode_attention_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(),
+                                     length.to(torch.int32).contiguous())
+    return ref.decode_attention_ref(q, k, v, length)

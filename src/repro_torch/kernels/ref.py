@@ -1,16 +1,23 @@
-"""Plain PyTorch versions of the traversal kernels (port of
-``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the traversal and attention kernels (port
+of ``repro/kernels/ref.py``).
 
 Each ``*_ref`` is the definitional semantics: ``kernels/ops.py`` sends a
 CPU tensor here, and ``chip_smoke.py`` holds each CUDA kernel against its
 plain version on the card. Order is ``(dist, index)`` lexicographic with
 ties to the lower index, and the merge breaks ties to the a side, then
-the lower slot — ``merge_topk_sorted``'s determinism depends on it."""
+the lower slot — ``merge_topk_sorted``'s determinism depends on it.
+
+The attention versions follow the TPU kernels where the reference's
+jnp oracle differs from them: a query row that sees no key at all (a
+decode row with ``length == 0``, a causal row of a chunk longer than
+the cache) gives 0, as the Pallas kernels do by skipping every block,
+and not the uniform mean of ``v`` that a softmax over all-``NEG_INF``
+logits gives. Every other row is the reference's softmax."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.constants import INF
+from repro_torch.constants import INF, NEG_INF
 
 
 def dist_l_ref(x, q):
@@ -41,6 +48,12 @@ def dist_h_ref(x, q):
     x: [B, K, D]; q: [B, D] -> [B, K] float32."""
     d = x.to(torch.float32) - q.to(torch.float32)[:, None, :]
     return torch.sum(d * d, dim=-1)
+
+
+def fused_filter_ref(x, q, k: int):
+    """Fused Dist.L + kSort.L, no mask and no threshold.
+    x: [B, M, dl]; q: [B, dl] -> (vals [B, k] f32, idx [B, k] int32)."""
+    return ksort_l_ref(dist_l_ref(x, q), k)
 
 
 def fused_expand_ref(x, q, valid, th, k: int):
@@ -96,3 +109,62 @@ def merge_topk_sorted_ref(d_a, i_a, d_b, i_b, k: int):
     out_d.scatter_(1, pos_a, d_a).scatter_(1, pos_b, d_b)
     out_i.scatter_(1, pos_a, i_a).scatter_(1, pos_b, i_b)
     return out_d[:, :k], out_i[:, :k].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _masked_softmax_pv(lg, mask, v, out_dtype):
+    """Softmax of f32 logits ``lg`` over their last axis where ``mask``
+    holds, then the product with ``v``. Masked logits are ``NEG_INF``
+    (finite: ``exp(NEG_INF - NEG_INF)`` stays 1) and their weights are
+    0, so a row with no visible key gives 0. The weights are cast to
+    ``v.dtype`` before the product, as the reference casts them; the
+    product accumulates in f32 and the result is cast to ``out_dtype``."""
+    lg = torch.where(mask, lg, torch.full_like(lg, NEG_INF))
+    m = lg.amax(-1, keepdim=True)
+    p = torch.exp(lg - m) * mask
+    w = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    w = w.to(v.dtype).to(torch.float32)
+    return torch.matmul(w, v.to(torch.float32)).to(out_dtype)
+
+
+def attention_mask(S: int, T: int, causal: bool, window: int,
+                   device=None):
+    """[S, T] bool: query row i (at position i + T - S, aligned to the
+    end of the kv axis) sees key t iff ``t <= pos`` when causal and
+    ``pos - t < window`` when ``window`` is set."""
+    qpos = torch.arange(S, device=device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window: int = 0):
+    """q: [B, H, S, d]; k, v: [B, H, T, d] -> [B, H, S, d] in q's dtype.
+    Plain softmax attention with logits in f32 scaled by d**-0.5; H is
+    the same for q and kv (the caller expands GQA)."""
+    S, T = q.shape[2], k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    lg = torch.matmul(q.to(torch.float32),
+                      k.to(torch.float32).transpose(-1, -2)) * scale
+    mask = attention_mask(S, T, causal, window, device=q.device)
+    return _masked_softmax_pv(lg, mask[None, None], v, q.dtype)
+
+
+def decode_attention_ref(q, k, v, length):
+    """One-token decode. q: [B, H, d]; k, v: [B, H, T, d]; length: [B]
+    integer (the valid cache prefix) -> [B, H, d] in q's dtype."""
+    T = k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    lg = torch.einsum("bhd,bhtd->bht", q.to(torch.float32),
+                      k.to(torch.float32)) * scale
+    mask = torch.arange(T, device=q.device)[None, :] \
+        < length.to(q.device)[:, None]                        # [B, T]
+    return _masked_softmax_pv(lg[:, :, None, :], mask[:, None, None, :], v,
+                              q.dtype)[:, :, 0, :]

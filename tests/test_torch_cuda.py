@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.bench import kernel_footprint as kf
 from repro_torch.constants import INF
 from repro_torch.kernels import ops, ref
 
@@ -248,3 +249,86 @@ def test_sharded_search_card_equals_cpu(cuda, kind, deferred, rm, tombs):
             out[d] += [fd.cpu(), fi.cpu(), st["coverage"]]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+@pytest.mark.parametrize("B,M,dl,k", [(64, 32, 15, 16), (1024, 32, 15, 16),
+                                      (64, 32, 15, 32), (8, 100, 4, 1),
+                                      (1, 33, 15, 33)])
+def test_fused_filter_matches_plain(cuda, B, M, dl, k):
+    """Exact on integer inputs, ties by index (row 1: all-equal
+    distances)."""
+    rng = np.random.default_rng(B + M + k)
+    x = rng.integers(0, 8, (B, M, dl)).astype(np.float32)
+    if B >= 2:
+        x[1] = x[1, :1]
+    q = rng.integers(0, 8, (B, dl)).astype(np.float32)
+    tx, tq = _t(cuda, x, q)
+    before = ops.launch_counts()["fused_filter"]
+    d, i = ops.fused_filter(tx, tq, k)
+    d0, i0 = ref.fused_filter_ref(tx, tq, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+    assert ops.launch_counts()["fused_filter"] == before + 1
+
+
+def _attn_inputs(dev, dtype, *shapes, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype) for s in shapes]
+
+
+# (S, T, d, dtype, causal, window): the JAX suite's sweep, the bench's
+# shape, rows that see no key (S > T), ragged edges and head dims that
+# are padded inside the kernel (30: scalar loads; 40: vector loads beside
+# padding).
+# Tolerance 2e-3 in f32 and 0.05 in bf16 (tests/test_kernels.py), and
+# kernel_footprint.attention_excess <= 1, which scales with each row's
+# RMS (one bf16 ulp plus 1/32 of the RMS; 1e-4 of each in f32).
+@pytest.mark.parametrize("S,T,d,dtype,causal,window", [
+    (128, 128, 64, torch.float32, True, 0),
+    (128, 256, 64, torch.bfloat16, True, 0),
+    (256, 256, 64, torch.float32, True, 64),
+    (512, 512, 64, torch.bfloat16, True, 0),
+    (200, 100, 64, torch.float32, True, 0),
+    (1, 300, 128, torch.bfloat16, True, 0),
+    (77, 1000, 128, torch.float32, True, 300),
+    (128, 200, 64, torch.float32, False, 0),
+    (70, 90, 30, torch.float32, True, 0),
+    (96, 96, 40, torch.bfloat16, True, 0),
+    (96, 96, 256, torch.bfloat16, True, 5000)])
+def test_flash_attention_matches_plain(cuda, S, T, d, dtype, causal, window):
+    q, k, v = _attn_inputs(cuda, dtype, (2, 3, S, d), (2, 3, T, d),
+                           (2, 3, T, d), seed=S + T + d)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 0.05
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert kf.attention_excess(out, want) <= 1
+    if causal and S > T:
+        assert bool((out[:, :, :S - T] == 0).all())
+    assert ops.launch_counts()["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("T,d,dtype,lengths", [
+    (256, 64, torch.float32, [1, 128, 256]),
+    (512, 64, torch.float32, [0, 511, 700]),
+    (4096, 64, torch.bfloat16, [4096, 0, 3000]),
+    (1000, 128, torch.bfloat16, [999, 129, 1]),
+    (300, 40, torch.float32, [300, 7, 0])])
+def test_decode_attention_matches_plain(cuda, T, d, dtype, lengths):
+    B, H = len(lengths), 4
+    q, k, v = _attn_inputs(cuda, dtype, (B, H, d), (B, H, T, d),
+                           (B, H, T, d), seed=T + d)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["decode_attention"]
+    out = ops.decode_attention(q, k, v, ln)
+    want = ref.decode_attention_ref(q, k, v, ln)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert kf.attention_excess(out, want) <= 1
+    assert bool((out[ln <= 0] == 0).all())
+    assert ops.launch_counts()["decode_attention"] == before + 1

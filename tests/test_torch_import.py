@@ -36,7 +36,10 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.kernels.ops", "repro_torch.data.vectors",
               "repro_torch.configs.sift1m_phnsw",
               "repro_torch.core.distributed",
-              "repro_torch.distributed.faults"):
+              "repro_torch.distributed.faults",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.decode_attention",
+              "repro_torch.bench.kernel_footprint"):
         assert m in got["modules"]
     assert got["bad"] == []
     assert got["built"] == []

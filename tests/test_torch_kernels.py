@@ -351,3 +351,168 @@ def test_mixed_devices_raise():
     q = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="devices"):
         ops.dist_h(x, q)
+
+
+# ------------------------ fused_filter and attention -------------------------
+
+@pytest.mark.parametrize("B,M,dl,k", [(8, 32, 15, 16), (8, 16, 15, 3),
+                                      (16, 64, 16, 8)])
+def test_fused_filter_sweep(B, M, dl, k, jax_impl):
+    """The sweep of tests/test_kernels.py::test_fused_filter_sweep:
+    distances at rtol 1e-6 / atol 1e-3, indices exact."""
+    rng = np.random.default_rng(B * 100 + M + k)
+    x = rng.standard_normal((B, M, dl)).astype(np.float32)
+    q = rng.standard_normal((B, dl)).astype(np.float32)
+    (jx, jq), (tx, tq) = _both(x, q)
+    _check(*ops.fused_filter(tx, tq, k), *jops.fused_filter(jx, jq, k))
+
+
+def test_fused_filter_ties_and_k_equal_m(jax_impl):
+    """Integer inputs (every sum exact) with all-equal rows: bit-equal to
+    the reference, ties to the lower index, k = M."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 4, (8, 32, 15)).astype(np.float32)
+    x[2:4] = x[2:4, :1]
+    q = rng.integers(0, 4, (8, 15)).astype(np.float32)
+    (jx, jq), (tx, tq) = _both(x, q)
+    d, i = ops.fused_filter(tx, tq, 32)
+    d0, i0 = jops.fused_filter(jx, jq, 32)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d0))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i0))
+    np.testing.assert_array_equal(i[2].numpy(), np.arange(32))
+
+
+def test_fused_filter_k_above_m_raises():
+    """k > M would leave the reference's (0.0, 0) tail; the op refuses
+    it, as fused_expand and ksort_l do."""
+    x, q = torch.zeros(2, 8, 3), torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="exceeds M"):
+        ops.fused_filter(x, q, 9)
+
+
+def _attn(rng, dtype, *shapes):
+    """Standard-normal f32 arrays, rounded to ``dtype`` the same way in
+    both frameworks (f32 -> bf16 is round-to-nearest-even in each)."""
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    return ([jnp.asarray(a).astype(jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs])
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               rtol=tol, atol=tol)
+
+
+ATTN_TOL = {"f32": 2e-3, "bf16": 0.05}   # tests/test_kernels.py:256
+
+
+@pytest.mark.parametrize("S,T,window", [(128, 128, 0), (128, 256, 0),
+                                        (256, 256, 64)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_sweep(S, T, window, dtype, jax_impl):
+    """tests/test_kernels.py::test_flash_attention_sweep's grid, held
+    against the JAX op (the Pallas kernel at bq = bk = 64 in interpret
+    mode, or the jnp oracle) at the suite's tolerance."""
+    rng = np.random.default_rng(S + T + window)
+    (jq, jk, jv), (tq, tk, tv) = _attn(rng, dtype, (2, 2, S, 64),
+                                       (2, 2, T, 64), (2, 2, T, 64))
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                              bq=64, bk=64)
+    assert got.dtype == tq.dtype
+    _close(got, jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                     bq=64, bk=64), ATTN_TOL[dtype])
+
+
+def test_flash_attention_noncausal(jax_impl):
+    rng = np.random.default_rng(3)
+    (jq, jk, jv), (tq, tk, tv) = _attn(rng, "f32", *[(1, 2, 128, 64)] * 3)
+    _close(ops.flash_attention(tq, tk, tv, causal=False),
+           jops.flash_attention(jq, jk, jv, causal=False, bq=64, bk=64),
+           2e-3)
+
+
+@pytest.mark.parametrize("T,bk", [(256, 64), (512, 128)])
+def test_decode_attention_sweep(T, bk, jax_impl):
+    """tests/test_kernels.py::test_decode_attention_sweep's (T, bk) grid
+    and lengths, against the JAX op."""
+    rng = np.random.default_rng(T + bk)
+    (jq, jk, jv), (tq, tk, tv) = _attn(rng, "f32", (3, 4, 64),
+                                       (3, 4, T, 64), (3, 4, T, 64))
+    length = np.asarray([1, T // 2, T], np.int32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(length), bk=bk)
+    _close(got, jops.decode_attention(jq, jk, jv, jnp.asarray(length),
+                                      bk=bk), 2e-3)
+
+
+def test_flash_rows_without_keys_are_zero():
+    """Causal with S > T: query rows at positions < 0 see no key. The
+    Pallas kernel skips every kv block of such a query block and gives
+    0; the jnp oracle's softmax over all-NEG_INF logits gives the mean of
+    v. The port gives 0 there and equals both elsewhere."""
+    from repro.kernels.flash_attention import flash_attention_pallas
+    rng = np.random.default_rng(11)
+    S, T = 128, 64
+    for dtype in ("f32", "bf16"):
+        (jq, jk, jv), (tq, tk, tv) = _attn(rng, dtype, (1, 2, S, 64),
+                                           (1, 2, T, 64), (1, 2, T, 64))
+        got = ops.flash_attention(tq, tk, tv, causal=True)
+        pallas = flash_attention_pallas(jq, jk, jv, causal=True, bq=64,
+                                        bk=64, interpret=True)
+        oracle = jref.flash_attention_ref(jq, jk, jv, causal=True)
+        tol = ATTN_TOL[dtype]
+        _close(got, pallas, tol)
+        assert (got[:, :, :S - T] == 0).all()
+        assert np.abs(np.asarray(oracle[:, :, :S - T], np.float32)).max() \
+            > 0.05
+        _close(got[:, :, S - T:], oracle[:, :, S - T:], tol)
+
+
+def test_decode_length_zero_is_zero():
+    """length == 0: the Pallas kernel skips every block and gives 0, the
+    jnp oracle gives the uniform mean of v; the port gives 0, and equals
+    both on the rows with a valid prefix."""
+    from repro.kernels.decode_attention import decode_attention_pallas
+    rng = np.random.default_rng(12)
+    T = 256
+    (jq, jk, jv), (tq, tk, tv) = _attn(rng, "f32", (3, 4, 64),
+                                       (3, 4, T, 64), (3, 4, T, 64))
+    length = np.asarray([0, 100, T], np.int32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(length))
+    pallas = decode_attention_pallas(jq, jk, jv, jnp.asarray(length), bk=64,
+                                     interpret=True)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(length))
+    _close(got, pallas, 2e-3)
+    assert (got[0] == 0).all()
+    assert np.abs(np.asarray(oracle[0])).max() > 0.05
+    _close(got[1:], oracle[1:], 2e-3)
+
+
+@pytest.mark.parametrize("S,T,causal,window", [
+    (64, 64, True, 16), (100, 70, True, 0), (1, 200, True, 0),
+    (90, 90, False, 20), (77, 300, True, 1000)])
+def test_flash_ragged_shapes_match_reference(S, T, causal, window):
+    """Shapes the Pallas kernel's tiling would refuse (S or T not a
+    multiple of its blocks) are taken by the port's op: held against the
+    jnp oracle on every row that sees a key, 0 on the others."""
+    rng = np.random.default_rng(S * 7 + T)
+    (jq, jk, jv), (tq, tk, tv) = _attn(rng, "f32", (2, 2, S, 32),
+                                       (2, 2, T, 32), (2, 2, T, 32))
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    blind = max(S - T, 0) if causal else 0
+    assert (got[:, :, :blind] == 0).all()
+    _close(got[:, :, blind:], want[:, :, blind:], 2e-3)
+
+
+def test_attention_op_arguments():
+    """A negative window is refused on both devices; bq and bk are the
+    reference's TPU tile sizes and change nothing."""
+    q = torch.randn(1, 1, 8, 16)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=-1)
+    a = ops.flash_attention(q, q, q, bq=8, bk=8)
+    b = ops.flash_attention(q, q, q)
+    assert torch.equal(a, b)
