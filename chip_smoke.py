@@ -25,13 +25,19 @@ non-zero:
                 ``flash_attention`` at the bench's shape (B=1 H=4
                 S=T=512 d=64 bf16 causal), at starcoder2-3b widths (24
                 heads, d=128, causal: S=T=4096 and a chunked prefill
-                S=512 T=4096, q aligned to the end) and mixtral-8x7b
-                widths (32 heads, d=128, S=T=8192, window 4096; the plain
-                version head by head), ``decode_attention`` at the
-                bench's shape (B=1 H=4 T=4096 d=64 bf16) and starcoder2-3b
-                widths (B=8 H=24 T=16384 d=128 bf16, lengths 0 to T+7),
+                S=512 T=4096, q aligned to the end), mixtral-8x7b
+                widths (32 heads, d=128, S=T=8192, window 4096) and
+                recurrentgemma-9b's local attention (16 heads, d=256,
+                S=T=8192, window 2048; both with the plain version head
+                by head), with TFLOP/s, the ratio to the library and,
+                where the bf16 kernel splits the kv range, the unsplit
+                launch checked and timed beside it; ``decode_attention``
+                at the bench's shape (B=1 H=4 T=4096 d=64 bf16) and
+                starcoder2-3b widths (B=8 H=24 T=16384 d=128 bf16,
+                lengths 0 to T+7),
                 plus edge rows (f32, S=1, S>T, ragged S and T, window >=
-                T, non-causal, d = 30/40/256), each within 2e-3 (f32) or
+                T, non-causal, d = 30/40/96/256, a window starting
+                mid-tile, a split ragged chunk), each within 2e-3 (f32) or
                 0.05 (bf16) of its plain version and, tighter at model
                 widths where the outputs are ~0.01-0.04, within
                 ``kernel_footprint.attention_excess`` (per element one
@@ -490,8 +496,10 @@ def check_fused_filter(torch, np, rng, T) -> dict:
 
 # flash_attention rows: (label, B, H, S, T, d, dtype, causal, window,
 # timed, plain head by head). Model widths from src/repro/configs:
-# starcoder2-3b (24 heads after GQA expansion, d=128) and mixtral-8x7b
-# (32 heads, d=128, sliding window 4096). Edge rows check, not timed.
+# starcoder2-3b (24 heads after GQA expansion, d=128), mixtral-8x7b
+# (32 heads, d=128, sliding window 4096) and recurrentgemma-9b's local
+# attention (16 heads, MQA expanded, d=256, window 2048). Edge rows
+# check, not timed.
 FLASH_CASES = [
     ("bench", 1, 4, 512, 512, 64, "bf16", True, 0, True, False),
     ("starcoder2-3b prefill", 1, 24, 4096, 4096, 128, "bf16", True, 0, True,
@@ -500,6 +508,8 @@ FLASH_CASES = [
      True, False),
     ("mixtral-8x7b window", 1, 32, 8192, 8192, 128, "bf16", True, 4096, True,
      True),
+    ("recurrentgemma-9b local", 1, 16, 8192, 8192, 256, "bf16", True, 2048,
+     True, True),
     ("f32 window", 2, 2, 256, 256, 64, "f32", True, 64, False, False),
     ("S=1", 2, 3, 1, 300, 64, "bf16", True, 0, False, False),
     ("S>T", 1, 2, 200, 100, 64, "f32", True, 0, False, False),
@@ -513,6 +523,11 @@ FLASH_CASES = [
     ("d=40", 1, 2, 96, 96, 40, "bf16", True, 0, False, False),
     ("d=30", 1, 2, 70, 90, 30, "f32", True, 0, False, False),
     ("d=256", 1, 2, 128, 128, 256, "f32", True, 0, False, False),
+    ("d=256 window mid-tile", 1, 2, 300, 300, 256, "bf16", True, 100, False,
+     False),
+    ("d=96", 1, 2, 128, 200, 96, "bf16", True, 0, False, False),
+    ("d=30 bf16", 1, 2, 70, 90, 30, "bf16", True, 0, False, False),
+    ("split ragged", 1, 4, 100, 1000, 128, "bf16", True, 0, False, False),
 ]
 # decode_attention rows: (label, B, H, T, d, dtype, lengths, timed);
 # starcoder2-3b at its widths with empty, short, ragged, full and
@@ -539,15 +554,20 @@ def check_attention(torch, np, rng) -> dict:
     """flash_attention and decode_attention against their plain versions
     on the card (allclose at ``ATTN_TOL``, ``attention_excess`` <= 1, rows
     that see no key exactly 0), and at the timed rows kernel, plain and
-    library times with the bound. The library yardstick is ``scaled_dot_product_attention`` with
-    an explicit boolean mask (its ``is_causal`` aligns to the top left
-    when S != T; the reference aligns to the end); the port never calls
-    it. Inputs are standard normal, drawn on the card from a seed."""
+    library times with the bound. The library yardstick is
+    ``scaled_dot_product_attention`` with an explicit boolean mask (its
+    ``is_causal`` aligns to the top left when S != T; the reference
+    aligns to the end); the port never calls it. Inputs are standard
+    normal, drawn on the card from a seed. Where the bf16 kernel splits a
+    row's kv range (``split_plan`` > 1), the unsplit launch is checked and
+    timed beside it (``unsplit_ms``)."""
     import torch.nn.functional as F
     from repro_torch.bench.kernel_footprint import (
         PEAK_BF16_OPS_PER_S, PEAK_F32_OPS_PER_S, attention_excess, bound_ms,
         decode_cost, flash_cost, graph_ms)
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     split_plan)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(1 << 31)))
@@ -588,7 +608,7 @@ def check_attention(torch, np, rng) -> dict:
         reps = {} if small else {"reps": 2, "replays": 3}
         cost = flash_cost(B, H, S, T, d, 2 if dt == "bf16" else 4, causal,
                           window)
-        out[("flash_attention", shape)] = dict(
+        r = out[("flash_attention", shape)] = dict(
             label=label, max_abs_err=err, excess=ex,
             ms=graph_ms(lambda: ops.flash_attention(
                 q, k, v, causal=causal, window=window), **reps),
@@ -597,6 +617,20 @@ def check_attention(torch, np, rng) -> dict:
                 q, k, v, attn_mask=mask), **reps),
             bound=bound_ms(cost["bytes"], cost["ops"], peak[dt]),
             flops=cost["ops"])
+        r["tflops"] = cost["ops"] / r["ms"] / 1e9
+        r["ms_over_library"] = r["ms"] / r["library_ms"]
+        r["n_split"] = split_plan(B, H, S, T, d, causal, window, torch.cuda.
+                                  get_device_properties(0)
+                                  .multi_processor_count) if dt == "bf16" \
+            else 1
+        if r["n_split"] > 1:
+            one = lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window, n_split=1)
+            ex1 = excess["flash " + label + " unsplit"] = attention_excess(
+                one(), plain())
+            need(ex1 <= 1, f"flash_attention {label} {shape} unsplit: error "
+                 f"{ex1} times the row-scaled tolerance")
+            r["unsplit_ms"] = graph_ms(one, **reps)
         del q, k, v, mask
         torch.cuda.empty_cache()
     for label, B, H, T, d, dt, lengths, timed in DECODE_CASES:
@@ -673,10 +707,14 @@ def run_footprint(torch) -> dict:
         name = row["name"].split("/", 1)[1]
         need(counts[name] > 0, f"footprint: {name} never launched")
         if name in ("flash_attention", "decode_attention"):
+            # the flash row is bf16: its kernel's figure for dtype 1
             fn = getattr(_build.load(name), f"{name}_smem_bytes")
-            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-            need(fn(row["shape"][-1]) == row["smem_per_block_bytes"],
-                 f"footprint: {name} shared memory {fn(row['shape'][-1])} "
+            args = (row["shape"][-1],) + ((1,) if name == "flash_attention"
+                                          else ())
+            fn.argtypes = [ctypes.c_int] * len(args)
+            fn.restype = ctypes.c_int
+            need(fn(*args) == row["smem_per_block_bytes"],
+                 f"footprint: {name} shared memory {fn(*args)} "
                  f"!= the bench's {row['smem_per_block_bytes']}")
     return {"phase": "footprint", "rows": rows, "launches": counts,
             "max_abs_err_vs_plain": errs}

@@ -166,7 +166,7 @@ def _row_specs():
         ("kernels/flash_attention", [Bq, H, S, S, hd],
          flash_cost(Bq, H, S, S, hd, 2, True, 0, same_qkv=True),
          PEAK_BF16_OPS_PER_S,
-         _flash.smem_bytes(hd)),
+         _flash.smem_bytes(hd, torch.bfloat16)),
         ("kernels/decode_attention", [Bq, H, Td, hd],
          decode_cost(H, hd, 2, [Td] * Bq, Td, same_kv=True),
          PEAK_BF16_OPS_PER_S,

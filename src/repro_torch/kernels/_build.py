@@ -88,8 +88,8 @@ def _finish(name: str, proc, lib: Path) -> str:
 def build_all() -> Dict[str, dict]:
     """Build (or reuse) and load every kernel library, one nvcc process
     per source, all started together. Returns per-source
-    {"seconds", "built", "ptxas"} (ptxas's register/shared-memory
-    report when the source was compiled in this call)."""
+    {"seconds", "built", "ptxas"} (ptxas's register, shared-memory and
+    spill report when the source was compiled in this call)."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in SOURCES if n not in _LIBS}
     out = {}
@@ -98,7 +98,7 @@ def build_all() -> Dict[str, dict]:
         out[name] = {"seconds": time.perf_counter() - t0,
                      "built": proc is not None,
                      "ptxas": [ln.strip() for ln in log.splitlines()
-                               if "ptxas info" in ln]}
+                               if "ptxas info" in ln or "spill" in ln]}
     return out
 
 

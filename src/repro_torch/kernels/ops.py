@@ -176,7 +176,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q aligned to the end of the kv axis; ``window`` > 0 adds a sliding
     window. A row that sees no key gives 0, as the TPU kernel. ``bq`` and
     ``bk`` are the reference's TPU tile sizes, kept for its signature;
-    the CUDA kernel tiles by its own (64 x 64) and takes any S and T."""
+    the CUDA kernels tile by their own (128 x 64 in bf16, 64 x 64 in f32)
+    and take any S and T."""
     del bq, bk
     if window < 0:
         raise ValueError(f"flash_attention: window={window} < 0")

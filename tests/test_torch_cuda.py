@@ -280,7 +280,10 @@ def _attn_inputs(dev, dtype, *shapes, seed=0):
 # (S, T, d, dtype, causal, window): the JAX suite's sweep, the bench's
 # shape, rows that see no key (S > T), ragged edges and head dims that
 # are padded inside the kernel (30: scalar loads; 40: vector loads beside
-# padding).
+# padding; 96: a multiple of 16 short of 128), and for the bf16
+# tensor-core kernel a ragged chunk whose kv range is split over blocks,
+# d=256 with a window that starts mid-tile, d=30 element by element and a
+# non-causal window.
 # Tolerance 2e-3 in f32 and 0.05 in bf16 (tests/test_kernels.py), and
 # kernel_footprint.attention_excess <= 1, which scales with each row's
 # RMS (one bf16 ulp plus 1/32 of the RMS; 1e-4 of each in f32).
@@ -295,7 +298,12 @@ def _attn_inputs(dev, dtype, *shapes, seed=0):
     (128, 200, 64, torch.float32, False, 0),
     (70, 90, 30, torch.float32, True, 0),
     (96, 96, 40, torch.bfloat16, True, 0),
-    (96, 96, 256, torch.bfloat16, True, 5000)])
+    (96, 96, 256, torch.bfloat16, True, 5000),
+    (100, 1000, 128, torch.bfloat16, True, 0),
+    (300, 300, 256, torch.bfloat16, True, 100),
+    (128, 200, 96, torch.bfloat16, True, 0),
+    (70, 90, 30, torch.bfloat16, True, 0),
+    (260, 130, 64, torch.bfloat16, False, 70)])
 def test_flash_attention_matches_plain(cuda, S, T, d, dtype, causal, window):
     q, k, v = _attn_inputs(cuda, dtype, (2, 3, S, d), (2, 3, T, d),
                            (2, 3, T, d), seed=S + T + d)
@@ -310,6 +318,37 @@ def test_flash_attention_matches_plain(cuda, S, T, d, dtype, causal, window):
     if causal and S > T:
         assert bool((out[:, :, :S - T] == 0).all())
     assert ops.launch_counts()["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("B,H,S,T,d,causal,window", [
+    (1, 4, 100, 1000, 128, True, 0),
+    (1, 4, 512, 512, 64, True, 0),
+    (2, 2, 300, 100, 64, True, 0),
+    (1, 2, 200, 700, 256, True, 150),
+    (1, 3, 90, 500, 30, False, 0)])
+def test_flash_attention_split_matches_unsplit(cuda, B, H, S, T, d, causal,
+                                               window):
+    """The bf16 kernel with its kv range split over blocks (partials
+    merged by the second kernel) against the same kernel unsplit and the
+    plain version: within attention_excess <= 1, blind rows exactly 0,
+    one launch counted per call whatever the split."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _attn_inputs(cuda, torch.bfloat16, (B, H, S, d),
+                           (B, H, T, d), (B, H, T, d), seed=S + T + d)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    one = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               n_split=1)
+    for n_split in (2, 5, 16):
+        before = ops.launch_counts()["flash_attention"]
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   n_split=n_split)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == before + 1
+        assert kf.attention_excess(got, one) <= 1
+        assert kf.attention_excess(got, want) <= 1
+        if causal and S > T:
+            assert bool((got[:, :, :S - T] == 0).all())
+    assert kf.attention_excess(one, want) <= 1
 
 
 @pytest.mark.parametrize("T,d,dtype,lengths", [
