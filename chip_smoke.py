@@ -8,8 +8,9 @@ Phases, each printing one JSON object per line; any failure exits
 non-zero:
 
   1. device   — ``nvidia-smi`` name and power limit, torch's device name;
-  2. build    — ``nvcc`` builds the nine kernels from ``kernels/csrc``
-                (one process per source, started together);
+  2. build    — ``nvcc`` builds the ten kernel sources from
+                ``kernels/csrc`` (one process per source, started
+                together);
   3. kernels  — each kernel at the main path's shapes (B=1024 for search,
                 2048 for the build probe) plus edge rows, held against its
                 plain PyTorch version on the card (indices and distances
@@ -19,6 +20,22 @@ non-zero:
                 arithmetic); kernel, plain and library times from
                 CUDA-graph replays timed with CUDA events; dist_l,
                 ksort_l and dist_h also at the footprint bench's shapes.
+                ``trip_fold`` (a trip's pop, accept test and three
+                merges in one launch) at the main path's fold shapes
+                (pca layers 0 / 1 / 2+, the deferred arms' layer 0, the
+                probe's layers, with tombstones) and at W = 4, 8 and a
+                frontier past shared memory, and ``pq_expand_rows`` (the
+                PQ expand with its row gathers) at the pq and
+                cascade arms' layer 0 and W = 4, 8: each bit for bit
+                against its plain version (raw f32 bits) on integer and
+                float data, the expand also against the unfused path it
+                replaces; the library yardsticks are the stable
+                ``torch.sort`` route of the search body before the fold
+                and index_select + gather-sum + stable sort. Then the wide
+                tiers (phase ``wide_tiers``): the expands at M = 160 and
+                256, fused_filter at 60,000, merge_sorted at 12,816 and
+                60,100 elements, ksort_l at 13,000 and 60,000, exact
+                against their plain versions.
                 Then ``fused_filter`` at the footprint bench's [64, 32, 15]
                 and the search's [1024, 32, 15] k=16 plus edge rows
                 (k = M, k = 1, M = 100, B = 1; exact on integer inputs),
@@ -98,7 +115,9 @@ non-zero:
                 float data; then the sharded search at P=4 on the card
                 and on the CPU in every mode: bit-identical on integer
                 data with and without tombstones, the same recall and id
-                bars on float data;
+                bars on float data; and the pca arm at expand_width W = 4
+                and 8 (128 and 256 expand slots a row), card against CPU
+                on both fixtures (``wide``);
  12. filters  — the 8k filters table (first 64 queries, B=64) beside the
                 tracked ``BENCH_table3.json`` -> ``filters`` rows; each
                 recall within 0.02 of the tracked one;
@@ -421,6 +440,9 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
                            B * M * max(M - 1, 1).bit_length()))
 
     results.update(check_fused_filter(torch, np, rng, T))
+    results.update(check_fold_and_rows(torch, np, rng, T))
+    emit({"phase": "wide_tiers", "tiers": check_wide_tiers(torch, np, rng,
+                                                           T)})
     results.update(check_attention(torch, np, rng))
 
     for (name, shape), r in results.items():
@@ -431,6 +453,304 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
               **{key: val for key, val in r.items() if key not in (
                   "max_abs_err", "ms", "plain_ms", "library_ms", "bound")}})
     return results
+
+
+def _fold_case(np, rng, B, ef, cap, k, kk, integer, n_ids=50_000):
+    """A trip's state and feed: ascending frontiers with INF/-1 tails,
+    a feed with INF/-1 slots, tombstone words over ``n_ids`` ids; integer
+    data from a tie-rich pool with -0.0 beside 0.0, or float squared
+    distances; edge rows (F empty, C exhausted, a one-value feed)."""
+    if integer:
+        pool = np.asarray([-0.0, 0.0, 1.0, 2.0, 2.0, 3.0, 5.0], np.float32)
+        draw = lambda shape: rng.choice(pool, shape)
+    else:
+        draw = lambda shape: (3 * rng.standard_normal(shape)) ** 2
+
+    def frontier(n):
+        d = np.sort(draw((B, n)), 1).astype(np.float32)
+        pads = rng.integers(0, n + 1, B)
+        d[np.arange(n)[None, :] >= n - pads[:, None]] = 3.4e38
+        i = rng.integers(0, n_ids, (B, n)).astype(np.int32)
+        i[d == 3.4e38] = -1
+        return d, i
+
+    F_d, F_i = frontier(ef)
+    C_d, C_i = frontier(cap)
+    Cp = frontier(max(k, 1))[0]
+    dh = draw((B, kk)).astype(np.float32)
+    dh[rng.random((B, kk)) < 0.2] = 3.4e38
+    cand = rng.integers(0, n_ids, (B, kk)).astype(np.int32)
+    cand[dh == 3.4e38] = -1
+    kv = draw((B, kk)).astype(np.float32)
+    if B >= 4:
+        F_d[0], F_i[0] = 3.4e38, -1
+        C_d[1], C_i[1] = 3.4e38, -1
+        dh[2] = dh[2, :1]
+    flags = rng.random(n_ids) < 0.01
+    words = np.zeros(-(-n_ids // 32), np.uint32)
+    ids = np.nonzero(flags)[0].astype(np.uint32)
+    np.bitwise_or.at(words, ids // 32, np.uint32(1) << (ids % 32))
+    return F_d, F_i, C_d, C_i, Cp, dh, cand, kv, words.view(np.int32)
+
+
+def _library_fold(torch, F_d, F_i, C_d, C_i, W, Cp, dh, cand, kv,
+                  deleted):
+    """The fold as library calls: the stable torch.sort route of the
+    search body before the fold (accept, where rows, one stable sort of
+    each frontier followed by its feed; a stable sort of [a, b] keeps
+    the merge's ties, the a side first, then the lower slot)."""
+    B = dh.shape[0]
+    inf = 3.4e38
+    acc = dh < F_d[:, -1:]
+    cd = torch.where(acc, dh, inf)
+    ci = torch.where(acc, cand, -1)
+    fd, fi = cd, ci
+    if deleted is not None:
+        safe = cand.clamp(min=0)
+        tomb = ((torch.take(deleted, (safe // 32).long()) >> (safe % 32))
+                & 1) != 0
+        fd = torch.where(acc & ~tomb, dh, inf)
+        fi = torch.where(acc & ~tomb, cand, -1)
+
+    def merge(ad, ai, bd, bi, n):
+        sd, o = torch.sort(torch.cat([ad, bd], 1), dim=1, stable=True)
+        return sd[:, :n], torch.gather(torch.cat([ai, bi], 1), 1, o[:, :n])
+
+    out = list(merge(F_d, F_i, fd, fi, F_d.shape[1]))
+    pad_d = C_d.new_full((B, W), inf)
+    pad_i = C_i.new_full((B, W), -1)
+    out += merge(torch.cat([C_d[:, W:], pad_d], 1),
+                 torch.cat([C_i[:, W:], pad_i], 1), cd, ci, C_d.shape[1])
+    if Cp is not None:
+        pv = torch.where(acc, kv, inf) if kv is not None else cd
+        out.append(torch.sort(torch.cat([Cp, pv], 1), dim=1,
+                              stable=True)[0][:, :Cp.shape[1]])
+    return out
+
+
+def _fold_cost(B, ef, cap, k, kk, kv, tombs, nw):
+    """Bytes and operations of one fold: F, C, the heap and the feed
+    read once (the tombstone words a row's feed names, at most all of
+    them), the new frontiers written once; each feed ranked by a
+    comparison sort (kk log2 kk compares) and each side of each merge
+    placed by a binary search into the other."""
+    lg = lambda n: max(n - 1, 1).bit_length()
+    feeds = [(ef, True), (cap, True), (k, k > 0)]
+    nbytes = B * (16 * ef + 16 * cap + 8 * k + 8 * kk
+                  + (4 * kk if kv else 0)) + (4 * min(B * kk, nw)
+                                              if tombs else 0)
+    nops = sum(B * (kk * lg(kk) + kk * lg(n) + n * lg(kk))
+               for n, on in feeds if on)
+    return nbytes, nops
+
+
+# trip_fold rows: (B, ef, k, W, kk, heap, kv row, tombstones, timed) — the
+# folds of the main path (the merges of mg_shapes: pca layers 0 / 1 / 2+,
+# pca-deferred and cascade-deferred layer 0, the probe's layer 0 and
+# upper layers, the tombstone arms' layer 0), then W = 4 and 8 (W * k >
+# 64: the block tier) and a frontier past shared memory (global tier)
+FOLD_CASES = [(1024, 10, 16, 1, 16, True, True, False, True),
+              (1024, 30, 16, 1, 16, True, False, False, True),
+              (1024, 60, 32, 1, 32, True, False, False, True),
+              (2048, 100, 0, 1, 32, False, False, False, True),
+              (2048, 16, 0, 1, 16, False, False, False, True),
+              (1024, 10, 16, 1, 16, True, True, True, True),
+              (1024, 1, 8, 1, 8, True, True, False, False),
+              (1024, 1, 3, 1, 3, True, True, False, False),
+              (1024, 10, 16, 4, 64, True, True, True, False),
+              (256, 10, 16, 8, 128, True, True, True, False),
+              (256, 100, 0, 8, 256, False, False, True, False),
+              (2, 30000, 16, 1, 32, True, True, True, False)]
+# pq_expand_rows rows: (B, W, M0, S, k, cascade, timed): the pq arm's
+# layer 0 (k = 16 of 32), the cascade-deferred arm's (k = M0), then W =
+# 2 and 4 (64 and 128 slots: the warp tier's other widths) and W = 8
+# (256 slots: the block tier)
+ROWS_CASES = [(1024, 1, 32, 16, 16, False, True),
+              (1024, 1, 32, 16, 32, True, True),
+              (1024, 2, 32, 16, 16, False, True),
+              (1024, 4, 32, 16, 16, False, True),
+              (256, 8, 32, 16, 16, True, False)]
+
+
+def _rows_case(np, rng, B, W, M0, S, N=50_000):
+    """A layer (adj with -1 tails, layout-(3) codes), a frontier whose
+    first W ids are popped (some -1), gates, a flat integer table row
+    [S*256 + 15] (the cascade's layout) and a heap whose last column is
+    the threshold."""
+    adj = rng.integers(0, N, (N, M0)).astype(np.int32)
+    tails = rng.integers(0, M0 // 2, N)
+    adj[np.arange(M0)[None, :] >= M0 - tails[:, None]] = -1
+    codes = rng.integers(0, 256, (N, M0, S)).astype(np.uint8)
+    C_i = rng.integers(-1, N, (B, W + 9)).astype(np.int32)
+    exp = rng.random((B, W)) < 0.9
+    exp[0] = False
+    flat = rng.integers(0, 1 << 16, (B, S * 256 + 15)).astype(np.float32)
+    heap = np.sort(rng.integers(0, 1 << 22, (B, 4)), 1).astype(np.float32)
+    heap[::2, -1] = 3.4e38
+    return adj, codes, C_i, exp, flat, heap
+
+
+def check_fold_and_rows(torch, np, rng, T) -> dict:
+    """trip_fold and pq_expand_rows against their plain versions on the
+    card, bit for bit (raw f32 bits: -0.0 and 0.0 told apart) on integer
+    and float data (the fold) and integer tables (the expand); then the
+    expand also against the path it replaces (index_select, the
+    pq_adc_expand kernel, the id gather). Timed rows: kernel, plain,
+    library (the fold: ``_library_fold``; the expand: index_select +
+    gather-sum + stable sort + id gather) and the bound; the expand also
+    unfused (``unfused_ms``)."""
+    from repro_torch.bench.kernel_footprint import bound_ms, graph_ms
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.trip_fold import fold_plan
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    out = {}
+    for B, ef, k, W, kk, heap, kv_row, tombs, timed in FOLD_CASES:
+        cap = max(ef + kk, 8)
+        shape = (B, ef, cap, k, kk, W, "heap" if heap else "bypass",
+                 "kv" if kv_row else "-", "tombs" if tombs else "-")
+        for integer in (True, False):
+            F_d, F_i, C_d, C_i, Cp, dh, cand, kv, words = T(
+                *_fold_case(np, rng, B, ef, cap, k, kk, integer))
+            args = (F_d, F_i, C_d, C_i, W, Cp if heap else None, dh, cand,
+                    kv if kv_row else None, words if tombs else None)
+            got = ops.trip_fold(*args)
+            want = ref.trip_fold_ref(*args)
+            torch.cuda.synchronize()
+            need(all(torch.equal(bits(g), bits(w)) for g, w in
+                     zip(got, want) if w is not None),
+                 f"trip_fold{shape} (integer={integer}): differs from the "
+                 "plain version")
+            if not integer:     # no -0.0: a radix sort may order it
+                lib = _library_fold(torch, *args)
+                need(all(torch.equal(g, w) for g, w in zip(got, lib)),
+                     f"trip_fold{shape}: differs from the library route")
+        if not timed:
+            continue
+        nbytes, nops = _fold_cost(B, ef, cap, k, kk, kv_row, tombs,
+                                  words.numel())
+        out[("trip_fold", shape)] = dict(
+            max_abs_err=0.0,
+            tier=fold_plan(ef, cap, k, kk, smem_optin(F_d.device))["tier"],
+            ms=graph_ms(lambda: ops.trip_fold(*args)),
+            plain_ms=graph_ms(lambda: ref.trip_fold_ref(*args)),
+            library_ms=graph_ms(lambda: _library_fold(torch, *args)),
+            bound=bound_ms(nbytes, nops))
+    for B, W, M0, S, k, cascade, timed in ROWS_CASES:
+        adj, codes, C_i, exp, flat, heap = T(*_rows_case(np, rng, B, W, M0,
+                                                         S))
+        lut = flat[:, :S * 256].reshape(B, S, 256)
+        if not cascade:
+            lut = lut.contiguous()          # the pq filter's own tables
+        c_w, th, kk = C_i[:, :W], heap[:, -1], W * k
+        shape = (B, W, M0, S, k)
+
+        def unfused():
+            c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+            nb_i = adj.index_select(0, c_safe).reshape(B, W * M0)
+            mask = (nb_i >= 0) & exp.repeat_interleave(M0, dim=1)
+            pay = codes.index_select(0, c_safe).reshape(B, W * M0, S)
+            d, i = ops.pq_adc_expand(pay, lut, mask, th, kk)
+            return d, torch.gather(nb_i, 1, i.long())
+
+        def library():
+            c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+            nb_i = adj.index_select(0, c_safe).reshape(B, W * M0)
+            mask = (nb_i >= 0) & exp.repeat_interleave(M0, dim=1)
+            pay = codes.index_select(0, c_safe).reshape(B, W * M0, S)
+            d = torch.gather(lut, 2, pay.long().transpose(1, 2)).sum(1)
+            d = torch.where(mask & (d < th[:, None]), d, 3.4e38)
+            sd, o = torch.sort(d, dim=1, stable=True)
+            return sd[:, :kk], torch.gather(nb_i, 1, o[:, :kk])
+
+        want = ref.pq_expand_rows_ref(adj, codes, c_w, exp, lut, th, kk)
+        for name, got in (
+                ("kernel", ops.pq_expand_rows(adj, codes, c_w, exp, lut, th,
+                                              kk)),
+                ("unfused", unfused()), ("library", library())):
+            torch.cuda.synchronize()
+            need(torch.equal(bits(got[0]), bits(want[0]))
+                 and torch.equal(got[1], want[1]),
+                 f"pq_expand_rows{shape} {name}: differs from the plain "
+                 "version")
+        if not timed:
+            continue
+        touched = torch.zeros((B, S, 256), dtype=torch.bool, device=adj.device)
+        c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+        pay = codes.index_select(0, c_safe).reshape(B, W * M0, S)
+        touched.scatter_(2, pay.long().transpose(1, 2), True)
+        M = W * M0
+        nbytes = int(touched.sum()) * 4 + B * (M * 4 + M * S + W * 5 + 4
+                                               + kk * 8)
+        out[("pq_expand_rows", shape)] = dict(
+            max_abs_err=0.0,
+            ms=graph_ms(lambda: ops.pq_expand_rows(adj, codes, c_w, exp, lut,
+                                                   th, kk)),
+            unfused_ms=graph_ms(unfused),
+            plain_ms=graph_ms(lambda: ref.pq_expand_rows_ref(
+                adj, codes, c_w, exp, lut, th, kk)),
+            library_ms=graph_ms(library),
+            bound=bound_ms(nbytes, B * M * S + B * M * M))
+    return out
+
+
+def check_wide_tiers(torch, np, rng, T) -> dict:
+    """The tiers past the main path's widths against the plain versions
+    (exact: integer inputs, or no arithmetic): the expands at M = 160 and
+    256 (a block per row), fused_filter at M = 60,000 (a global scratch
+    row), merge_sorted at 12,816 (opted-in shared memory) and 60,100
+    elements (global), ksort_l at 13,000 and 60,000. Checked, not timed;
+    returns each case's tier."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.fused_filter import expand_plan
+    from repro_torch.kernels.ksort_l import ksort_plan
+    from repro_torch.kernels.merge_sorted import merge_plan
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    optin = smem_optin(torch.cuda.current_device())
+    tiers = {}
+    for M in (160, 256):
+        x, q, v, th = T(*_expand_case(np, rng, 512, M, 15, True))
+        c, flat, v2, th2 = T(*_pq_case(np, rng, 512, M, 16, True))
+        lut = flat[:, :16 * 256].reshape(512, 16, 256)
+        for name, got, want in (
+                ("fused_expand", ops.fused_expand(x, q, v, th, 40),
+                 ref.fused_expand_ref(x, q, v, th, 40)),
+                ("fused_filter", ops.fused_filter(x, q, 40),
+                 ref.fused_filter_ref(x, q, 40)),
+                ("pq_adc_expand", ops.pq_adc_expand(c, lut, v2, th2, 40),
+                 ref.pq_adc_expand_ref(c, lut, v2, th2, 40))):
+            torch.cuda.synchronize()
+            need(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                 f"{name} at M={M}: differs from the plain version")
+            tiers[f"{name} M={M}"] = expand_plan(M, optin)["tier"]
+    x, q = T(rng.integers(0, 8, (2, 60000, 2)).astype(np.float32),
+             rng.integers(0, 8, (2, 2)).astype(np.float32))
+    got, want = ops.fused_filter(x, q, 9), ref.fused_filter_ref(x, q, 9)
+    torch.cuda.synchronize()
+    need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+         "fused_filter at M=60000: differs from the plain version")
+    tiers["fused_filter M=60000"] = expand_plan(60000, optin)["tier"]
+    for Na, Nb, k in ((12800, 16, 300), (60000, 100, 64)):
+        a, ia, b, ib = T(*_merge_case(np, rng, 4, Na, Nb, True))
+        got = ops.merge_topk_sorted(a, ia, b, ib, k)
+        want = ref.merge_topk_sorted_ref(a, ia, b, ib, k)
+        torch.cuda.synchronize()
+        need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+             f"merge_sorted at Na+Nb={Na + Nb}: differs from the plain "
+             "version")
+        tiers[f"merge_sorted N={Na + Nb}"] = merge_plan(Na, Nb,
+                                                        optin)["tier"]
+    for M, k in ((13000, 20), (60000, 7)):
+        (d,) = T(_ksort_case(np, rng, 4, M, False))
+        got, want = ops.ksort_l(d, k), ref.ksort_l_ref(d, k)
+        torch.cuda.synchronize()
+        need(torch.equal(bits(got[0]), bits(want[0]))
+             and torch.equal(got[1], want[1]),
+             f"ksort_l at M={M}: differs from the plain version")
+        tiers[f"ksort_l M={M}"] = ksort_plan(M, optin)["tier"]
+    return tiers
 
 
 def _library_filter(torch, x, q, k):
@@ -796,15 +1116,25 @@ ARMS = [("pca", "pca", False, None, 0.80),
         ("cascade-deferred", "cascade", True, 2, 0.80)]
 # the kernels each arm's path must launch
 ARM_KERNELS = {
-    "pca": ("fused_expand", "merge_sorted", "dist_h"),
-    "pca-deferred": ("fused_expand", "merge_sorted", "dist_h", "dist_l"),
-    "pq": ("pq_adc_expand", "merge_sorted", "dist_h"),
-    "cascade-deferred": ("pq_adc_expand", "merge_sorted", "dist_h",
+    "pca": ("fused_expand", "trip_fold", "dist_h"),
+    "pca-deferred": ("fused_expand", "trip_fold", "dist_h", "dist_l"),
+    "pq": ("pq_expand_rows", "trip_fold", "dist_h"),
+    "cascade-deferred": ("pq_expand_rows", "trip_fold", "dist_h",
                          "dist_l"),
 }
 PORTED = ("fused_expand", "merge_sorted", "dist_h", "dist_l",
           "pq_adc_expand", "ksort_l", "fused_filter", "flash_attention",
-          "decode_attention")
+          "decode_attention", "trip_fold", "pq_expand_rows")
+# how a kernel's name reads in a profile where it is not "{name}_kernel":
+# fused_expand and fused_filter are filter_rows.cuh's kernels with the
+# mask on (true) or off (false)
+PROFILE_NAMES = {"fused_expand": ("filter_rows::kernel", "<true"),
+                 "fused_filter": ("filter_rows::kernel", "<false")}
+
+
+def _profile_match(name: str, key: str) -> bool:
+    parts = PROFILE_NAMES.get(name, (f"{name}_kernel",))
+    return all(p in key for p in parts)
 
 
 def train_filters(np, x, cfg, levels, pca) -> tuple:
@@ -1127,7 +1457,7 @@ def profile_batch(torch, fn, top: int = 10) -> dict:
             rows.append((float(us), e.key, int(e.count)))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    ported = {n: sum(us for us, k, _ in rows if f"{n}_kernel" in k) / 1e3
+    ported = {n: sum(us for us, k, _ in rows if _profile_match(n, k)) / 1e3
               for n in PORTED}
     return {"wall_ms": wall * 1e3, "device_ms": busy_ms,
             "busy_share": busy_ms / (wall * 1e3),
@@ -1245,6 +1575,8 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
                      st["dist_h_evals"].cpu()]
     bit = all(torch.equal(a, b) for a, b in zip(outs[device], outs["cpu"]))
     need(bit, "8k integer parity: card and CPU differ")
+    wide = _wide_parity(torch, np, g, gi, cfg, pca, xl, xli, q, qi, qpi, gt,
+                        device)
 
     # --- every new filter mode, card vs CPU ---
     filts = _bench_filters(np, cfg, x, pca, g.levels)
@@ -1280,7 +1612,7 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
               "ids_equal_frac": same,
               "dist_h_mean_card": float(card[2].mean()),
               "dist_h_mean_first64_card": dhe64,
-              "integer_bit_identical": bit, "modes": modes,
+              "integer_bit_identical": bit, "wide": wide, "modes": modes,
               "sharded": _sharded_parity(torch, np, cfg, x, q, gt, filts,
                                          ifilts, seed, device)}
 
@@ -1307,6 +1639,56 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
              f"{t['recall']}")
     return parity, {"phase": "filters_8k", "queries": 64, "batch": 64,
                     "rows": rows}
+
+
+# the pca arm at these expand widths on the 8k fixture: W * M0 = 128
+# expand slots (the warp tier's widest) and 256 (the block tier), W * k
+# = 64 and 128 fold feeds (the block tier past 64)
+WIDE_W = (4, 8)
+
+
+def _wide_parity(torch, np, g, gi, cfg, pca, xl, xli, q, qi, qpi, gt,
+                 device: str) -> dict:
+    """The pca arm at ``expand_width`` W in ``WIDE_W`` on the 8k graph,
+    card against CPU: integer data bit-identical (ids, dists, steps,
+    Dist.H counts), float data recall within 0.005 and ids equal for >=
+    99% of queries; card seconds of the 200 queries beside."""
+    import dataclasses
+    from repro_torch.core.search_torch import build_packed, search_batched
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {}
+    for W in WIDE_W:
+        cw = dataclasses.replace(cfg, expand_width=W)
+        res, ires, secs = {}, {}, None
+        for dev in (device, "cpu"):
+            db = build_packed(dataclasses.replace(g, cfg=cw), xl, device=dev)
+            t0 = time.perf_counter()
+            fd, fi, st = search_batched(db, q, pca=pca, return_stats=True,
+                                        device=dev)
+            sync()
+            if dev == device:
+                secs = time.perf_counter() - t0
+            res[dev] = (fi.cpu().numpy(), st["dist_h_evals"].cpu().numpy())
+            idb = build_packed(dataclasses.replace(gi, cfg=cw), xli,
+                               device=dev)
+            fd, fi, st = search_batched(idb, qi, qpi, return_stats=True,
+                                        device=dev)
+            ires[dev] = [fd.cpu(), fi.cpu(), st["steps_per_layer"].cpu(),
+                         st["dist_h_evals"].cpu()]
+        rc = recall_at_10(res[device][0], gt)
+        rh = recall_at_10(res["cpu"][0], gt)
+        eq = float((res[device][0] == res["cpu"][0]).all(1).mean())
+        ibit = all(torch.equal(a, b)
+                   for a, b in zip(ires[device], ires["cpu"]))
+        need(abs(rc - rh) <= 0.005,
+             f"8k pca W={W} float parity: recall card {rc} vs cpu {rh}")
+        need(eq >= 0.99, f"8k pca W={W} float parity: ids equal for {eq}")
+        need(ibit, f"8k pca W={W} integer parity: card and CPU differ")
+        out[f"W={W}"] = {"recall_card": rc, "recall_cpu": rh,
+                         "ids_equal_frac": eq, "integer_bit_identical": ibit,
+                         "dist_h_mean_card": float(res[device][1].mean()),
+                         "card_seconds": secs}
+    return out
 
 
 # the sharded modes held card vs CPU on the 8k fixture
@@ -1411,6 +1793,17 @@ KERNEL_META = {
                          "src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:63",
                          (1, 4, 4096, 64, "bf16")),
+    # the search's fold of a trip's three merges (merge_sorted_pallas)
+    # and the glue around them, at the pca arm's layer 0
+    "trip_fold": ("cuda", "src/repro_torch/kernels/csrc/trip_fold.cu",
+                  "src/repro/kernels/merge_sorted.py:52",
+                  (1024, 10, 26, 16, 16, 1, "heap", "kv", "-")),
+    # pq_adc_expand_pallas with the row gathers fused, at the pq arm's
+    # layer 0
+    "pq_expand_rows": ("cuda",
+                       "src/repro_torch/kernels/csrc/pq_adc_expand.cu",
+                       "src/repro/kernels/pq_adc.py:41",
+                       (1024, 1, 32, 16, 16)),
 }
 
 
@@ -1462,7 +1855,7 @@ def main(argv=None) -> int:
     emit(bout)
     need(bout["invariants_ok"], "graph invariants: " + "; ".join(
         str(ln["violations"]) for ln in blines if not ln["invariants_ok"]))
-    for name in ("merge_sorted", "dist_h"):
+    for name in ("trip_fold", "dist_h"):
         need(bout["launches"][name] > 0, f"build never launched {name}")
     if args.n < FULL_N:
         emit({"reduced": {"n_points": args.n, "of": FULL_N, "why": (

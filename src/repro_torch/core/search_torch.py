@@ -6,11 +6,14 @@ B queries run Algorithm 1 together, as in the reference:
   * packed layout (3) as a device tensor ``packed_low[N, M, dl]`` — one
     row gather per expansion fetches indices and all neighbor low-dim
     vectors;
-  * the fused expand kernel (``ops.fused_expand``): Dist.L, the
-    adjacency/active mask, the C_pca threshold and kSort.L in one launch;
+  * the fused expand kernels (``ops.fused_expand``; for PQ codes
+    ``ops.pq_expand_rows``, which also gathers the popped rows itself):
+    Dist.L or ADC, the adjacency/active mask, the C_pca threshold and
+    kSort.L in one launch;
   * sorted frontiers: C (candidates), F (finals) and C_pca stay
     ascending, so the pop is slot 0 and every per-step fold is an
-    O(ef+k) sorted merge (``ops.merge_topk_sorted``);
+    O(ef+k) sorted merge; one op (``ops.trip_fold``) does a trip's pop,
+    accept test and all three merges;
   * fixed-capacity buffers with masked updates and a per-query visited
     BITMAP (one bit per node in int32 words, bit 31 included);
   * per-query ``done`` flags latched in the loop state. A latched query
@@ -44,6 +47,9 @@ from repro_torch.configs.base import PHNSWConfig
 from repro_torch.constants import INF, VALID_MAX
 from repro_torch.core.graph import HNSWGraph
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import rank_sort_with_payload as \
+    _rank_sort_with_payload
+from repro_torch.kernels.ref import tombstone_bit as _tombstone_bit
 
 # host check of done.all() every this many loop trips (a device->host
 # sync); extra trips after every query latched are exact no-ops
@@ -121,14 +127,6 @@ class PackedDB:
         idx = sum(int((l.adj >= 0).sum()) * 4 for l in self.layers)
         return idx + self.low.numel() * self.low.element_size() \
             + self.high.numel() * 4
-
-
-def _tombstone_bit(deleted, ids):
-    """The tombstone bit of each id (any shape) as a bool tensor.
-    Negative ids (padding) read word 0 harmlessly; callers mask them."""
-    safe = ids.clamp(min=0)
-    return ((torch.take(deleted, (safe // 32).long()) >> (safe % 32))
-            & 1) != 0
 
 
 def pack_bitmap(flags: np.ndarray) -> np.ndarray:
@@ -218,14 +216,6 @@ def from_reference(db_np: dict, cfg: PHNSWConfig, *,
                     deleted=None if deleted is None
                     else t(deleted).to(torch.int32),
                     filter_kind=db_np["filter_kind"])
-
-
-def _rank_sort_with_payload(d, p):
-    """Stable ascending sort of each row of d (ties -> lower slot), the
-    int payload p carried along: the same (dist, slot) order as the
-    reference's comparison-matrix rank sort."""
-    sd, order = torch.sort(d, dim=1, stable=True)
-    return sd, torch.gather(p, 1, order)
 
 
 def _cascade_lut(qprep, S: int):
@@ -323,42 +313,42 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
     lane = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     jj = torch.arange(kk, device=dev)
     later = (jj[:, None] > jj[None, :])[None]              # [1, kk, kk]
-    zeros_k = torch.zeros((B, k), dtype=torch.int32, device=dev)
-    zeros_kk = torch.zeros((B, kk), dtype=torch.int32, device=dev)
 
     def body(state):
         C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe = state
         bnd = F_d[:, -1:]
-        # -- pop the W nearest candidates: slots 0..W-1 of sorted C --
+        # -- pop the W nearest candidates: slots 0..W-1 of sorted C (the
+        #    fold below drops them from C) --
         d_w, c_w = C_d[:, :W], C_i[:, :W]
         # termination is monotone, so the freeze is latched; an exhausted
         # frontier (slot 0 is the -1/INF pad) latches too (lines 7-8)
         done = done | (C_d[:, 0] > bnd[:, 0]) | (C_i[:, 0] < 0)
         exp = (d_w <= bnd) & ~done[:, None] & (nsteps[:, None] + lane < steps)
-        C_d = torch.cat([C_d[:, W:], C_d.new_full((B, W), INF)], 1)
-        C_i = torch.cat([C_i[:, W:], C_i.new_full((B, W), -1)], 1)
-        # gated-off slots gather row 0 (cheap, discarded via the mask)
-        c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
-        # -- step 2: W row gathers = paper layout (3) bursts --
-        nb_i = lay.adj.index_select(0, c_safe).reshape(B, W * M)
-        nb_mask = (nb_i >= 0) & exp.repeat_interleave(M, dim=1)
-        if fkind == "none":
-            # filter bypass: every valid neighbor is a candidate
-            cand, kv, valid = nb_i, None, nb_mask
+        if fkind in ("pq", "cascade"):
+            # -- step 2, fused: the PQ expand reads the W popped rows of
+            #    the layer (layout (3) bursts) itself: ADC + mask +
+            #    f_pca threshold + kSort.L, the neighbour ids out --
+            kv, cand = ops.pq_expand_rows(lay.adj, lay.packed_low, c_w, exp,
+                                          lut, Cp[:, -1], kk)
+            valid = (kv < VALID_MAX) & (cand >= 0)
         else:
-            nb_pay = lay.packed_low.index_select(0, c_safe) \
-                .reshape(B, W * M, -1)
-            # -- fused expand: filter dist (Dist.L or PQ ADC) + mask +
-            #    f_pca threshold + kSort.L in one kernel --
-            if fkind == "pca":
+            # gated-off slots gather row 0 (cheap, discarded via the mask)
+            c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+            # -- step 2: W row gathers = paper layout (3) bursts --
+            nb_i = lay.adj.index_select(0, c_safe).reshape(B, W * M)
+            nb_mask = (nb_i >= 0) & exp.repeat_interleave(M, dim=1)
+            if fkind == "none":
+                # filter bypass: every valid neighbor is a candidate
+                cand, kv, valid = nb_i, None, nb_mask
+            else:
+                nb_pay = lay.packed_low.index_select(0, c_safe) \
+                    .reshape(B, W * M, -1)
+                # -- fused expand: Dist.L + mask + f_pca threshold +
+                #    kSort.L in one kernel --
                 kv, ki = ops.fused_expand(nb_pay, qprep, nb_mask,
                                           Cp[:, -1], kk)
-            else:
-                # pq and cascade both traverse on ADC codes
-                kv, ki = ops.pq_adc_expand(nb_pay, lut, nb_mask, Cp[:, -1],
-                                           kk)
-            cand = torch.gather(nb_i, 1, ki.long())          # [B, W*k]
-            valid = (kv < VALID_MAX) & (cand >= 0)
+                cand = torch.gather(nb_i, 1, ki.long())      # [B, W*k]
+                valid = (kv < VALID_MAX) & (cand >= 0)
         # -- visited check: one bit gather per candidate --
         cw, cm = _bits(cand)
         seen = (torch.gather(V, 1, cw) & cm) != 0
@@ -380,34 +370,17 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
         # -- mark visited: disjoint bit masks (valid slots are distinct
         #    ids, so the add is a bitwise or); in place --
         V.scatter_add_(1, cw, torch.where(valid, cm, 0))
-        # -- accept: d < F.max or F not full (F starts padded with INF) --
-        accept = dh < bnd
-        # one stacked stable sort orders the acceptees for every feed:
-        # an okF row (tombstones masked out) first under filter_deleted;
-        # a separate kv row for the C_pca heap only when the traversal
-        # orders by Dist.H (deferred: dh IS kv)
-        rows_d = [torch.where(accept, dh, INF)]
-        rows_i = [torch.where(accept, cand, -1)]
-        if filter_deleted:
-            okF = accept & ~_tombstone_bit(db.deleted, cand)
-            rows_d.insert(0, torch.where(okF, dh, INF))
-            rows_i.insert(0, torch.where(okF, cand, -1))
-        if need_kv_row:
-            rows_d.append(torch.where(accept, kv, INF))
-            rows_i.append(zeros_kk)
-        s_d, s_i = _rank_sort_with_payload(torch.cat(rows_d, 0),
-                                           torch.cat(rows_i, 0))
-        r = B if filter_deleted else 0
-        sd, si = s_d[r:r + B], s_i[r:r + B]          # C feed (dh order)
-        fd_n, fi_n = s_d[:B], s_i[:B]                # F feed
-        # -- fold into the sorted frontiers: O(ef+k) sorted merges --
-        F_d, F_i = ops.merge_topk_sorted(F_d, F_i, fd_n, fi_n, ef)
-        C_d, C_i = ops.merge_topk_sorted(C_d, C_i, sd, si, C_d.shape[1])
-        if fkind != "none":
-            # C_pca feed: the accepted candidates' filter dists, their
-            # own sort row per-step, the dh row itself when deferred
-            pv = s_d[r + B:] if need_kv_row else sd
-            Cp, _ = ops.merge_topk_sorted(Cp, zeros_k, pv, zeros_kk, k)
+        # -- the fold, one op: the pop, accept (d < F.max or F not full;
+        #    F starts padded with INF), the feeds (an okF row without
+        #    tombstones under filter_deleted; the C_pca heap's own kv row
+        #    only when the traversal orders by Dist.H, else the C row)
+        #    and the O(ef+k) sorted merges into F, C and the heap --
+        F_d, F_i, C_d, C_i, Cp_n = ops.trip_fold(
+            F_d, F_i, C_d, C_i, W, None if fkind == "none" else Cp, dh,
+            cand, kv if need_kv_row else None,
+            db.deleted if filter_deleted else None)
+        if Cp_n is not None:
+            Cp = Cp_n
         nsteps = nsteps + exp.sum(1, dtype=torch.int32)
         return (C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe)
 

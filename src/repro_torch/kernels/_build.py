@@ -25,7 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("fused_expand", "merge_sorted", "dist_h", "dist_l",
            "pq_adc_expand", "ksort_l", "fused_filter", "flash_attention",
-           "decode_attention")
+           "decode_attention", "trip_fold")
 
 # loaded libraries by source name; filled only by load()/build_all()
 _LIBS: Dict[str, ctypes.CDLL] = {}

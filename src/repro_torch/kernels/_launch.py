@@ -1,7 +1,46 @@
-"""Argument checks and the stream handle shared by the CUDA wrappers."""
+"""Argument checks, the stream handle and the shared-memory limits shared
+by the CUDA wrappers."""
 from __future__ import annotations
 
+import functools
+
 import torch
+
+# dynamic shared memory a block gets without opting in
+SMEM_DEFAULT = 48 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _optin(idx: int) -> int:
+    return torch.cuda.get_device_properties(idx).shared_memory_per_block_optin
+
+
+def smem_optin(dev) -> int:
+    """The most dynamic shared memory a block on CUDA device ``dev`` can
+    opt into (cudaDevAttrMaxSharedMemoryPerBlockOptin: 227 KB on an
+    H100), asked once per device."""
+    idx = torch.device(dev).index
+    return _optin(torch.cuda.current_device() if idx is None else idx)
+
+
+def scratch_rows(plan: dict, B: int, dev):
+    """The global scratch a host plan asks for, [B, plan["scratch"]]
+    f32, or None when the kernel keeps its rows in shared memory."""
+    if not plan["scratch"]:
+        return None
+    return torch.empty((B, plan["scratch"]), dtype=torch.float32,
+                       device=dev)
+
+
+def ptr(t) -> int:
+    """A tensor's device pointer, 0 (a null pointer) for None."""
+    return 0 if t is None else t.data_ptr()
+
+
+def warps_for(n: int, most: int = 1024) -> int:
+    """Threads of a block that gives each of n elements a thread, in
+    whole warps, at most ``most``."""
+    return min(most, max(32, -(-n // 32) * 32))
 
 
 def check_cuda(t, dtype, shape, name: str, like=None) -> None:

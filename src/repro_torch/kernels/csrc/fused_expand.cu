@@ -11,9 +11,11 @@
 extern "C" int fused_expand_launch(const void* x, const void* q,
                                    const void* valid, const void* th,
                                    void* out_d, void* out_i, int B, int M,
-                                   int dl, int k, void* stream) {
+                                   int dl, int k, int per_lane,
+                                   int threads, void* scratch,
+                                   void* stream) {
   return filter_rows::launch<true>(x, q, valid, th, out_d, out_i, B, M, dl,
-                                   k, stream);
+                                   k, per_lane, threads, scratch, stream);
 }
 
 extern "C" const char* fused_expand_error_string(int err) {

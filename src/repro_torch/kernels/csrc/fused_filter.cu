@@ -10,9 +10,11 @@
 
 extern "C" int fused_filter_launch(const void* x, const void* q, void* out_d,
                                    void* out_i, int B, int M, int dl, int k,
+                                   int per_lane, int threads, void* scratch,
                                    void* stream) {
   return filter_rows::launch<false>(x, q, nullptr, nullptr, out_d, out_i, B,
-                                    M, dl, k, stream);
+                                    M, dl, k, per_lane, threads, scratch,
+                                    stream);
 }
 
 extern "C" const char* fused_filter_error_string(int err) {

@@ -18,44 +18,48 @@
 // d_j at the same time (a shared-memory broadcast). The compares are
 // float compares, as the reference's: -0.0 == 0.0 ties by index, and
 // INF (a finite 3.4e38) is an ordinary value. No arithmetic touches a
-// value, so the output equals the plain version bit for bit.
+// value, so the output equals the plain version bit for bit. The rank
+// count is block_topk.cuh's. Rows of up to 12288 values stage in the
+// default 48 KB of shared memory; longer ones opt into the card's larger
+// maximum (227 KB on an H100), and past that the block ranks the row in
+// global memory (`staged` 0). The host plan (kernels/ksort_l.py:
+// ksort_plan) picks the tier.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "block_topk.cuh"
 
 namespace {
 
 __global__ void ksort_l_kernel(const float* __restrict__ d,
                                float* __restrict__ ov,
-                               int32_t* __restrict__ oi, int M, int k) {
+                               int32_t* __restrict__ oi, int M, int k,
+                               int staged) {
   extern __shared__ float sh[];
   const size_t row = blockIdx.x;
   const float* dr = d + row * M;
-  for (int t = threadIdx.x; t < M; t += blockDim.x) sh[t] = dr[t];
-  __syncthreads();
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const float v = sh[i];
-    int rank = 0;
-    for (int j = 0; j < M; ++j) {
-      const float w = sh[j];
-      rank += (w < v) | ((w == v) & (j < i));
-    }
-    if (rank < k) {
-      ov[row * k + rank] = v;
-      oi[row * k + rank] = i;
-    }
+  const float* buf = dr;
+  if (staged) {  // uniform across the block
+    for (int t = threadIdx.x; t < M; t += blockDim.x) sh[t] = dr[t];
+    __syncthreads();
+    buf = sh;
   }
+  block_topk::write_topk(buf, M, k, ov + row * k, oi + row * k,
+                         block_topk::Index());
 }
 
 }  // namespace
 
 extern "C" int ksort_l_launch(const void* d, void* ov, void* oi, int B, int M,
-                              int k, void* stream) {
+                              int k, int staged, void* stream) {
   int threads = ((M + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  const size_t smem = sizeof(float) * (size_t)M;
+  const size_t smem = staged ? sizeof(float) * (size_t)M : 0;
+  const cudaError_t err = block_topk::allow_smem(ksort_l_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   ksort_l_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(d), static_cast<float*>(ov),
-      static_cast<int32_t*>(oi), M, k);
+      static_cast<int32_t*>(oi), M, k, staged);
   return static_cast<int>(cudaGetLastError());
 }
 

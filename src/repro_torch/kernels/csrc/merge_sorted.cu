@@ -11,9 +11,17 @@
 // (lower bound in b), a b-element at pos = j + #{a <= b_j} (upper bound
 // in a). These are the reference's tie rules, the positions form a
 // permutation of 0..Na+Nb-1, and the element is written iff pos < k.
-// INF pads tie among themselves and resolve by the same rule.
+// INF pads tie among themselves and resolve by the same rule. Rows of up
+// to 12288 elements stage in the default 48 KB of shared memory; longer
+// ones opt into the card's larger maximum (227 KB on an H100), and past
+// that the binary searches run on the rows in global memory (`staged`
+// 0). The host plan (kernels/merge_sorted.py: merge_plan) picks the tier.
+// On the search path trip_fold.cu folds a trip's merges into one launch;
+// this kernel stays the counterpart of the reference's op.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "block_topk.cuh"
 
 namespace {
 
@@ -23,16 +31,20 @@ __global__ void merge_sorted_kernel(const float* __restrict__ da,
                                     const int32_t* __restrict__ ib,
                                     float* __restrict__ od,
                                     int32_t* __restrict__ oi, int Na,
-                                    int Nb, int k) {
+                                    int Nb, int k, int staged) {
   extern __shared__ float sh[];
-  float* sa = sh;
-  float* sb = sh + Na;
   const size_t row = blockIdx.x;
   const float* dar = da + row * Na;
   const float* dbr = db + row * Nb;
-  for (int t = threadIdx.x; t < Na; t += blockDim.x) sa[t] = dar[t];
-  for (int t = threadIdx.x; t < Nb; t += blockDim.x) sb[t] = dbr[t];
-  __syncthreads();
+  const float* sa = dar;
+  const float* sb = dbr;
+  if (staged) {  // uniform across the block
+    for (int t = threadIdx.x; t < Na; t += blockDim.x) sh[t] = dar[t];
+    for (int t = threadIdx.x; t < Nb; t += blockDim.x) sh[Na + t] = dbr[t];
+    __syncthreads();
+    sa = sh;
+    sb = sh + Na;
+  }
   for (int t = threadIdx.x; t < Na + Nb; t += blockDim.x) {
     float v;
     int32_t id;
@@ -69,14 +81,16 @@ __global__ void merge_sorted_kernel(const float* __restrict__ da,
 extern "C" int merge_sorted_launch(const void* da, const void* ia,
                                    const void* db, const void* ib, void* od,
                                    void* oi, int B, int Na, int Nb, int k,
-                                   void* stream) {
+                                   int staged, void* stream) {
   int threads = ((Na + Nb + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  const size_t smem = sizeof(float) * (size_t)(Na + Nb);
+  const size_t smem = staged ? sizeof(float) * (size_t)(Na + Nb) : 0;
+  const cudaError_t err = block_topk::allow_smem(merge_sorted_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   merge_sorted_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(da), static_cast<const int32_t*>(ia),
       static_cast<const float*>(db), static_cast<const int32_t*>(ib),
-      static_cast<float*>(od), static_cast<int32_t*>(oi), Na, Nb, k);
+      static_cast<float*>(od), static_cast<int32_t*>(oi), Na, Nb, k, staged);
   return static_cast<int>(cudaGetLastError());
 }
 

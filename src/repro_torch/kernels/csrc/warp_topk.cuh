@@ -10,6 +10,8 @@
 // (d_j == d_i and j < i)}, counted by broadcasting every d_j through warp
 // shuffles; ranks are a permutation of 0..M-1, so the lanes whose rank is
 // below k write slot `rank` directly: no sort network, no shared memory.
+// Rows wider than the warp's tiers take block_topk.cuh, the same rank
+// count with the row in shared (or global) memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,9 +23,12 @@ constexpr float kInf = 3.4e38f;        // repro_torch.constants.INF
 
 // The whole warp must call this (the shuffles are full-warp). Writes the
 // k smallest (d[e], e*32 + lane) pairs of the row ascending, ties to the
-// lower index, into out_d[0..k) and out_i[0..k).
+// lower index, into out_d[0..k); out_i gets pay[e] of each winner (the
+// index itself for the plain expands, a neighbour id for the gathering
+// ones).
 template <int PER_LANE>
 __device__ __forceinline__ void write_topk(const float (&d)[PER_LANE],
+                                           const int32_t (&pay)[PER_LANE],
                                            int M, int k, int lane,
                                            float* __restrict__ out_d,
                                            int32_t* __restrict__ out_i) {
@@ -49,9 +54,21 @@ __device__ __forceinline__ void write_topk(const float (&d)[PER_LANE],
     const int i = e * 32 + lane;
     if (i < M && rank[e] < k) {
       out_d[rank[e]] = d[e];
-      out_i[rank[e]] = i;
+      out_i[rank[e]] = pay[e];
     }
   }
+}
+
+// The index-payload form: out_i gets the winner's index e*32 + lane.
+template <int PER_LANE>
+__device__ __forceinline__ void write_topk(const float (&d)[PER_LANE],
+                                           int M, int k, int lane,
+                                           float* __restrict__ out_d,
+                                           int32_t* __restrict__ out_i) {
+  int32_t pay[PER_LANE];
+#pragma unroll
+  for (int e = 0; e < PER_LANE; ++e) pay[e] = e * 32 + lane;
+  write_topk<PER_LANE>(d, pay, M, k, lane, out_d, out_i);
 }
 
 }  // namespace warp_topk

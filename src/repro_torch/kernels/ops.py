@@ -1,7 +1,10 @@
 """The kernel ops, dispatched by tensor device (port of
 ``repro/kernels/ops.py``: ``dist_l``, ``ksort_l``, ``dist_h``,
 ``fused_filter``, ``fused_expand``, ``pq_adc_expand``, ``pq_adc``,
-``merge_topk_sorted``, ``flash_attention`` and ``decode_attention``).
+``merge_topk_sorted``, ``flash_attention`` and ``decode_attention``),
+plus two ops of the search path that fuse the reference's glue around
+its ops: ``trip_fold`` (a trip's accept, feeds and three merges) and
+``pq_expand_rows`` (the PQ expand with its row gathers).
 
 Same op names, signatures and sentinels as the reference. A CPU tensor
 takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
@@ -25,7 +28,9 @@ from repro_torch.kernels.fused_filter import (fused_expand_cuda,
                                               fused_filter_cuda)
 from repro_torch.kernels.ksort_l import ksort_l_cuda
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
-from repro_torch.kernels.pq_adc import lut_rows_ok, pq_adc_expand_cuda
+from repro_torch.kernels.pq_adc import (lut_rows_ok, pq_adc_expand_cuda,
+                                        pq_expand_rows_cuda)
+from repro_torch.kernels.trip_fold import trip_fold_cuda
 
 _KERNELS = {"fused_expand": fused_expand_cuda,
             "merge_sorted": merge_sorted_cuda,
@@ -35,7 +40,9 @@ _KERNELS = {"fused_expand": fused_expand_cuda,
             "ksort_l": ksort_l_cuda,
             "fused_filter": fused_filter_cuda,
             "flash_attention": flash_attention_cuda,
-            "decode_attention": decode_attention_cuda}
+            "decode_attention": decode_attention_cuda,
+            "trip_fold": trip_fold_cuda,
+            "pq_expand_rows": pq_expand_rows_cuda}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -135,6 +142,57 @@ def pq_adc_expand(codes, lut, valid, th, k: int):
                                   valid.to(torch.bool).contiguous(),
                                   th.to(torch.float32).contiguous(), k)
     return ref.pq_adc_expand_ref(codes, lut, valid, th, k)
+
+
+def pq_expand_rows(adj, codes, c_w, exp, lut, th, k: int):
+    """The PQ traversal's expand with its row gathers fused: for the W
+    popped ids ``c_w`` [B, W] and their gates ``exp`` [B, W] bool, the
+    layer's ``adj`` [N, M0] and layout-(3) ``codes`` [N, M0, S] give the
+    W * M0 neighbour slots of each row (a gated-off slot reads row 0 and
+    is masked, as is a -1 neighbour); ADC against ``lut`` [B, S, 256] (a
+    strided view is read in place), the C_pca threshold ``th`` [B] (a
+    column view is read in place), kSort.L. Returns (kv [B, k]
+    ascending, cand [B, k] int32 neighbour ids); filtered-out slots get
+    kv >= VALID_MAX. k must not exceed W * M0."""
+    W, M0 = c_w.shape[1], adj.shape[1]
+    if k > W * M0:
+        raise ValueError(f"pq_expand_rows: k={k} exceeds W * M0 = {W * M0}")
+    if _on_cuda(adj, codes, c_w, exp, lut, th):
+        lut = lut.to(torch.float32)
+        if not lut_rows_ok(lut):
+            lut = lut.contiguous()
+        th = th.to(torch.float32)
+        c_w = c_w.to(torch.int32)
+        if c_w.stride(1) != 1:
+            c_w = c_w.contiguous()
+        return pq_expand_rows_cuda(adj.to(torch.int32).contiguous(),
+                                   codes.to(torch.uint8).contiguous(), c_w,
+                                   exp.to(torch.bool).contiguous(), lut, th,
+                                   k)
+    return ref.pq_expand_rows_ref(adj, codes, c_w, exp, lut, th, k)
+
+
+def trip_fold(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
+              deleted=None):
+    """One traversal trip's frontier update in one op: pop W slots off
+    the sorted candidate frontier C [B, cap], accept ``dh < F_d[:, -1]``,
+    feed the accepted candidates (with ``deleted`` words, tombstoned ids
+    masked out of F's feed) into F [B, ef] and C, and their filter dists
+    (``kv``, or the C feed's dists when None) into the C_pca heap Cp
+    [B, k] (None for the filter bypass), each a k-bounded sorted merge
+    with ties to the frontier, then the lower slot. Returns new (F_d, F_i,
+    C_d, C_i, Cp); the inputs are not modified."""
+    ts = [t for t in (F_d, F_i, C_d, C_i, Cp, dh, cand, kv, deleted)
+          if t is not None]
+    if _on_cuda(*ts):
+        f32 = lambda t: None if t is None else \
+            t.to(torch.float32).contiguous()
+        i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
+        return trip_fold_cuda(f32(F_d), i32(F_i), f32(C_d), i32(C_i), W,
+                              f32(Cp), f32(dh), i32(cand), f32(kv),
+                              i32(deleted))
+    return ref.trip_fold_ref(F_d, F_i, C_d, C_i, W, Cp, dh, cand, kv,
+                             deleted)
 
 
 def pq_adc(codes, lut):

@@ -67,6 +67,24 @@ def fused_expand_ref(x, q, valid, th, k: int):
     return ksort_l_ref(d, k)
 
 
+def pq_expand_rows_ref(adj, codes, c_w, exp, lut, th, k: int):
+    """The PQ expand with its row gathers, as the search ran it before
+    the gathers were fused (``repro/core/search_jax.py:_layer_body``'s
+    lines): gated-off slots read row 0, the neighbours' mask is ``adj >=
+    0`` and the gate, and the winners' indices map back to neighbour ids.
+    adj: [N, M0] int32; codes: [N, M0, S] uint8 (the layer's layout-(3)
+    codes); c_w: [B, W] popped ids; exp: [B, W] bool gates; lut: [B, S,
+    256]; th: [B]. Returns (kv [B, k] ascending, cand [B, k] int32)."""
+    B, W = c_w.shape
+    M0 = adj.shape[1]
+    c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+    nb_i = adj.index_select(0, c_safe).reshape(B, W * M0)
+    nb_mask = (nb_i >= 0) & exp.repeat_interleave(M0, dim=1)
+    nb_pay = codes.index_select(0, c_safe).reshape(B, W * M0, -1)
+    kv, ki = pq_adc_expand_ref(nb_pay, lut, nb_mask, th, k)
+    return kv, torch.gather(nb_i, 1, ki.long())
+
+
 def pq_adc_ref(codes, lut):
     """Asymmetric-distance computation (the PQ filter's Dist.L):
     d[b, m] = sum_s lut[b, s, codes[b, m, s]].
@@ -109,6 +127,64 @@ def merge_topk_sorted_ref(d_a, i_a, d_b, i_b, k: int):
     out_d.scatter_(1, pos_a, d_a).scatter_(1, pos_b, d_b)
     out_i.scatter_(1, pos_a, i_a).scatter_(1, pos_b, i_b)
     return out_d[:, :k], out_i[:, :k].to(torch.int32)
+
+
+def rank_sort_with_payload(d, p):
+    """Stable ascending sort of each row of d (ties -> lower slot), the
+    int payload p carried along: the same (dist, slot) order as the
+    reference's comparison-matrix rank sort."""
+    sd, order = torch.sort(d, dim=1, stable=True)
+    return sd, torch.gather(p, 1, order)
+
+
+def tombstone_bit(deleted, ids):
+    """The tombstone bit of each id (any shape) in the word-packed bitmap
+    ``deleted`` (bit i of word i >> 5) as a bool tensor. Negative ids
+    (padding) read word 0 harmlessly; callers mask them."""
+    safe = ids.clamp(min=0)
+    return ((torch.take(deleted, (safe // 32).long()) >> (safe % 32))
+            & 1) != 0
+
+
+def trip_fold_ref(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
+                  deleted=None):
+    """One traversal trip's frontier update, the lines of
+    ``repro/core/search_jax.py:_layer_body`` after Dist.H: pop W slots
+    off C, accept ``dh < F_d[:, -1]``, one stacked stable sort of the
+    feeds (an F row with tombstones masked when ``deleted`` is given; a
+    separate heap row from ``kv`` when given, else the C row feeds the
+    heap), then the three sorted merges into F, C and the C_pca heap
+    ``Cp`` (None for the filter bypass). Returns new (F_d, F_i, C_d, C_i,
+    Cp)."""
+    B, kk = dh.shape
+    ef = F_d.shape[1]
+    bnd = F_d[:, -1:]
+    C_d = torch.cat([C_d[:, W:], C_d.new_full((B, W), INF)], 1)
+    C_i = torch.cat([C_i[:, W:], C_i.new_full((B, W), -1)], 1)
+    accept = dh < bnd
+    rows_d = [torch.where(accept, dh, INF)]
+    rows_i = [torch.where(accept, cand, -1)]
+    if deleted is not None:
+        okF = accept & ~tombstone_bit(deleted, cand)
+        rows_d.insert(0, torch.where(okF, dh, INF))
+        rows_i.insert(0, torch.where(okF, cand, -1))
+    if kv is not None:
+        rows_d.append(torch.where(accept, kv, INF))
+        rows_i.append(torch.zeros_like(cand))
+    s_d, s_i = rank_sort_with_payload(torch.cat(rows_d, 0),
+                                      torch.cat(rows_i, 0))
+    r = B if deleted is not None else 0
+    sd, si = s_d[r:r + B], s_i[r:r + B]          # C feed (dh order)
+    fd_n, fi_n = s_d[:B], s_i[:B]                # F feed
+    F_d, F_i = merge_topk_sorted_ref(F_d, F_i, fd_n, fi_n, ef)
+    C_d, C_i = merge_topk_sorted_ref(C_d, C_i, sd, si, C_d.shape[1])
+    if Cp is not None:
+        k = Cp.shape[1]
+        pv = s_d[r + B:] if kv is not None else sd
+        Cp, _ = merge_topk_sorted_ref(
+            Cp, torch.zeros((B, k), dtype=torch.int32, device=Cp.device), pv,
+            torch.zeros((B, kk), dtype=torch.int32, device=Cp.device), k)
+    return F_d, F_i, C_d, C_i, Cp
 
 
 # ---------------------------------------------------------------------------

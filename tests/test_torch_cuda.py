@@ -371,3 +371,264 @@ def test_decode_attention_matches_plain(cuda, T, d, dtype, lengths):
     assert kf.attention_excess(out, want) <= 1
     assert bool((out[ln <= 0] == 0).all())
     assert ops.launch_counts()["decode_attention"] == before + 1
+
+
+# ------------- the trip fold, the fused PQ expand, the wide tiers ----------
+
+def _bits(t):
+    """A tensor's raw bits (f32 as int32): -0.0 and 0.0 differ."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _fold_case(rng, B, ef, cap, k, kk, integer, n_ids=5000):
+    """Ascending frontiers with INF/-1 tails, a feed with INF/-1 slots,
+    tombstone words; integer data from a small pool with -0.0 beside 0.0,
+    or float data (3x standard normal, squared: distances); edge rows as
+    in tests/test_torch_fold.py."""
+    if integer:
+        pool = np.asarray([-0.0, 0.0, 1.0, 2.0, 2.0, 3.0, 5.0], np.float32)
+        draw = lambda shape: rng.choice(pool, shape)
+    else:
+        draw = lambda shape: (3 * rng.standard_normal(shape)) ** 2
+
+    def frontier(n):
+        d = np.sort(draw((B, n)), 1).astype(np.float32)
+        pads = rng.integers(0, n + 1, B)
+        d[np.arange(n)[None, :] >= n - pads[:, None]] = INF
+        i = rng.integers(0, n_ids, (B, n)).astype(np.int32)
+        i[d == INF] = -1
+        return d, i
+
+    F_d, F_i = frontier(ef)
+    C_d, C_i = frontier(cap)
+    Cp = frontier(max(k, 1))[0]
+    dh = draw((B, kk)).astype(np.float32)
+    dh[rng.random((B, kk)) < 0.2] = INF
+    cand = rng.integers(0, n_ids, (B, kk)).astype(np.int32)
+    cand[dh == INF] = -1
+    kv = draw((B, kk)).astype(np.float32)
+    if B >= 4:
+        F_d[0], F_i[0] = INF, -1
+        C_d[1], C_i[1] = INF, -1
+        dh[2] = dh[2, :1]
+    flags = rng.random(n_ids) < 0.3
+    words = np.zeros(-(-n_ids // 32), np.uint32)
+    ids = np.nonzero(flags)[0].astype(np.uint32)
+    np.bitwise_or.at(words, ids // 32, np.uint32(1) << (ids % 32))
+    return F_d, F_i, C_d, C_i, Cp, dh, cand, kv, words.view(np.int32)
+
+
+# (B, ef, k, W, kk, heap, kv row, tombstones): the main path's folds (the
+# merges of chip_smoke's mg_shapes: pca layers 0 / 1 / 2+, pca-deferred
+# and cascade-deferred layer 0, the probe's layer 0 and upper layers),
+# each with tombstones where the search filters them, then W = 4 and 8
+# (the block tier from W * k > 64) and a frontier past shared memory
+# (the global tier)
+FOLD_SHAPES = [(1024, 10, 16, 1, 16, True, True, False),
+               (1024, 10, 16, 1, 16, True, True, True),
+               (1024, 1, 8, 1, 8, True, True, False),
+               (1024, 1, 3, 1, 3, True, True, False),
+               (1024, 30, 16, 1, 16, True, False, True),
+               (1024, 60, 32, 1, 32, True, False, False),
+               (2048, 100, 0, 1, 32, False, False, False),
+               (2048, 100, 0, 1, 32, False, False, True),
+               (2048, 16, 0, 1, 16, False, False, False),
+               (1024, 10, 16, 4, 64, True, True, True),
+               (256, 10, 16, 8, 128, True, True, True),
+               (256, 100, 0, 8, 256, False, False, True),
+               (2, 30000, 16, 1, 32, True, True, True)]
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_trip_fold_matches_plain(cuda, shape):
+    """The fold kernel against ref.trip_fold_ref, bit for bit (-0.0 and
+    0.0 told apart) on integer and float data, in its warp, block and
+    global tiers; one launch counted per call."""
+    B, ef, k, W, kk, heap, kv_row, tombs = shape
+    cap = max(ef + kk, 8)
+    for integer in (True, False):
+        rng = np.random.default_rng(ef + kk + k + integer)
+        F_d, F_i, C_d, C_i, Cp, dh, cand, kv, words = _t(
+            cuda, *_fold_case(rng, B, ef, cap, k, kk, integer))
+        args = (F_d, F_i, C_d, C_i, W, Cp if heap else None, dh, cand,
+                kv if kv_row else None, words if tombs else None)
+        before = ops.launch_counts()["trip_fold"]
+        got = ops.trip_fold(*args)
+        want = ref.trip_fold_ref(*args)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["trip_fold"] == before + 1
+        assert (got[4] is None) == (not heap)
+        for g, w in zip(got, want):
+            if w is not None:
+                assert torch.equal(_bits(g), _bits(w))
+
+
+def _rows_case(rng, B, W, N=3000, M0=32, S=16):
+    adj = rng.integers(0, N, (N, M0)).astype(np.int32)
+    tails = rng.integers(0, M0 // 2, N)
+    adj[np.arange(M0)[None, :] >= M0 - tails[:, None]] = -1
+    codes = rng.integers(0, 256, (N, M0, S)).astype(np.uint8)
+    C_i = rng.integers(-1, N, (B, W + 7)).astype(np.int32)
+    exp = rng.random((B, W)) < 0.8
+    exp[0] = False
+    flat = rng.integers(0, 1 << 16, (B, S * 256 + 15)).astype(np.float32)
+    heap = np.sort(rng.integers(0, 1 << 20, (B, 4)), 1).astype(np.float32)
+    heap[::2, -1] = INF
+    heap[1, -1] = 0.0
+    return adj, codes, C_i, exp, flat, heap
+
+
+@pytest.mark.parametrize("cascade", [False, True], ids=["pq", "cascade"])
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+def test_pq_expand_rows_matches_unfused(cuda, W, cascade):
+    """The fused-gather PQ expand against the path it replaces on the
+    card (index_select of the popped rows, the pq_adc_expand kernel, the
+    id gather) and against its plain version, bit for bit on integer
+    tables; the popped ids are a view of a wider frontier, the threshold
+    a column of the heap, the cascade's tables a strided view."""
+    rng = np.random.default_rng(W + 10 * cascade)
+    B, M0, S, k = 1024, 32, 16, 16
+    adj, codes, C_i, exp, flat, heap = _t(cuda, *_rows_case(rng, B, W))
+    lut = flat[:, :S * 256].reshape(B, S, 256)
+    if not cascade:
+        lut = lut.contiguous()
+    c_w, th, kk = C_i[:, :W], heap[:, -1], W * k
+    c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+    nb_i = adj.index_select(0, c_safe).reshape(B, W * M0)
+    nb_mask = (nb_i >= 0) & exp.repeat_interleave(M0, dim=1)
+    nb_pay = codes.index_select(0, c_safe).reshape(B, W * M0, S)
+    ud, ui = ops.pq_adc_expand(nb_pay, lut, nb_mask, th, kk)
+    ucand = torch.gather(nb_i, 1, ui.long())
+    pd, pc = ref.pq_expand_rows_ref(adj, codes, c_w, exp, lut, th, kk)
+    before = ops.launch_counts()["pq_expand_rows"]
+    d, c = ops.pq_expand_rows(adj, codes, c_w, exp, lut, th, kk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pq_expand_rows"] == before + 1
+    assert torch.equal(_bits(d), _bits(ud)) and torch.equal(c, ucand)
+    assert torch.equal(_bits(d), _bits(pd)) and torch.equal(c, pc)
+
+
+@pytest.mark.parametrize("M", [160, 256])
+def test_wide_expand_tiers_match_plain(cuda, M):
+    """M > 128 (a block per row): fused_expand, fused_filter and
+    pq_adc_expand against their plain versions, exact on integer
+    inputs."""
+    rng = np.random.default_rng(M)
+    B, dl, S, k = 512, 15, 16, 40
+    x = rng.integers(0, 8, (B, M, dl)).astype(np.float32)
+    x[1] = x[1, :1]
+    q = rng.integers(0, 8, (B, dl)).astype(np.float32)
+    valid = rng.random((B, M)) < 0.8
+    valid[0] = False
+    th = np.where(rng.random(B) < 0.5, 64.0 * dl, INF).astype(np.float32)
+    tx, tq, tv, tt = _t(cuda, x, q, valid, th)
+    for got, want in (
+            (ops.fused_expand(tx, tq, tv, tt, k),
+             ref.fused_expand_ref(tx, tq, tv, tt, k)),
+            (ops.fused_filter(tx, tq, k), ref.fused_filter_ref(tx, tq, k))):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    codes = rng.integers(0, 256, (B, M, S)).astype(np.uint8)
+    flat = rng.integers(0, 1 << 16, (B, S * 256 + 15)).astype(np.float32)
+    tc, tf_ = _t(cuda, codes, flat)
+    lut = tf_[:, :S * 256].reshape(B, S, 256)
+    th2 = torch.where(tt < INF, float(S << 15), INF)
+    got = ops.pq_adc_expand(tc, lut, tv, th2, k)
+    want = ref.pq_adc_expand_ref(tc, lut, tv, th2, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_expand_global_tier_matches_plain(cuda):
+    """A row past the card's opt-in shared memory (60,000 slots): the
+    block ranks it in a global scratch row."""
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 8, (2, 60000, 2)).astype(np.float32)
+    q = rng.integers(0, 8, (2, 2)).astype(np.float32)
+    tx, tq = _t(cuda, x, q)
+    got = ops.fused_filter(tx, tq, 9)
+    want = ref.fused_filter_ref(tx, tq, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("Na,Nb,k", [(12800, 16, 300), (60000, 100, 64)])
+def test_merge_sorted_past_12288_matches_plain(cuda, Na, Nb, k):
+    """Opted-in shared memory (12,816 elements) and the global tier
+    (60,100) against the plain version, ties and INF pads included."""
+    rng = np.random.default_rng(Na)
+    pool = rng.integers(0, 8, 16)
+    a = np.sort(rng.choice(pool, (4, Na)), 1).astype(np.float32)
+    b = np.sort(rng.choice(pool, (4, Nb)), 1).astype(np.float32)
+    a[0, Na // 2:] = INF
+    b[1] = INF
+    ia = rng.integers(0, 1 << 20, (4, Na)).astype(np.int32)
+    ib = rng.integers(0, 1 << 20, (4, Nb)).astype(np.int32)
+    args = _t(cuda, a, ia, b, ib)
+    d, i = ops.merge_topk_sorted(*args, k)
+    d0, i0 = ref.merge_topk_sorted_ref(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+
+
+@pytest.mark.parametrize("M,k", [(13000, 20), (60000, 7)])
+def test_ksort_l_past_12288_matches_plain(cuda, M, k):
+    rng = np.random.default_rng(M)
+    d = (3.0 * rng.standard_normal((3, M))).astype(np.float32)
+    d[1] = rng.choice(np.asarray([-0.0, 0.0, 1.0], np.float32), M)
+    d[2] = INF
+    (td,) = _t(cuda, d)
+    v, i = ops.ksort_l(td, k)
+    v0, i0 = ref.ksort_l_ref(td, k)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(v), _bits(v0)) and torch.equal(i, i0)
+
+
+@pytest.mark.parametrize("mode", ["pca", "pq", "cascade-deferred",
+                                  "pca-tombstones"])
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_wide_search_and_build_card_equals_cpu(cuda, W, mode):
+    """expand_width W in {2, 4, 8} (W * M0 up to 128 expand slots, W * k
+    fold feeds, the probe's W * M0): the wave build gives the same graph
+    and the search (and, with tombstones, the probe) bit-identical
+    results on the card and on the CPU, on integer data."""
+    import dataclasses
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.core import filters, search_torch
+    from repro_torch.core.graph import build_hnsw
+    kind = mode.split("-")[0]
+    deferred = mode == "cascade-deferred"
+    rng = np.random.default_rng(6)
+    x = rng.integers(0, 8, (1500, 16)).astype(np.float32)
+    q = rng.integers(0, 8, (64, 16)).astype(np.float32)
+    cfg = PHNSWConfig(name="int1500", n_points=1500, dim=16, d_low=4, M=8,
+                      M0=16, ef_construction=32, wave_size=256,
+                      expand_width=W)
+    graphs = {d: build_hnsw(x, cfg, seed=2, device=d) for d in ("cuda",
+                                                                "cpu")}
+    for a, b in zip(graphs["cuda"].layers, graphs["cpu"].layers):
+        np.testing.assert_array_equal(a, b)
+    filt = filters.from_reference(kind, {
+        "centroids": rng.integers(0, 8, (4, 256, 4)).astype(np.float32),
+        "mean": np.zeros(16, np.float32),
+        "components": np.eye(16, 4, dtype=np.float32),
+        "explained": np.full(4, 0.25, np.float32)})
+    flags = rng.random(1500) < 0.05
+    out = {}
+    for d in ("cuda", "cpu"):
+        db = search_torch.build_packed(graphs["cpu"], filt=filt, device=d)
+        if mode.endswith("tombstones"):
+            db = dataclasses.replace(db, deleted=torch.as_tensor(
+                search_torch.pack_bitmap(flags), device=d))
+        fd, fi, st = search_torch.search_batched(
+            db, q, filt=filt, deferred=deferred, rerank_mult=2 if deferred
+            else None, return_stats=True, device=d)
+        out[d] = [fd.cpu(), fi.cpu(), st["steps_per_layer"].cpu(),
+                  st["dist_h_evals"].cpu()]
+        if db.deleted is not None:
+            pd, pi = search_torch.probe_neighborhoods(
+                db, q, filt.prepare_torch(torch.as_tensor(q, device=d)), 24,
+                8, ef_upper=8, device=d)
+            out[d] += [pd.cpu(), pi.cpu()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)

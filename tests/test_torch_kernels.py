@@ -140,6 +140,60 @@ def test_pq_adc_expand_sweep(B, M, S, k, jax_impl):
            *jops.pq_adc_expand(jc, jl, jv, jt, k))
 
 
+@pytest.mark.parametrize("op", ["fused_expand", "fused_filter",
+                                "pq_adc_expand"])
+@pytest.mark.parametrize("M", [160, 256])
+def test_wide_expands_match_reference(M, op, jax_impl):
+    """Rows past the warp tiers (M > 128: expand_width * M0 at W >= 5, or
+    M0 = 160 at W = 1), which the card serves with a block per row,
+    against the JAX op."""
+    rng = np.random.default_rng(M + len(op))
+    B, k = 4, 24
+    if op == "pq_adc_expand":
+        codes, lut, valid, th = _pq_inputs(rng, B, M, 16)
+        (jc, jl, jv, jt), (tc, tl, tv, tt) = _both(codes.astype(np.int32),
+                                                   lut, valid, th)
+        _check(*ops.pq_adc_expand(torch.from_numpy(codes), tl, tv, tt, k),
+               *jops.pq_adc_expand(jc, jl, jv, jt, k))
+        return
+    (jx, jq, jv, jt), (tx, tq, tv, tt) = _both(*_expand_inputs(rng, B, M,
+                                                               15))
+    if op == "fused_expand":
+        _check(*ops.fused_expand(tx, tq, tv, tt, k),
+               *jops.fused_expand(jx, jq, jv, jt, k))
+    else:
+        _check(*ops.fused_filter(tx, tq, k), *jops.fused_filter(jx, jq, k))
+
+
+@pytest.mark.parametrize("Na,Nb,k", [(12800, 16, 16), (12300, 40, 300)])
+def test_merge_past_12288_matches_reference(Na, Nb, k):
+    """Merged rows longer than the default 48 KB of shared memory (the
+    card opts into more, or merges in global memory) against the JAX
+    op's jnp oracle, ties and all."""
+    rng = np.random.default_rng(Na + Nb)
+    (ja, jia, jb, jib), (ta, tia, tb, tib) = _both(
+        *_sorted_lists(rng, 2, Na, Nb))
+    _check(*ops.merge_topk_sorted(ta, tia, tb, tib, k),
+           *jref.merge_topk_sorted_ref(ja, jia, jb, jib, k))
+
+
+@pytest.mark.parametrize("M,k", [(13000, 10), (70000, 64)])
+def test_ksort_past_12288_is_a_stable_sort(M, k):
+    """kSort.L over rows longer than the default 48 KB of shared memory:
+    the plain version against numpy's stable argsort (the reference's
+    comparison matrix would be M x M), ties to the lower index, -0.0
+    beside 0.0."""
+    rng = np.random.default_rng(M)
+    d = rng.choice(np.asarray([-0.0, 0.0, 1.0, 2.5, INF], np.float32),
+                   (2, M))
+    d[1, : M // 2] = rng.standard_normal(M // 2).astype(np.float32)
+    v, i = ops.ksort_l(torch.from_numpy(d), k)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(i.numpy(), order)
+    np.testing.assert_array_equal(v.numpy(),
+                                  np.take_along_axis(d, order, 1))
+
+
 @pytest.mark.parametrize("B,K,S", [(8, 1, 16), (4, 12, 8)])
 def test_pq_adc_matches_reference(B, K, S, jax_impl):
     rng = np.random.default_rng(K + S)
