@@ -31,7 +31,16 @@ non-zero:
                 float data, the expand also against the unfused path it
                 replaces; the library yardsticks are the stable
                 ``torch.sort`` route of the search body before the fold
-                and index_select + gather-sum + stable sort. Then the wide
+                and index_select + gather-sum + stable sort. Then
+                ``fused_expand_rows`` (the pca expand with its row
+                gathers) at the pca arms' layer 0 shape for W = 1, 2, 4
+                (timed) and 8, on a 50,000-node layer: bit for bit
+                against its plain version, the unfused path (index_select,
+                ``fused_expand``, id gather) and the library route
+                (index_select, distances, stable sort, id gather) on
+                integer rows, against the unfused path on float rows;
+                its bound counts the payload rows its gates and
+                neighbours need. Then the wide
                 tiers (phase ``wide_tiers``): the expands at M = 160 and
                 256, fused_filter at 60,000, merge_sorted at 12,816 and
                 60,100 elements, ksort_l at 13,000 and 60,000, exact
@@ -441,6 +450,7 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
 
     results.update(check_fused_filter(torch, np, rng, T))
     results.update(check_fold_and_rows(torch, np, rng, T))
+    results.update(check_pca_rows(torch, np, rng, T))
     emit({"phase": "wide_tiers", "tiers": check_wide_tiers(torch, np, rng,
                                                            T)})
     results.update(check_attention(torch, np, rng))
@@ -675,13 +685,24 @@ def check_fold_and_rows(torch, np, rng, T) -> dict:
                  "version")
         if not timed:
             continue
-        touched = torch.zeros((B, S, 256), dtype=torch.bool, device=adj.device)
-        c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
-        pay = codes.index_select(0, c_safe).reshape(B, W * M0, S)
-        touched.scatter_(2, pay.long().transpose(1, 2), True)
+        # bytes: what the function needs, as for fused_expand_rows: the
+        # adjacency rows of the gated nodes (and node 0's once), the codes
+        # of their slots whose neighbour is not -1 and the table entries
+        # those codes name; per row the ids, gates, threshold and outputs
         M = W * M0
-        nbytes = int(touched.sum()) * 4 + B * (M * 4 + M * S + W * 5 + 4
-                                               + kk * 8)
+        c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+        used = (adj.index_select(0, c_safe).reshape(B, M) >= 0) \
+            & exp.repeat_interleave(M0, dim=1)
+        pay = codes.index_select(0, c_safe).reshape(B, M, S)
+        hits = torch.zeros((B, S, 256), dtype=torch.int32, device=adj.device)
+        hits.scatter_add_(2, pay.long().transpose(1, 2),
+                          used.int()[:, None, :].expand(B, S, M))
+        per_row = B * (W * 5 + 4 + kk * 8)
+        nbytes = int((hits > 0).sum()) * 4 + int(exp.sum()) * M0 * 4 \
+            + M0 * 4 + int(used.sum()) * S + per_row
+        touched = torch.zeros((B, S, 256), dtype=torch.bool, device=adj.device)
+        touched.scatter_(2, pay.long().transpose(1, 2), True)
+        all_bytes = int(touched.sum()) * 4 + B * M * (4 + S) + per_row
         out[("pq_expand_rows", shape)] = dict(
             max_abs_err=0.0,
             ms=graph_ms(lambda: ops.pq_expand_rows(adj, codes, c_w, exp, lut,
@@ -690,7 +711,145 @@ def check_fold_and_rows(torch, np, rng, T) -> dict:
             plain_ms=graph_ms(lambda: ref.pq_expand_rows_ref(
                 adj, codes, c_w, exp, lut, th, kk)),
             library_ms=graph_ms(library),
-            bound=bound_ms(nbytes, B * M * S + B * M * M))
+            bound=bound_ms(nbytes, int(used.sum()) * S + B * M * M),
+            bound_all_rows_ms=bound_ms(all_bytes, B * M * S + B * M * M)[0])
+    return out
+
+
+# fused_expand_rows rows (on a layer of M0 = 32, dl = 15): (B, W, M0,
+# dl, k, timed): the pca arms' layer
+# 0 (W = 1: 32 slots, k = 16), W = 2 and 4 (64 and 128 slots: the warp
+# tier's other widths), W = 8 (256 slots: the block tier), checked only
+PCA_ROWS_CASES = [(1024, 1, 32, 15, 16, True), (1024, 2, 32, 15, 16, True),
+                  (1024, 4, 32, 15, 16, True), (256, 8, 32, 15, 16, False)]
+
+
+def _pca_layer(np, rng, N, M0, dl, integer):
+    """A layer: adj with -1 tails and layout-(3) rows, integer (exact
+    sums) or standard normal."""
+    adj = rng.integers(0, N, (N, M0)).astype(np.int32)
+    tails = rng.integers(0, M0 // 2, N)
+    adj[np.arange(M0)[None, :] >= M0 - tails[:, None]] = -1
+    low = rng.integers(0, 16, (N, M0, dl)) if integer \
+        else rng.standard_normal((N, M0, dl))
+    return adj, low.astype(np.float32)
+
+
+def _pca_pops(np, rng, B, W, N, dl, integer):
+    """A frontier whose first W ids are popped (some -1; row 2 a -1 pop
+    with its gate set), gates (row 0 all clear), queries and a heap whose
+    last column is the threshold (row 1: 0; even rows INF)."""
+    C_i = rng.integers(-1, N, (B, W + 9)).astype(np.int32)
+    exp = rng.random((B, W)) < 0.9
+    exp[0] = False
+    C_i[2, 0], exp[2, 0] = -1, True
+    q = rng.integers(0, 16, (B, dl)) if integer \
+        else rng.standard_normal((B, dl))
+    scale = 64.0 * dl if integer else 1.5 * dl
+    heap = np.sort(rng.random((B, 4)) * scale, 1).astype(np.float32)
+    heap[::2, -1] = 3.4e38
+    heap[1, -1] = 0.0
+    return C_i, exp, q.astype(np.float32), heap
+
+
+def _unfused_pca(torch, ops, ref, adj, low, c_w, exp, q, th, kk):
+    """The search's pca expand before the gathers were fused, as it was
+    launched: the popped ids' where/clamp, two index_select and the mask
+    (``ref.popped_rows``), the fused_expand kernel (with its copy of the
+    threshold column) and the id gather."""
+    nb_i, mask, pay = ref.popped_rows(adj, low, c_w, exp)
+    d, i = ops.fused_expand(pay, q, mask, th, kk)
+    return d, torch.gather(nb_i, 1, i.long())
+
+
+def _library_pca(torch, ref, adj, low, c_w, exp, q, th, kk):
+    """The pca expand as library calls: the gathers, distances, mask,
+    stable sort, id gather."""
+    nb_i, mask, pay = ref.popped_rows(adj, low, c_w, exp)
+    d = ((pay - q[:, None]) ** 2).sum(-1)
+    d = torch.where(mask & (d < th[:, None]), d, 3.4e38)
+    sd, o = torch.sort(d, dim=1, stable=True)
+    return sd[:, :kk], torch.gather(nb_i, 1, o[:, :kk])
+
+
+def _pca_rows_bytes(B, W, M0, dl, kk, gated: int, rows: int) -> int:
+    """Bytes the expand must move: per row its popped ids and gates, q,
+    the threshold and the k outputs; per gated popped node its adjacency
+    row (``gated`` of the B * W; a gated-off node loads nothing), and
+    ``rows`` payload rows of dl floats; plus node 0's adjacency row once
+    (the gated-off slots' ids)."""
+    return gated * M0 * 4 + rows * dl * 4 + M0 * 4 \
+        + B * (W * 5 + dl * 4 + 4 + kk * 8)
+
+
+def _pca_needed_rows(torch, adj, c_w, exp) -> int:
+    """Payload rows the pca expand needs: the slots of gated popped
+    nodes (a -1 pop is node 0) whose neighbour is not -1; any other
+    slot is INF whatever its payload."""
+    nb = adj.index_select(0, c_w.clamp(min=0).reshape(-1))
+    return int(((nb.reshape(*c_w.shape, -1) >= 0) & exp[..., None]).sum())
+
+
+def check_pca_rows(torch, np, rng, T) -> dict:
+    """fused_expand_rows (the pca expand with its row gathers) on a
+    50,000-node layer at PCA_ROWS_CASES: bit for bit (raw f32 bits)
+    against its plain version, the unfused path it replaces (index_select,
+    the fused_expand kernel, the id gather) and the library route on
+    integer rows, and against the unfused path on float rows (the same
+    sums in the same order). Timed rows: kernel, unfused as launched,
+    plain, library; the bound counts the payload rows the function needs
+    (a gated node's slots whose neighbour is not -1), with every gated
+    node's whole [M0, dl] block (what the kernel stages) as
+    ``bound_gated_blocks_ms`` and every popped node's as
+    ``bound_all_rows_ms``."""
+    from repro_torch.bench.kernel_footprint import bound_ms, graph_ms
+    from repro_torch.kernels import ops, ref
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    N, out = 50_000, {}
+    layers = {integer: T(*_pca_layer(np, rng, N, 32, 15, integer))
+              for integer in (True, False)}
+    for B, W, M0, dl, k, timed in PCA_ROWS_CASES:
+        shape, kk = (B, W, M0, dl, k), W * k
+        for integer in (True, False):
+            adj, low = layers[integer]
+            C_i, exp, q, heap = T(*_pca_pops(np, rng, B, W, N, dl, integer))
+            c_w, th = C_i[:, :W], heap[:, -1]
+            got = ops.fused_expand_rows(adj, low, c_w, exp, q, th, kk)
+            checks = [("unfused", _unfused_pca(torch, ops, ref, adj, low,
+                                               c_w, exp, q, th, kk))]
+            if integer:
+                checks += [
+                    ("plain", ref.fused_expand_rows_ref(adj, low, c_w, exp, q,
+                                                        th, kk)),
+                    ("library", _library_pca(torch, ref, adj, low, c_w, exp,
+                                             q, th, kk))]
+            for name, want in checks:
+                torch.cuda.synchronize()
+                need(torch.equal(bits(got[0]), bits(want[0]))
+                     and torch.equal(got[1], want[1]),
+                     f"fused_expand_rows{shape} (integer={integer}): differs "
+                     f"from the {name} path")
+        if not timed:
+            continue
+        gated, rows = int(exp.sum()), _pca_needed_rows(torch, adj, c_w, exp)
+        nops = rows * dl * 3 + B * (W * M0) ** 2
+        out[("fused_expand_rows", shape)] = dict(
+            max_abs_err=0.0,
+            ms=graph_ms(lambda: ops.fused_expand_rows(adj, low, c_w, exp, q,
+                                                      th, kk)),
+            unfused_ms=graph_ms(lambda: _unfused_pca(
+                torch, ops, ref, adj, low, c_w, exp, q, th, kk)),
+            plain_ms=graph_ms(lambda: ref.fused_expand_rows_ref(
+                adj, low, c_w, exp, q, th, kk)),
+            library_ms=graph_ms(lambda: _library_pca(
+                torch, ref, adj, low, c_w, exp, q, th, kk)),
+            bound=bound_ms(_pca_rows_bytes(B, W, M0, dl, kk, gated, rows),
+                           nops),
+            bound_gated_blocks_ms=bound_ms(_pca_rows_bytes(
+                B, W, M0, dl, kk, gated, gated * M0), nops)[0],
+            bound_all_rows_ms=bound_ms(_pca_rows_bytes(
+                B, W, M0, dl, kk, B * W, B * W * M0), nops)[0],
+            gated_share=gated / (B * W), needed_row_share=rows / (B * W * M0))
     return out
 
 
@@ -1116,25 +1275,21 @@ ARMS = [("pca", "pca", False, None, 0.80),
         ("cascade-deferred", "cascade", True, 2, 0.80)]
 # the kernels each arm's path must launch
 ARM_KERNELS = {
-    "pca": ("fused_expand", "trip_fold", "dist_h"),
-    "pca-deferred": ("fused_expand", "trip_fold", "dist_h", "dist_l"),
+    "pca": ("fused_expand_rows", "trip_fold", "dist_h"),
+    "pca-deferred": ("fused_expand_rows", "trip_fold", "dist_h", "dist_l"),
     "pq": ("pq_expand_rows", "trip_fold", "dist_h"),
     "cascade-deferred": ("pq_expand_rows", "trip_fold", "dist_h",
                          "dist_l"),
 }
 PORTED = ("fused_expand", "merge_sorted", "dist_h", "dist_l",
           "pq_adc_expand", "ksort_l", "fused_filter", "flash_attention",
-          "decode_attention", "trip_fold", "pq_expand_rows")
-# how a kernel's name reads in a profile where it is not "{name}_kernel":
-# fused_expand and fused_filter are filter_rows.cuh's kernels with the
-# mask on (true) or off (false)
-PROFILE_NAMES = {"fused_expand": ("filter_rows::kernel", "<true"),
-                 "fused_filter": ("filter_rows::kernel", "<false")}
+          "decode_attention", "trip_fold", "fused_expand_rows",
+          "pq_expand_rows")
 
 
 def _profile_match(name: str, key: str) -> bool:
-    parts = PROFILE_NAMES.get(name, (f"{name}_kernel",))
-    return all(p in key for p in parts)
+    """Each kernel's CUDA functions are named "{name}_kernel..."."""
+    return f"{name}_kernel" in key
 
 
 def train_filters(np, x, cfg, levels, pca) -> tuple:
@@ -1798,6 +1953,12 @@ KERNEL_META = {
     "trip_fold": ("cuda", "src/repro_torch/kernels/csrc/trip_fold.cu",
                   "src/repro/kernels/merge_sorted.py:52",
                   (1024, 10, 26, 16, 16, 1, "heap", "kv", "-")),
+    # fused_expand_pallas with the row gathers fused, at the pca arm's
+    # layer 0
+    "fused_expand_rows": ("cuda",
+                          "src/repro_torch/kernels/csrc/fused_expand.cu",
+                          "src/repro/kernels/fused_filter.py:91",
+                          (1024, 1, 32, 15, 16)),
     # pq_adc_expand_pallas with the row gathers fused, at the pq arm's
     # layer 0
     "pq_expand_rows": ("cuda",

@@ -6,8 +6,8 @@ B queries run Algorithm 1 together, as in the reference:
   * packed layout (3) as a device tensor ``packed_low[N, M, dl]`` — one
     row gather per expansion fetches indices and all neighbor low-dim
     vectors;
-  * the fused expand kernels (``ops.fused_expand``; for PQ codes
-    ``ops.pq_expand_rows``, which also gathers the popped rows itself):
+  * the fused expand kernels (``ops.fused_expand_rows``; for PQ codes
+    ``ops.pq_expand_rows``), which gather the popped rows themselves:
     Dist.L or ADC, the adjacency/active mask, the C_pca threshold and
     kSort.L in one launch;
   * sorted frontiers: C (candidates), F (finals) and C_pca stay
@@ -330,25 +330,20 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
             #    f_pca threshold + kSort.L, the neighbour ids out --
             kv, cand = ops.pq_expand_rows(lay.adj, lay.packed_low, c_w, exp,
                                           lut, Cp[:, -1], kk)
-            valid = (kv < VALID_MAX) & (cand >= 0)
+        elif fkind == "pca":
+            # -- step 2, fused: the pca expand reads the W popped rows
+            #    itself: Dist.L + mask + f_pca threshold + kSort.L --
+            kv, cand = ops.fused_expand_rows(lay.adj, lay.packed_low, c_w,
+                                             exp, qprep, Cp[:, -1], kk)
         else:
-            # gated-off slots gather row 0 (cheap, discarded via the mask)
+            # filter bypass: every valid neighbor of the W row gathers
+            # (paper layout (3) bursts) is a candidate; gated-off slots
+            # gather row 0, discarded via the mask
             c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
-            # -- step 2: W row gathers = paper layout (3) bursts --
-            nb_i = lay.adj.index_select(0, c_safe).reshape(B, W * M)
-            nb_mask = (nb_i >= 0) & exp.repeat_interleave(M, dim=1)
-            if fkind == "none":
-                # filter bypass: every valid neighbor is a candidate
-                cand, kv, valid = nb_i, None, nb_mask
-            else:
-                nb_pay = lay.packed_low.index_select(0, c_safe) \
-                    .reshape(B, W * M, -1)
-                # -- fused expand: Dist.L + mask + f_pca threshold +
-                #    kSort.L in one kernel --
-                kv, ki = ops.fused_expand(nb_pay, qprep, nb_mask,
-                                          Cp[:, -1], kk)
-                cand = torch.gather(nb_i, 1, ki.long())      # [B, W*k]
-                valid = (kv < VALID_MAX) & (cand >= 0)
+            cand = lay.adj.index_select(0, c_safe).reshape(B, W * M)
+            kv, valid = None, (cand >= 0) & exp.repeat_interleave(M, dim=1)
+        if kv is not None:
+            valid = (kv < VALID_MAX) & (cand >= 0)
         # -- visited check: one bit gather per candidate --
         cw, cm = _bits(cand)
         seen = (torch.gather(V, 1, cw) & cm) != 0

@@ -99,15 +99,6 @@ __device__ __forceinline__ void warp_body(const Src& src,
                                   out_i + (size_t)row * k);
 }
 
-template <class Src>
-struct SrcId {
-  Src src;
-  int row;
-  __device__ __forceinline__ int32_t operator()(int m) const {
-    return src.id(row, m);
-  }
-};
-
 template <class Src, bool VEC16>
 __device__ __forceinline__ void wide_body(const Src& src,
                                           const uint8_t* __restrict__ codes,
@@ -130,7 +121,8 @@ __device__ __forceinline__ void wide_body(const Src& src,
   }
   __syncthreads();
   block_topk::write_topk(buf, M, k, out_d + (size_t)row * k,
-                         out_i + (size_t)row * k, SrcId<Src>{src, row});
+                         out_i + (size_t)row * k,
+                         expand_rows::SrcId<Src>{src, row});
 }
 
 // The two entry points' kernels, named apart so a profile tells them

@@ -3,15 +3,29 @@ and ``csrc/fused_filter.cu``).
 
 ``fused_expand_cuda`` replaces ``repro/kernels/fused_filter.py:
 fused_expand_pallas`` (with its ``ksort_block`` helper): Dist.L +
-validity mask + C_pca threshold + kSort.L for one expansion step.
+validity mask + C_pca threshold + kSort.L for one expansion step over a
+gathered [B, M, dl] block. ``fused_expand_rows_cuda`` is the same op with
+the row gathers fused in, the pca traversal's expand: from the layer's
+``adj`` [N, M0] and layout-(3) ``packed_low`` [N, M0, dl], the popped ids
+and their gates, it stages each popped node's adjacency row and [M0, dl]
+block itself and returns the winners' neighbour ids. It replaces the
+search's ``clamp``/``where`` of the popped ids, the two ``index_select``
+(the [B, W*M0, dl] block is never written), the mask's ops, the
+threshold column's copy and the id ``gather`` around the kernel.
 ``fused_filter_cuda`` replaces ``fused_filter_pallas``: Dist.L + kSort.L
-with no mask and no threshold (the kernel-footprint bench's row). Both
-are one body, ``csrc/filter_rows.cuh``, with the mask on or off: one warp
-per query row and the top-k of ``csrc/warp_topk.cuh`` up to M = 128, one
-block per row above (``expand_plan`` picks the tier). Bound on the card:
-bytes (the [B, M, dl] neighbor block). The plain versions are
-``ref.fused_expand_ref`` and ``ref.fused_filter_ref``; ``ops`` picks
-between kernel and plain version by tensor device."""
+with no mask and no threshold (the kernel-footprint bench's row).
+
+All three are one body, ``csrc/filter_rows.cuh``: one warp per query row
+and the top-k of ``csrc/warp_topk.cuh`` up to M = 128 slots, one block
+per row above (``expand_plan`` picks the tier). The gathered blocks are
+read in place; the popped rows are staged in shared memory by
+``cp.async`` where their staging area fits (``filter_plan``). Bound on
+the card: bytes (the payload rows). The popped ids and the threshold are
+read through their row strides, so a view of the frontier and a column
+of the C_pca heap are never copied. The plain versions are
+``ref.fused_expand_ref``, ``ref.fused_expand_rows_ref`` and
+``ref.fused_filter_ref``; ``ops`` picks between kernel and plain version
+by tensor device."""
 from __future__ import annotations
 
 import ctypes
@@ -26,6 +40,12 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p] * 2
 _FILTER_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p] * 2
+# ..., B, W, M0, dl, k, per_lane, threads, staged, copy, rw, scratch,
+# stream
+_ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
+    + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2 \
+    + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
+WARPS_PER_BLOCK = 4            # csrc/filter_rows.cuh kWarpsPerBlock
 
 
 def expand_plan(M: int, smem_optin: int) -> dict:
@@ -48,6 +68,53 @@ def expand_plan(M: int, smem_optin: int) -> dict:
             "scratch": M}
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def stage_words(W: int, M0: int, dl: int, rw: int) -> int:
+    """4-byte words of one row's staging area (``filter_rows.cuh:
+    stage_words``): q, then the W * M0 slot rows at stride rw, each part
+    a whole number of 16-byte chunks."""
+    return _round4(dl) + _round4(W * M0 * rw)
+
+
+def filter_plan(W: int, M0: int, dl: int, base_aligned: bool,
+                smem_optin: int) -> dict:
+    """``expand_plan``'s tier for the pca expand's row of W popped nodes'
+    M0 slots with dl-wide payload rows, and its staging
+    (``filter_rows.cuh``): where the staging area fits ``smem_optin``
+    (the card's opt-in maximum, bytes), the row's q and each popped
+    node's [M0, dl] block are copied into shared memory first, by 16-byte
+    ``cp.async`` (``copy`` 16) where every node's block starts 16-byte
+    aligned (the table's base ``base_aligned`` and M0 * dl a multiple of
+    4) and dl is odd, else by 4-byte copies (``copy`` 4) with each slot
+    row at the odd stride ``rw`` = dl | 1, so the lanes' reads of one
+    column fall in distinct banks; where it does not fit, the rows are
+    read in place (``staged`` False, ``copy`` = ``rw`` = 0). ``smem`` is
+    the launch's dynamic shared memory in bytes, as the C launcher sizes
+    it."""
+    M = W * M0
+    plan = dict(expand_plan(M, smem_optin))
+    rw = dl | 1
+    copy = 16 if base_aligned and (M0 * dl) % 4 == 0 and dl % 2 == 1 else 4
+    dist_words = _round4(M) if plan["tier"] == "block" else 0
+    per_row = WARPS_PER_BLOCK if plan["tier"] == "warp" else 1
+    smem = 4 * (dist_words + per_row * stage_words(W, M0, dl, rw))
+    staged = smem <= smem_optin         # never in the global tier
+    plan.update(staged=staged, copy=copy if staged else 0,
+                rw=rw if staged else 0,
+                smem=smem if staged else 4 * dist_words)
+    return plan
+
+
+def _run(name: str, fn_name: str, argtypes, args):
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _build.check(lib, name, fn(*args))
+
+
 def fused_expand_cuda(x, q, valid, th, k: int):
     """x: [B, M, dl] f32; q: [B, dl] f32; valid: [B, M] bool; th: [B]
     f32 — all contiguous on one CUDA device; 1 <= k <= M.
@@ -66,20 +133,66 @@ def fused_expand_cuda(x, q, valid, th, k: int):
         return vals, idx
     plan = expand_plan(M, smem_optin(x.device))
     scratch = scratch_rows(plan, B, x.device)
-    lib = _build.load("fused_expand")
-    fn = lib.fused_expand_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), q.data_ptr(), valid.data_ptr(),
-                 th.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                 B, M, dl, k, plan["per_lane"], plan["threads"],
-                 ptr(scratch), stream_of(x))
-    _build.check(lib, "fused_expand", err)
+        _run("fused_expand", "fused_expand_launch", _ARGTYPES,
+             (x.data_ptr(), q.data_ptr(), valid.data_ptr(), th.data_ptr(),
+              vals.data_ptr(), idx.data_ptr(), B, M, dl, k,
+              plan["per_lane"], plan["threads"], ptr(scratch),
+              stream_of(x)))
     fused_expand_cuda.launches += 1
     return vals, idx
 
 
 fused_expand_cuda.launches = 0
+
+
+def fused_expand_rows_cuda(adj, packed_low, c_w, exp, q, th, k: int):
+    """adj: [N, M0] int32 and packed_low: [N, M0, dl] f32, contiguous (a
+    layer of the db; its base need not be 16-byte aligned); c_w: [B, W]
+    int32 popped ids and th: [B] f32, each with any row stride (and unit
+    inner stride); exp: [B, W] bool and q: [B, dl] f32 contiguous; all
+    on one CUDA device; 1 <= k <= W * M0.
+    Returns (vals [B, k] f32 ascending, cand [B, k] int32 neighbour
+    ids)."""
+    N, M0 = adj.shape
+    B, W = c_w.shape
+    dl = packed_low.shape[2]
+    check_cuda(adj, torch.int32, (N, M0), "adj")
+    check_cuda(packed_low, torch.float32, (N, M0, dl), "packed_low",
+               like=adj)
+    check_cuda(exp, torch.bool, (B, W), "exp", like=adj)
+    check_cuda(q, torch.float32, (B, dl), "q", like=adj)
+    for t, name, dt in ((c_w, "c_w", torch.int32), (th, "th", torch.float32)):
+        if not (isinstance(t, torch.Tensor) and t.device == adj.device
+                and t.dtype == dt and t.shape[0] == B
+                and (t.dim() == 1 or t.stride(1) == 1)):
+            raise ValueError(f"{name}: expected a {dt} tensor on the adj's "
+                             "device with B rows and unit inner stride")
+    if th.dim() != 1:
+        raise ValueError("th: expected [B]")
+    M = W * M0
+    if not 1 <= k <= M:
+        raise ValueError(f"fused_expand_rows kernel needs 1 <= k <= W * M0, "
+                         f"got k={k}, W={W}, M0={M0}")
+    vals = torch.empty((B, k), dtype=torch.float32, device=adj.device)
+    cand = torch.empty((B, k), dtype=torch.int32, device=adj.device)
+    if B == 0:
+        return vals, cand
+    plan = filter_plan(W, M0, dl, packed_low.data_ptr() % 16 == 0,
+                       smem_optin(adj.device))
+    scratch = scratch_rows(plan, B, adj.device)
+    with torch.cuda.device(adj.device):
+        _run("fused_expand", "fused_expand_rows_launch", _ROWS_ARGTYPES,
+             (adj.data_ptr(), packed_low.data_ptr(), c_w.data_ptr(),
+              c_w.stride(0), exp.data_ptr(), q.data_ptr(), th.data_ptr(),
+              th.stride(0), vals.data_ptr(), cand.data_ptr(), B, W, M0, dl,
+              k, plan["per_lane"], plan["threads"], int(plan["staged"]),
+              plan["copy"], plan["rw"], ptr(scratch), stream_of(adj)))
+    fused_expand_rows_cuda.launches += 1
+    return vals, cand
+
+
+fused_expand_rows_cuda.launches = 0
 
 
 def fused_filter_cuda(x, q, k: int):
@@ -98,14 +211,11 @@ def fused_filter_cuda(x, q, k: int):
         return vals, idx
     plan = expand_plan(M, smem_optin(x.device))
     scratch = scratch_rows(plan, B, x.device)
-    lib = _build.load("fused_filter")
-    fn = lib.fused_filter_launch
-    fn.argtypes, fn.restype = _FILTER_ARGTYPES, ctypes.c_int
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), q.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                 B, M, dl, k, plan["per_lane"], plan["threads"],
-                 ptr(scratch), stream_of(x))
-    _build.check(lib, "fused_filter", err)
+        _run("fused_filter", "fused_filter_launch", _FILTER_ARGTYPES,
+             (x.data_ptr(), q.data_ptr(), vals.data_ptr(), idx.data_ptr(), B,
+              M, dl, k, plan["per_lane"], plan["threads"], ptr(scratch),
+              stream_of(x)))
     fused_filter_cuda.launches += 1
     return vals, idx
 

@@ -2,9 +2,10 @@
 ``repro/kernels/ops.py``: ``dist_l``, ``ksort_l``, ``dist_h``,
 ``fused_filter``, ``fused_expand``, ``pq_adc_expand``, ``pq_adc``,
 ``merge_topk_sorted``, ``flash_attention`` and ``decode_attention``),
-plus two ops of the search path that fuse the reference's glue around
-its ops: ``trip_fold`` (a trip's accept, feeds and three merges) and
-``pq_expand_rows`` (the PQ expand with its row gathers).
+plus three ops of the search path that fuse the reference's glue around
+its ops: ``trip_fold`` (a trip's accept, feeds and three merges),
+``fused_expand_rows`` and ``pq_expand_rows`` (the pca and PQ expands with
+their row gathers).
 
 Same op names, signatures and sentinels as the reference. A CPU tensor
 takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
@@ -25,6 +26,7 @@ from repro_torch.kernels.dist_h import dist_h_cuda
 from repro_torch.kernels.dist_l import dist_l_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_filter import (fused_expand_cuda,
+                                              fused_expand_rows_cuda,
                                               fused_filter_cuda)
 from repro_torch.kernels.ksort_l import ksort_l_cuda
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
@@ -42,6 +44,7 @@ _KERNELS = {"fused_expand": fused_expand_cuda,
             "flash_attention": flash_attention_cuda,
             "decode_attention": decode_attention_cuda,
             "trip_fold": trip_fold_cuda,
+            "fused_expand_rows": fused_expand_rows_cuda,
             "pq_expand_rows": pq_expand_rows_cuda}
 
 
@@ -121,6 +124,33 @@ def fused_expand(x, q, valid, th, k: int):
                                  valid.to(torch.bool).contiguous(),
                                  th.to(torch.float32).contiguous(), k)
     return ref.fused_expand_ref(x, q, valid, th, k)
+
+
+def fused_expand_rows(adj, packed_low, c_w, exp, q, th, k: int):
+    """The pca traversal's expand with its row gathers fused: for the W
+    popped ids ``c_w`` [B, W] (a strided view is read in place) and their
+    gates ``exp`` [B, W] bool, the layer's ``adj`` [N, M0] and layout-(3)
+    ``packed_low`` [N, M0, dl] f32 give the W * M0 neighbour slots of
+    each row (a gated-off slot reads row 0 and is masked, as is a -1
+    neighbour; a -1 pop with its gate set reads node 0, as the
+    reference's clamp); Dist.L against ``q`` [B, dl], the C_pca threshold
+    ``th`` [B] (a column view is read in place), kSort.L. Returns (kv
+    [B, k] ascending, cand [B, k] int32 neighbour ids); filtered-out
+    slots get kv >= VALID_MAX. k must not exceed W * M0."""
+    W, M0 = c_w.shape[1], adj.shape[1]
+    if k > W * M0:
+        raise ValueError(f"fused_expand_rows: k={k} exceeds W * M0 = "
+                         f"{W * M0}")
+    if _on_cuda(adj, packed_low, c_w, exp, q, th):
+        c_w = c_w.to(torch.int32)
+        if c_w.stride(1) != 1:
+            c_w = c_w.contiguous()
+        return fused_expand_rows_cuda(adj.to(torch.int32).contiguous(),
+                                      packed_low.contiguous(), c_w,
+                                      exp.to(torch.bool).contiguous(),
+                                      q.to(torch.float32).contiguous(),
+                                      th.to(torch.float32), k)
+    return ref.fused_expand_rows_ref(adj, packed_low, c_w, exp, q, th, k)
 
 
 def pq_adc_expand(codes, lut, valid, th, k: int):

@@ -67,20 +67,43 @@ def fused_expand_ref(x, q, valid, th, k: int):
     return ksort_l_ref(d, k)
 
 
-def pq_expand_rows_ref(adj, codes, c_w, exp, lut, th, k: int):
-    """The PQ expand with its row gathers, as the search ran it before
-    the gathers were fused (``repro/core/search_jax.py:_layer_body``'s
-    lines): gated-off slots read row 0, the neighbours' mask is ``adj >=
-    0`` and the gate, and the winners' indices map back to neighbour ids.
-    adj: [N, M0] int32; codes: [N, M0, S] uint8 (the layer's layout-(3)
-    codes); c_w: [B, W] popped ids; exp: [B, W] bool gates; lut: [B, S,
-    256]; th: [B]. Returns (kv [B, k] ascending, cand [B, k] int32)."""
+def popped_rows(adj, pay, c_w, exp):
+    """The popped rows as the search gathered them before the gathers
+    were fused (``repro/core/search_jax.py:_layer_body``'s lines): a
+    gated-off pop reads row 0 and a -1 pop with its gate set is clamped
+    to node 0; the neighbours' mask is ``adj >= 0`` and the gate.
+    adj: [N, M0]; pay: [N, M0, width] (the layer's layout-(3) payload);
+    c_w, exp: [B, W]. Returns (nb_i [B, W*M0], nb_mask, nb_pay [B, W*M0,
+    width])."""
     B, W = c_w.shape
     M0 = adj.shape[1]
     c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
     nb_i = adj.index_select(0, c_safe).reshape(B, W * M0)
     nb_mask = (nb_i >= 0) & exp.repeat_interleave(M0, dim=1)
-    nb_pay = codes.index_select(0, c_safe).reshape(B, W * M0, -1)
+    nb_pay = pay.index_select(0, c_safe).reshape(B, W * M0, -1)
+    return nb_i, nb_mask, nb_pay
+
+
+def fused_expand_rows_ref(adj, packed_low, c_w, exp, q, th, k: int):
+    """The pca expand with its row gathers, as the search ran it before
+    the gathers were fused: ``popped_rows``, ``fused_expand_ref`` and
+    the winners' indices mapped back to neighbour ids.
+    adj: [N, M0] int32; packed_low: [N, M0, dl] (the layer's layout-(3)
+    rows); c_w: [B, W] popped ids; exp: [B, W] bool gates; q: [B, dl];
+    th: [B]. Returns (kv [B, k] ascending, cand [B, k] int32)."""
+    nb_i, nb_mask, nb_pay = popped_rows(adj, packed_low, c_w, exp)
+    kv, ki = fused_expand_ref(nb_pay, q, nb_mask, th, k)
+    return kv, torch.gather(nb_i, 1, ki.long())
+
+
+def pq_expand_rows_ref(adj, codes, c_w, exp, lut, th, k: int):
+    """The PQ expand with its row gathers, as the search ran it before
+    the gathers were fused: ``popped_rows``, ``pq_adc_expand_ref`` and
+    the winners' indices mapped back to neighbour ids.
+    adj: [N, M0] int32; codes: [N, M0, S] uint8 (the layer's layout-(3)
+    codes); c_w: [B, W] popped ids; exp: [B, W] bool gates; lut: [B, S,
+    256]; th: [B]. Returns (kv [B, k] ascending, cand [B, k] int32)."""
+    nb_i, nb_mask, nb_pay = popped_rows(adj, codes, c_w, exp)
     kv, ki = pq_adc_expand_ref(nb_pay, lut, nb_mask, th, k)
     return kv, torch.gather(nb_i, 1, ki.long())
 

@@ -508,6 +508,106 @@ def test_pq_expand_rows_matches_unfused(cuda, W, cascade):
     assert torch.equal(_bits(d), _bits(pd)) and torch.equal(c, pc)
 
 
+# (dl, base offset in floats): the pca rows at dl = 15 on an aligned
+# table (16-byte copies), the same table viewed one float in (a base off
+# 16-byte alignment: 4-byte copies), dl = 16 (an even row: 4-byte copies
+# at the odd stride 17) and dl = 128 (staged in opted-in shared memory
+# at W = 1, 2 and 8; at W = 4 four warps' areas pass the card's limit
+# and the rows are read in place)
+ROWS_LAYOUTS = {"dl15": (15, 0), "dl15_misaligned": (15, 1), "dl16": (16, 0),
+                "dl128": (128, 0)}
+
+
+def _pca_rows_case(rng, B, W, dl, offset, integer, N=3000, M0=32):
+    """A layer (adj with -1 tails, layout-(3) rows as a view ``offset``
+    floats into a flat buffer), a frontier whose first W ids are popped
+    (some -1; row 2 a -1 pop with its gate set), gates (row 0 all clear)
+    and a heap whose last column is the threshold (row 1: 0). Integer
+    rows make every sum exact; float rows are standard normal."""
+    adj = rng.integers(0, N, (N, M0)).astype(np.int32)
+    tails = rng.integers(0, M0 // 2, N)
+    adj[np.arange(M0)[None, :] >= M0 - tails[:, None]] = -1
+    n = N * M0 * dl + offset
+    flat = rng.integers(0, 16, n) if integer else rng.standard_normal(n)
+    q = rng.integers(0, 16, (B, dl)) if integer \
+        else rng.standard_normal((B, dl))
+    C_i = rng.integers(-1, N, (B, W + 7)).astype(np.int32)
+    exp = rng.random((B, W)) < 0.8
+    exp[0] = False
+    C_i[2, 0], exp[2, 0] = -1, True
+    scale = 64.0 * dl if integer else 1.5 * dl
+    heap = np.sort(rng.random((B, 4)) * scale, 1).astype(np.float32)
+    heap[::2, -1] = INF
+    heap[1, -1] = 0.0
+    return (adj, flat.astype(np.float32), C_i, exp, q.astype(np.float32),
+            heap)
+
+
+@pytest.mark.parametrize("layout", list(ROWS_LAYOUTS))
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+def test_fused_expand_rows_matches_unfused(cuda, W, layout):
+    """The fused-gather pca expand against the path it replaces on the
+    card (index_select of the popped rows, the fused_expand kernel, the
+    id gather), bit for bit on integer and float rows (the same f32 sums
+    in the same order), and against its plain version on integer rows;
+    the popped ids are a view of a wider frontier, the threshold a column
+    of the heap; one launch a call, staged as ``filter_plan`` says."""
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.fused_filter import filter_plan
+    dl, offset = ROWS_LAYOUTS[layout]
+    B, M0, k = 1024, 32, 16
+    for integer in (True, False):
+        rng = np.random.default_rng(W + 10 * offset + dl + integer)
+        adj, flat, C_i, exp, q, heap = _t(
+            cuda, *_pca_rows_case(rng, B, W, dl, offset, integer))
+        N = adj.shape[0]
+        low = flat[offset:].view(N, M0, dl)
+        assert (low.data_ptr() % 16 == 0) == (offset == 0)
+        c_w, th, kk = C_i[:, :W], heap[:, -1], W * k
+        c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+        nb_i = adj.index_select(0, c_safe).reshape(B, W * M0)
+        nb_mask = (nb_i >= 0) & exp.repeat_interleave(M0, dim=1)
+        nb_pay = low.index_select(0, c_safe).reshape(B, W * M0, dl)
+        ud, ui = ops.fused_expand(nb_pay, q, nb_mask, th, kk)
+        ucand = torch.gather(nb_i, 1, ui.long())
+        pd, pc = ref.fused_expand_rows_ref(adj, low, c_w, exp, q, th, kk)
+        plan = filter_plan(W, M0, dl, offset == 0, smem_optin(adj.device))
+        assert plan["staged"] == (layout != "dl128" or W != 4)
+        before = ops.launch_counts()["fused_expand_rows"]
+        d, c = ops.fused_expand_rows(adj, low, c_w, exp, q, th, kk)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_expand_rows"] == before + 1
+        assert torch.equal(_bits(d), _bits(ud)) and torch.equal(c, ucand)
+        if integer:
+            assert torch.equal(_bits(d), _bits(pd)) and torch.equal(c, pc)
+        assert bool((d[0] == INF).all())
+        assert bool((d[1] == INF).all())
+        assert bool((d[2] < INF).any())
+
+
+@pytest.mark.parametrize("B,M,dl,k", [(1024, 32, 15, 16), (64, 32, 15, 16),
+                                      (1024, 64, 15, 32), (512, 160, 15, 40),
+                                      (256, 96, 16, 7)])
+def test_filter_bodies_match_plain(cuda, B, M, dl, k):
+    """fused_expand and fused_filter, which read their gathered block in
+    place, equal to their plain versions on integer rows in the warp
+    and block tiers, at an odd and an even dl."""
+    from repro_torch.kernels.fused_filter import (fused_expand_cuda,
+                                                  fused_filter_cuda)
+    rng = np.random.default_rng(B + M + dl)
+    x = rng.integers(0, 8, (B, M, dl)).astype(np.float32)
+    q = rng.integers(0, 8, (B, dl)).astype(np.float32)
+    valid = rng.random((B, M)) < 0.8
+    th = np.where(rng.random(B) < 0.5, 2.0 * dl, INF).astype(np.float32)
+    tx, tq, tv, tt = _t(cuda, x, q, valid, th)
+    for got, plain in (
+            (fused_expand_cuda(tx, tq, tv, tt, k),
+             ref.fused_expand_ref(tx, tq, tv, tt, k)),
+            (fused_filter_cuda(tx, tq, k), ref.fused_filter_ref(tx, tq, k))):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
 @pytest.mark.parametrize("M", [160, 256])
 def test_wide_expand_tiers_match_plain(cuda, M):
     """M > 128 (a block per row): fused_expand, fused_filter and

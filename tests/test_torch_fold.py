@@ -14,13 +14,16 @@ of every search kernel, without a card.
 * ``ref.pq_expand_rows_ref`` (the PQ expand with its row gathers) is
   bit-equal to the JAX expand path (``jnp.take`` of the popped rows, the
   Pallas ``pq_adc_expand`` in interpret mode or its jnp oracle, the id
-  gather) on integer tables, W in {1, 2, 4, 8}, pq and cascade tables.
+  gather) on integer tables, W in {1, 2, 4, 8}, pq and cascade tables;
+  ``ops.fused_expand_rows`` (the pca expand with its row gathers) is
+  bit-equal to the same lines around ``fused_expand`` on integer rows.
 * ``search_batched`` and the build's probe stay bit-equal to
   ``search_jax`` at W in {4, 8} on the integer fixture (W in {1, 2}:
   ``tests/test_torch_search.py``).
 * The host plans (``expand_plan``, the filter and PQ expands' tiers,
-  ``merge_plan``, ``ksort_plan``, ``fold_plan``) serve every shape: a
-  tier for each, in the shared memory a block may have on an H100.
+  ``filter_plan`` with the pca expand's staging, ``merge_plan``,
+  ``ksort_plan``, ``fold_plan``) serve every shape: a tier for each, in
+  the shared memory a block may have on an H100.
 """
 import dataclasses
 
@@ -246,6 +249,72 @@ def test_pq_expand_rows_k_above_w_m0_raises():
         ops.pq_expand_rows(*t, lut, torch.from_numpy(th), 65)
 
 
+# ------------------------------ fused pca expand ---------------------------
+
+def pca_rows_inputs(rng, B, W, N=300, M0=32, dl=15):
+    """A layer (adj [N, M0] with -1 tails, integer layout-(3) rows [N,
+    M0, dl]: exact sums in any order), a frontier whose first W ids are
+    popped (some -1), gates, integer queries and a heap whose last column
+    is the threshold. Edge rows: 0 has every gate clear, 1 a threshold of
+    0, 2 a -1 pop with its gate set (the reference scores node 0's
+    neighbours there)."""
+    adj = rng.integers(0, N, (N, M0)).astype(np.int32)
+    tails = rng.integers(0, M0 // 2, N)
+    adj[np.arange(M0)[None, :] >= M0 - tails[:, None]] = -1
+    low = rng.integers(0, 8, (N, M0, dl)).astype(np.float32)
+    C_i = rng.integers(-1, N, (B, W + 5)).astype(np.int32)
+    exp = rng.random((B, W)) < 0.8
+    exp[0] = False
+    C_i[2, 0], exp[2, 0] = -1, True
+    q = rng.integers(0, 8, (B, dl)).astype(np.float32)
+    heap = np.zeros((B, 3), np.float32)
+    heap[:, -1] = np.where(rng.random(B) < 0.5, 16.0 * dl, INF)
+    heap[1, -1] = 0.0
+    return adj, low, C_i, exp, q, heap
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+def test_fused_expand_rows_bit_equal_to_the_jax_expand(W, jax_impl):
+    rng = np.random.default_rng(20 + W)
+    B, M0, dl, k = 8, 32, 15, 16
+    adj, low, C_i, exp, q, heap = pca_rows_inputs(rng, B, W, M0=M0, dl=dl)
+    c_w, th, kk = C_i[:, :W], heap[:, -1], W * k
+    # the reference's lines (search_jax._layer_body's pca branch)
+    jc_safe = jnp.where(jnp.asarray(exp), jnp.maximum(jnp.asarray(c_w), 0),
+                        0)
+    nb_i = jnp.take(jnp.asarray(adj), jc_safe.reshape(-1), axis=0) \
+        .reshape(B, -1)
+    nb_mask = (nb_i >= 0) & jnp.repeat(jnp.asarray(exp), M0, axis=1)
+    nb_pay = jnp.take(jnp.asarray(low), jc_safe.reshape(-1),
+                      axis=0).reshape(B, W * M0, -1)
+    jkv, jki = jops.fused_expand(nb_pay, jnp.asarray(q), nb_mask,
+                                 jnp.asarray(th), kk)
+    jcand = jnp.take_along_axis(nb_i, jki, axis=1)
+    # c_w as a view of the wider frontier, th as the heap's column
+    tC, theap = torch.from_numpy(C_i), torch.from_numpy(heap)
+    kv, cand = ops.fused_expand_rows(torch.from_numpy(adj),
+                                     torch.from_numpy(low), tC[:, :W],
+                                     torch.from_numpy(exp),
+                                     torch.from_numpy(q), theap[:, -1], kk)
+    np.testing.assert_array_equal(kv.numpy(), np.asarray(jkv))
+    np.testing.assert_array_equal(cand.numpy(), np.asarray(jcand))
+    assert cand.dtype == torch.int32
+    assert bool((kv[0] == INF).all()) and bool((kv[1] == INF).all())
+    # the -1 pop with its gate set scored node 0's neighbours
+    live = kv[2] < INF
+    assert bool(live.any())
+    row0 = set(adj[0].tolist()) | set(adj[C_i[2, 1:W]].ravel().tolist())
+    assert set(cand[2][live].tolist()) <= row0
+
+
+def test_fused_expand_rows_k_above_w_m0_raises():
+    rng = np.random.default_rng(0)
+    adj, low, C_i, exp, q, heap = pca_rows_inputs(rng, 4, 2)
+    t = [torch.from_numpy(a) for a in (adj, low, C_i[:, :2], exp, q)]
+    with pytest.raises(ValueError, match="exceeds W"):
+        ops.fused_expand_rows(*t, torch.from_numpy(heap[:, -1]), 65)
+
+
 # ------------------- search and probe at W in {4, 8} -----------------------
 
 @pytest.fixture(scope="module")
@@ -381,6 +450,42 @@ def test_expand_plans_serve_every_width(M):
             assert plan["smem"] == 4 * M <= OPTIN
         else:
             assert 4 * M > OPTIN and plan["scratch"] == M
+
+
+@pytest.mark.parametrize("dl", [15, 16])
+@pytest.mark.parametrize("W", [1, 4, 8])
+def test_filter_plan_staging_and_tiers(W, dl):
+    """The pca expand at M0 = 32: a warp a row up to W = 4 (128 slots),
+    a block past it; each stages its popped rows by 16-byte cp.async
+    where every node's [M0, dl] block is 16-byte aligned and dl is odd
+    (dl = 15 on an aligned table), else by 4-byte copies at the odd row
+    stride dl | 1 (dl = 16, or a misaligned base); the staging area fits
+    the default 48 KB at W <= 4 (30 KB at W = 4, dl = 15), and rows whose
+    area cannot fit the card's limit are read in place."""
+    M0 = 32
+    for aligned in (True, False):
+        plan = ff.filter_plan(W, M0, dl, aligned, OPTIN)
+        assert plan["tier"] == ("warp" if W <= 4 else "block")
+        assert plan["per_lane"] == (W if W <= 4 else 0)
+        assert plan["staged"]
+        assert plan["copy"] == (16 if aligned and dl == 15 else 4)
+        assert plan["rw"] == (15 if dl == 15 else 17)
+        words = ff.stage_words(W, M0, dl, plan["rw"])
+        assert words % 4 == 0 and words >= dl + W * M0 * dl
+        if plan["tier"] == "warp":
+            assert plan["smem"] == ff.WARPS_PER_BLOCK * 4 * words
+            assert plan["smem"] <= _launch.SMEM_DEFAULT
+        else:
+            assert plan["smem"] == 4 * (W * M0 + words) <= OPTIN
+    assert ff.filter_plan(4, M0, 15, True, OPTIN)["smem"] == 30_976
+    # a staging area past the card's limit is not staged: the rows are
+    # read in place, the block tier keeping its distance row
+    tight = ff.filter_plan(W, M0, dl, True, 4 * W * M0 + 64)
+    assert not tight["staged"] and tight["copy"] == tight["rw"] == 0
+    assert tight["smem"] == (0 if W <= 4 else 4 * W * M0)
+    # so are four warps' areas of 128 slots of dl = 128 on an H100
+    wide_dl = ff.filter_plan(4, M0, 128, True, OPTIN)
+    assert wide_dl["tier"] == "warp" and not wide_dl["staged"]
 
 
 @pytest.mark.parametrize("n,tier", [(42, "shared"), (12288, "shared"),
