@@ -16,10 +16,13 @@ non-zero:
                 plain PyTorch version on the card (indices and distances
                 exact on integer-valued inputs, distances to rtol 1e-5 /
                 atol 1e-3 on float inputs: the f32 summation order
-                differs; ``ksort_l`` exact on every input, it does no
-                arithmetic); kernel, plain and library times from
-                CUDA-graph replays timed with CUDA events; dist_l,
-                ksort_l and dist_h also at the footprint bench's shapes.
+                differs; ``ksort_l`` exact on every input, values to
+                their sign bits, it does no arithmetic, also at its warp
+                tier's edges M = 256, 257, 512, 513 with k = 1 and k =
+                M); kernel, plain and library times from CUDA-graph
+                replays timed with CUDA events; each timed ``ksort_l``
+                row with its plan (tier, rows a block); dist_l, ksort_l
+                and dist_h also at the footprint bench's shapes.
                 ``trip_fold`` (a trip's pop, accept test and three
                 merges in one launch) at the main path's fold shapes
                 (pca layers 0 / 1 / 2+, the deferred arms' layer 0, the
@@ -60,7 +63,10 @@ non-zero:
                 launch checked and timed beside it; ``decode_attention``
                 at the bench's shape (B=1 H=4 T=4096 d=64 bf16) and
                 starcoder2-3b widths (B=8 H=24 T=16384 d=128 bf16,
-                lengths 0 to T+7),
+                lengths 0 to T+7; each with its plan: chunk, blocks
+                per (b, h), tile, stages, copy mode, shared memory, and
+                the device operations of one call, which must be one
+                kernel),
                 plus edge rows (f32, S=1, S>T, ragged S and T, window >=
                 T, non-causal, d = 30/40/96/256, a window starting
                 mid-tile, a split ragged chunk), each within 2e-3 (f32) or
@@ -426,19 +432,27 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
 
     # --- ksort_l: the cross-shard merge at P=4, M = P * E, k = E for the
     #     per-step arms (E = ef0 = 10), pca-deferred (E = 30) and the
-    #     cascade (E = 60); then the footprint bench's [64, 32] k=16 and
-    #     edge shapes (M not a multiple of 32, k == M, B == 1), checked
-    #     but not timed ---
+    #     cascade (E = 60); then the footprint bench's [64, 32] k=16, edge
+    #     shapes (M not a multiple of 32, k == M, B == 1) and the warp
+    #     tier's edges (M = 256, 257, 512, 513 at k = 1 and k = M),
+    #     checked but not timed; values to their sign bits ---
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.ksort_l import ksort_plan
+    edges = [(64, M, k) for M in (256, 257, 512, 513) for k in (1, M)]
     for B, M, k in [(1024, 40, 10), (1024, 120, 30), (1024, 240, 60),
-                    (64, 32, 16), (8, 33, 5), (4, 64, 64), (1, 40, 10)]:
+                    (64, 32, 16), (8, 33, 5), (4, 64, 64), (1, 40, 10)] \
+            + edges:
         errs = []
         for integer in (True, False):
             (d,) = T(_ksort_case(np, rng, B, M, integer))
-            errs.append(compare("ksort_l", (B, M, k), ops.ksort_l(d, k),
-                                ref.ksort_l_ref(d, k), True))
+            got, want = ops.ksort_l(d, k), ref.ksort_l_ref(d, k)
+            errs.append(compare("ksort_l", (B, M, k), got, want, True))
+            need(torch.equal(torch.signbit(got[0]), torch.signbit(want[0])),
+                 f"ksort_l{(B, M, k)}: sign bits differ")
         if B < 1024:
             continue
         results[("ksort_l", (B, M, k))] = dict(
+            plan=ksort_plan(M, smem_optin(dev)),
             max_abs_err=max(errs),
             ms=graph_ms(lambda: ops.ksort_l(d, k)),
             plain_ms=graph_ms(lambda: ref.ksort_l_ref(d, k)),
@@ -1043,11 +1057,14 @@ def check_attention(torch, np, rng) -> dict:
     import torch.nn.functional as F
     from repro_torch.bench.kernel_footprint import (
         PEAK_BF16_OPS_PER_S, PEAK_F32_OPS_PER_S, attention_excess, bound_ms,
-        decode_cost, flash_cost, graph_ms)
+        decode_cost, device_kernels, flash_cost, graph_ms)
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import _align as decode_align
+    from repro_torch.kernels.decode_attention import split_plan as decode_plan
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      split_plan)
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(1 << 31)))
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -1133,8 +1150,14 @@ def check_attention(torch, np, rng) -> dict:
             continue
         mask = (torch.arange(T, device=dev)[None, :] < ln[:, None])
         cost = decode_cost(H, d, 2 if dt == "bf16" else 4, lengths, T)
+        kernels = device_kernels(lambda: ops.decode_attention(q, k, v, ln))
+        need(kernels == 1, f"decode_attention {label}: one call ran "
+             f"{kernels} device operations, not one kernel")
         out[("decode_attention", shape)] = dict(
             label=label, lengths=lengths, max_abs_err=err, excess=ex,
+            plan=decode_plan(B * H, T, d, k.element_size(), sms,
+                             decode_align(k, v)),
+            device_kernels=kernels,
             ms=graph_ms(lambda: ops.decode_attention(q, k, v, ln)),
             plain_ms=graph_ms(lambda: ref.decode_attention_ref(q, k, v, ln)),
             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
@@ -1156,11 +1179,16 @@ def run_footprint(torch) -> dict:
     bench's normal inputs have no ties —, attention at
     ``attention_excess`` <= 1). Launch counts are reset after that, just
     before the timed run, and read just after; each of the six kernels
-    must have launched. The shared memory the bench reports for the
-    attention kernels is held against the kernels' own figure."""
+    must have launched. The shared memory the bench reports is held
+    against the kernels' own figures: the attention kernels' C functions
+    (decode at the plan of the bench's shape on this card) and
+    ``ksort_plan`` at the card's opt-in maximum."""
     import ctypes
     from repro_torch.bench import kernel_footprint as kf
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.decode_attention import split_plan
+    from repro_torch.kernels.ksort_l import ksort_plan
     calls = kf.make_calls(torch.device("cuda"))
     errs = {}
     for name, (fn, plain) in calls.items():
@@ -1185,11 +1213,22 @@ def run_footprint(torch) -> dict:
     for row in rows:
         name = row["name"].split("/", 1)[1]
         need(counts[name] > 0, f"footprint: {name} never launched")
+        if name == "ksort_l":
+            M = row["shape"][1]
+            plan = ksort_plan(M, smem_optin(torch.cuda.current_device()))
+            need(plan["smem"] == row["smem_per_block_bytes"],
+                 f"footprint: ksort_l shared memory {plan['smem']} != the "
+                 f"bench's {row['smem_per_block_bytes']}")
         if name in ("flash_attention", "decode_attention"):
-            # the flash row is bf16: its kernel's figure for dtype 1
+            # both attention rows are bf16: the kernels' figure for dtype 1
             fn = getattr(_build.load(name), f"{name}_smem_bytes")
-            args = (row["shape"][-1],) + ((1,) if name == "flash_attention"
-                                          else ())
+            args = (row["shape"][-1], 1)
+            if name == "decode_attention":
+                Bq, H, T, d = row["shape"]
+                plan = split_plan(Bq * H, T, d, 2, torch.cuda.
+                                  get_device_properties(0)
+                                  .multi_processor_count)
+                args += (plan["tile"], plan["stages"])
             fn.argtypes = [ctypes.c_int] * len(args)
             fn.restype = ctypes.c_int
             need(fn(*args) == row["smem_per_block_bytes"],

@@ -40,6 +40,7 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ksort_l import ksort_plan
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth,
 # the f32 rate outside the tensor cores and the bf16 tensor-core rate
@@ -47,6 +48,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
 VMEM_NOTE = "n/a (a TPU VMEM block; no counterpart on the card)"
+# an H100's opt-in shared memory a block (bytes), for plans made without
+# a card
+SMEM_OPTIN = 232_448
 
 
 def graph_ms(fn: Callable, reps: int = 20, replays: int = 10) -> float:
@@ -73,6 +77,22 @@ def graph_ms(fn: Callable, reps: int = 20, replays: int = 10) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / (reps * replays)
+
+
+def device_kernels(fn: Callable) -> int:
+    """Device-side operations (kernels, copies, sets) of one ``fn()``
+    call after a warm-up call, from ``torch.profiler``'s device
+    events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(int(e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def bound_ms(nbytes: float, ops_: float,
@@ -157,7 +177,7 @@ def _row_specs():
         ("kernels/ksort_l", [B, M, K],
          {"bytes": 4 * B * M + 8 * B * K,
           "ops": B * M * max(M - 1, 1).bit_length()},
-         PEAK_F32_OPS_PER_S, 4 * M),
+         PEAK_F32_OPS_PER_S, ksort_plan(M, SMEM_OPTIN)["smem"]),
         ("kernels/dist_h", [B, K, D],
          {"bytes": 4 * (B * K * D + B * D + B * K), "ops": 3 * B * K * D},
          PEAK_F32_OPS_PER_S, 0),
@@ -170,7 +190,7 @@ def _row_specs():
         ("kernels/decode_attention", [Bq, H, Td, hd],
          decode_cost(H, hd, 2, [Td] * Bq, Td, same_kv=True),
          PEAK_BF16_OPS_PER_S,
-         _decode.smem_bytes(hd)),
+         _decode.split_plan(Bq * H, Td, hd, 2)["smem"]),
     ]
 
 

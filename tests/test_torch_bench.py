@@ -56,6 +56,21 @@ def test_derived_counts_follow_from_the_shapes():
         assert r["bound_by"] == by
 
 
+def test_smem_figures_follow_the_kernels_plans():
+    """kSort.L's [64, 32] rows are sorted a warp each, in registers (no
+    shared memory); the decode row's figure is its plan's at the bench's
+    shape: four stages of 128 K and V rows, barriers and softmax
+    states."""
+    from repro_torch.kernels.decode_attention import split_plan
+    from repro_torch.kernels.ksort_l import ksort_plan
+    rows = {r["name"]: r for r in kf.plan()}
+    assert rows["kernels/ksort_l"]["smem_per_block_bytes"] == \
+        ksort_plan(32, kf.SMEM_OPTIN)["smem"] == 0
+    plan = split_plan(4, 4096, 64, 2)
+    assert rows["kernels/decode_attention"]["smem_per_block_bytes"] == \
+        plan["smem"] > plan["stages"] * 2 * plan["tile"] * 64 * 2
+
+
 @pytest.mark.parametrize("S,T,causal,window", [
     (512, 512, True, 0), (64, 256, True, 0), (200, 100, True, 0),
     (300, 300, True, 64), (130, 130, False, 30), (50, 70, False, 0),

@@ -194,10 +194,15 @@ def test_build_and_search_card_equals_cpu(cuda):
 
 @pytest.mark.parametrize("B,M,k", [(1024, 40, 10), (1024, 120, 30),
                                    (1024, 240, 60), (8, 33, 5), (1, 40, 40),
-                                   (4, 2048, 7)])
+                                   (4, 2048, 7), (64, 256, 1), (64, 256, 256),
+                                   (64, 257, 1), (64, 257, 257), (64, 512, 1),
+                                   (64, 512, 512), (64, 513, 1),
+                                   (64, 513, 513)])
 def test_ksort_l_matches_plain(cuda, B, M, k):
     """Values and indices exact on every row: floats with negatives, a
-    tie pool, all-INF rows and -0.0 beside 0.0 (they tie by index)."""
+    tie pool, all-INF rows and -0.0 beside 0.0 (they tie by index), the
+    values' sign bits included; at the warp tier's edges (M = 256, 257,
+    512, 513) with k = 1 and k = M."""
     rng = np.random.default_rng(B + M + k)
     d = (3.0 * rng.standard_normal((B, M))).astype(np.float32)
     if B >= 4:
@@ -356,8 +361,14 @@ def test_flash_attention_split_matches_unsplit(cuda, B, H, S, T, d, causal,
     (512, 64, torch.float32, [0, 511, 700]),
     (4096, 64, torch.bfloat16, [4096, 0, 3000]),
     (1000, 128, torch.bfloat16, [999, 129, 1]),
-    (300, 40, torch.float32, [300, 7, 0])])
+    (300, 40, torch.float32, [300, 7, 0]),
+    (4096, 64, torch.bfloat16, [4096]),
+    (16384, 128, torch.bfloat16, [16384, 9000, 1])])
 def test_decode_attention_matches_plain(cuda, T, d, dtype, lengths):
+    """Against the plain version, then one call captured in a CUDA graph
+    and replayed three times, each replay equal to the eager call (the
+    bench's shape is [1, 4, 4096, 64]; T = 16384 streams through the
+    tile ring)."""
     B, H = len(lengths), 4
     q, k, v = _attn_inputs(cuda, dtype, (B, H, d), (B, H, T, d),
                            (B, H, T, d), seed=T + d)
@@ -371,6 +382,59 @@ def test_decode_attention_matches_plain(cuda, T, d, dtype, lengths):
     assert kf.attention_excess(out, want) <= 1
     assert bool((out[ln <= 0] == 0).all())
     assert ops.launch_counts()["decode_attention"] == before + 1
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, k, v, ln)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(g):
+        got = ops.decode_attention(q, k, v, ln)
+    for _ in range(3):
+        got.fill_(1.0)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, out)
+
+
+@pytest.mark.parametrize("d,dtype,offset,copy", [
+    (64, torch.bfloat16, 0, "bulk"), (40, torch.float32, 0, "bulk"),
+    (30, torch.bfloat16, 0, "cp.async"), (30, torch.float32, 0, "cp.async"),
+    (33, torch.bfloat16, 0, "ld"), (64, torch.bfloat16, 1, "ld"),
+    (64, torch.float32, 1, "cp.async")])
+def test_decode_attention_copy_modes(cuda, d, dtype, offset, copy):
+    """Each way a tile reaches shared memory: bulk copies (rows of 16-byte
+    multiples), 4-byte cp.async (rows of 4-byte multiples, or caches
+    offset by one f32) and plain loads (bf16 at odd d, or caches offset by
+    one bf16 element)."""
+    from repro_torch.kernels import decode_attention as da
+    B, H, T = 2, 3, 700
+    q, kk, vv = _attn_inputs(cuda, dtype, (B, H, d),
+                             (B * H * T * d + offset,),
+                             (B * H * T * d + offset,), seed=d + offset)
+    k = kk[offset:].view(B, H, T, d)
+    v = vv[offset:].view(B, H, T, d)
+    assert da.split_plan(B * H, T, d, k.element_size(), align=da._align(
+        k, v))["copy"] == copy
+    ln = torch.tensor([T, 333], dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, k, v, ln)
+    want = ref.decode_attention_ref(q, k, v, ln)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert kf.attention_excess(out, want) <= 1
+
+
+@pytest.mark.parametrize("B,H,T,d,lengths", [
+    (1, 4, 4096, 64, [4096]), (8, 24, 2048, 128, [0, 1, 1000, 2048, 2048,
+                                                 2055, 5, 1234])])
+def test_decode_attention_is_one_device_kernel(cuda, B, H, T, d, lengths):
+    """One call runs one device kernel (torch.profiler's device-side
+    events): the chunks merge inside the launch."""
+    q, k, v = _attn_inputs(cuda, torch.bfloat16, (B, H, d), (B, H, T, d),
+                           (B, H, T, d), seed=T)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    assert kf.device_kernels(lambda: ops.decode_attention(q, k, v, ln)) == 1
 
 
 # ------------- the trip fold, the fused PQ expand, the wide tiers ----------

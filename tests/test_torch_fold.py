@@ -495,9 +495,15 @@ def test_filter_plan_staging_and_tiers(W, dl):
                                     (200_000, "global")])
 def test_merge_and_ksort_plans_past_12288(n, tier):
     """Rows up to 12288 f32 stage in the default 48 KB, longer ones opt
-    into the card's maximum, longer still run in global memory."""
-    for plan in (ms.merge_plan(n // 2, n - n // 2, OPTIN),
-                 ks.ksort_plan(n, OPTIN)):
+    into the card's maximum, longer still run in global memory. kSort.L
+    sorts rows of up to 512 values by a warp each instead (its own tier,
+    ``tests/test_torch_kernel_plans.py``) and keeps these tiers past."""
+    plans = [ms.merge_plan(n // 2, n - n // 2, OPTIN)]
+    if n > ks.WARP_MAX:
+        plans.append(ks.ksort_plan(n, OPTIN))
+    else:
+        assert ks.ksort_plan(n, OPTIN)["tier"] == "warp"
+    for plan in plans:
         assert plan["tier"] == tier
         assert plan["staged"] == (tier != "global")
         assert plan["smem"] == (4 * n if tier != "global" else 0)
