@@ -8,9 +8,9 @@ Phases, each printing one JSON object per line; any failure exits
 non-zero:
 
   1. device   — ``nvidia-smi`` name and power limit, torch's device name;
-  2. build    — ``nvcc`` builds the ten kernel sources from
-                ``kernels/csrc`` (one process per source, started
-                together);
+  2. build    — ``nvcc`` builds the eleven kernel sources from
+                ``kernels/csrc`` (the ten of the port's kernels and an
+                empty kernel; one process per source, started together);
   3. kernels  — each kernel at the main path's shapes (B=1024 for search,
                 2048 for the build probe) plus edge rows, held against its
                 plain PyTorch version on the card (indices and distances
@@ -22,7 +22,10 @@ non-zero:
                 M); kernel, plain and library times from CUDA-graph
                 replays timed with CUDA events; each timed ``ksort_l``
                 row with its plan (tier, rows a block); dist_l, ksort_l
-                and dist_h also at the footprint bench's shapes.
+                and dist_h also at the footprint bench's shapes. dist_l
+                at each of its shapes on f32 and on bf16 rows (keys
+                ending "bf16"), each with its launch plan and one device
+                kernel a call (the nodes of a CUDA graph of one call).
                 ``trip_fold`` (a trip's pop, accept test and three
                 merges in one launch) at the main path's fold shapes
                 (pca layers 0 / 1 / 2+, the deferred arms' layer 0, the
@@ -37,7 +40,8 @@ non-zero:
                 and index_select + gather-sum + stable sort. Then
                 ``fused_expand_rows`` (the pca expand with its row
                 gathers) at the pca arms' layer 0 shape for W = 1, 2, 4
-                (timed) and 8, on a 50,000-node layer: bit for bit
+                (timed) and 8, W = 1 (timed) and 8 also on the layer's
+                rows in bf16, on a 50,000-node layer: bit for bit
                 against its plain version, the unfused path (index_select,
                 ``fused_expand``, id gather) and the library route
                 (index_select, distances, stable sort, id gather) on
@@ -49,8 +53,10 @@ non-zero:
                 60,100 elements, ksort_l at 13,000 and 60,000, exact
                 against their plain versions.
                 Then ``fused_filter`` at the footprint bench's [64, 32, 15]
-                and the search's [1024, 32, 15] k=16 plus edge rows
-                (k = M, k = 1, M = 100, B = 1; exact on integer inputs),
+                (f32 and bf16 rows, one device kernel a call) and the
+                search's [1024, 32, 15] k=16 plus edge rows (k = M, k =
+                1, M = 100, B = 1, bf16 at dl = 16; exact on integer
+                inputs),
                 ``flash_attention`` at the bench's shape (B=1 H=4
                 S=T=512 d=64 bf16 causal), at starcoder2-3b widths (24
                 heads, d=128, causal: S=T=4096 and a chunked prefill
@@ -77,6 +83,8 @@ non-zero:
                 f32), and exactly 0 on rows that see no key; the
                 library yardstick for attention is
                 ``scaled_dot_product_attention`` with an explicit mask;
+                last, an empty kernel's replay (``launch_floor``: the
+                floor under every small kernel's time);
   3b. footprint — ``python -m repro_torch.bench.kernel_footprint``'s six
                 rows (dist_l, ksort_l, dist_h, fused_filter,
                 flash_attention, decode_attention at the reference
@@ -94,15 +102,22 @@ non-zero:
                 numpy, timed as their own stage; the PCA is fitted on all
                 points;
   6. search   — single-shard: shard 0's graph in layout (3) on the card,
-                ``--queries`` queries in batches of ``--batch``, four
-                arms: pca (per-step, the first arm), pca-deferred, pq and
-                cascade-deferred. Per arm: QPS, recall@10 against shard
-                0's points (>= 0.80; >= 0.60 for pq), ``steps_mean``,
-                ``dist_h_mean``, bytes, launches per kernel (each kernel
-                of the arm's path must launch) and one profiled batch;
+                ``--queries`` queries in batches of ``--batch``, six
+                arms: pca (per-step, the first arm), pca-deferred, pq,
+                cascade-deferred, and pca-bf16 and pca-deferred-bf16
+                (layout (3) stored in bfloat16). Per arm: QPS, recall@10
+                against shard 0's points (>= 0.80; >= 0.60 for pq),
+                ``steps_mean``, ``dist_h_mean``, bytes, launches per
+                kernel (each kernel of the arm's path must launch) and one
+                profiled batch (with its copy kernels); each bf16 arm
+                within 0.02 recall of its f32 arm, its ``bytes_layout3``
+                below 0.75 of the f32 arm's, the same wrappers launched
+                (each as often, up to the trips the two loops ran), and
+                no more copy kernels (no cast);
   7. sharded  — all ``--n`` points over the P shards (``build_sharded``
-                reusing the graphs), ``shard_search_host`` in the four
-                arms' modes: QPS, recall@10 against all points (>= 0.80;
+                reusing the graphs), ``shard_search_host`` in the six
+                arms' modes (the bf16 ones held to their f32 arms as on
+                one shard): QPS, recall@10 against all points (>= 0.80;
                 >= 0.60 for pq, and for cascade-deferred, whose merge
                 ranks on PQ distances), launches (``ksort_l`` and the
                 arm's kernels must launch), the stacked db's bytes, peak
@@ -130,7 +145,9 @@ non-zero:
                 float data; then the sharded search at P=4 on the card
                 and on the CPU in every mode: bit-identical on integer
                 data with and without tombstones, the same recall and id
-                bars on float data; and the pca arm at expand_width W = 4
+                bars on float data; with layout (3) in bf16, pca and
+                pca-deferred bit-identical on integer data, single-shard
+                and at P=4 (with and without tombstones); and the pca arm at expand_width W = 4
                 and 8 (128 and 256 expand slots a row), card against CPU
                 on both fixtures (``wide``);
  12. filters  — the 8k filters table (first 64 queries, B=64) beside the
@@ -274,8 +291,12 @@ def _library_expand(torch, x, q, valid, th, k):
 
 
 def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
-    from repro_torch.bench.kernel_footprint import bound_ms, graph_ms
+    from repro_torch.bench.kernel_footprint import (bound_ms,
+                                                    device_kernels,
+                                                    graph_ms,
+                                                    launch_floor_ms)
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels._launch import smem_optin
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
     T = lambda *arrs: [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -374,8 +395,14 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
             bound=bound_ms(B * K * D * 4 + B * D * 4 + B * K * 4,
                            B * K * D * 3))
     # --- dist_l: cascade promote K = promote_mult * ef0 = 60, the
-    #     deferred entry score K = 1; the footprint bench's [64, 32, 15] ---
-    for B, K, dl in [(1024, 60, 15), (1024, 1, 15), (64, 32, 15)]:
+    #     deferred entry score K = 1 (bf16 rows in the bf16 arms); the
+    #     footprint bench's [64, 32, 15]; each on f32 and bf16 rows (the
+    #     bf16 key carries "bf16"), one device kernel a bf16 call ---
+    from repro_torch.kernels._launch import sm_count
+    from repro_torch.kernels.dist_l import dist_l_plan
+    for (B, K, dl), dt in [(s, dt) for s in ((1024, 60, 15), (1024, 1, 15),
+                                              (64, 32, 15))
+                           for dt in ("f32", "bf16")]:
         errs = []
         for integer in (True, False):
             if integer:
@@ -385,16 +412,25 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
                 xn = rng.standard_normal((B, K, dl)).astype(np.float32)
                 qn = rng.standard_normal((B, dl)).astype(np.float32)
             x, q = T(xn, qn)
-            errs.append(compare("dist_l", (B, K, dl), ops.dist_l(x, q),
+            if dt == "bf16":
+                x = x.to(torch.bfloat16)
+            errs.append(compare("dist_l", (B, K, dl, dt), ops.dist_l(x, q),
                                 ref.dist_l_ref(x, q), integer))
-        results[("dist_l", (B, K, dl))] = dict(
+        key = (B, K, dl) if dt == "f32" else (B, K, dl, "bf16")
+        isz = x.element_size()
+        kernels_a_call = device_kernels(lambda: ops.dist_l(x, q))
+        need(kernels_a_call == 1, f"dist_l{key}: {kernels_a_call} device "
+             "kernels a call")
+        results[("dist_l", key)] = dict(
             max_abs_err=max(errs),
             ms=graph_ms(lambda: ops.dist_l(x, q)),
             plain_ms=graph_ms(lambda: ref.dist_l_ref(x, q)),
             library_ms=graph_ms(lambda: ((x - q[:, None]) ** 2)
                                 .sum(-1)),
-            bound=bound_ms(B * K * dl * 4 + B * dl * 4 + B * K * 4,
-                           B * K * dl * 3))
+            bound=bound_ms(B * K * dl * isz + B * dl * 4 + B * K * 4,
+                           B * K * dl * 3),
+            plan=dist_l_plan(B * K, sm_count(dev)),
+            device_kernels=kernels_a_call)
 
     # --- pq_adc_expand: pq layers 0/1/2+ (M, k) = (32, 16)/(16, 8)/
     #     (16, 3); cascade-deferred layer 0 keeps all M0 = 32. The
@@ -432,11 +468,10 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
 
     # --- ksort_l: the cross-shard merge at P=4, M = P * E, k = E for the
     #     per-step arms (E = ef0 = 10), pca-deferred (E = 30) and the
-    #     cascade (E = 60); then the footprint bench's [64, 32] k=16, edge
-    #     shapes (M not a multiple of 32, k == M, B == 1) and the warp
-    #     tier's edges (M = 256, 257, 512, 513 at k = 1 and k = M),
-    #     checked but not timed; values to their sign bits ---
-    from repro_torch.kernels._launch import smem_optin
+    #     cascade (E = 60) and the footprint bench's [64, 32] k=16, all
+    #     timed; then edge shapes (M not a multiple of 32, k == M, B ==
+    #     1) and the warp tier's edges (M = 256, 257, 512, 513 at k = 1
+    #     and k = M), checked but not timed; values to their sign bits ---
     from repro_torch.kernels.ksort_l import ksort_plan
     edges = [(64, M, k) for M in (256, 257, 512, 513) for k in (1, M)]
     for B, M, k in [(1024, 40, 10), (1024, 120, 30), (1024, 240, 60),
@@ -449,7 +484,7 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
             errs.append(compare("ksort_l", (B, M, k), got, want, True))
             need(torch.equal(torch.signbit(got[0]), torch.signbit(want[0])),
                  f"ksort_l{(B, M, k)}: sign bits differ")
-        if B < 1024:
+        if B < 1024 and (B, M, k) != (64, 32, 16):
             continue
         results[("ksort_l", (B, M, k))] = dict(
             plan=ksort_plan(M, smem_optin(dev)),
@@ -468,6 +503,10 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
     emit({"phase": "wide_tiers", "tiers": check_wide_tiers(torch, np, rng,
                                                            T)})
     results.update(check_attention(torch, np, rng))
+    # the floor under every small kernel: an empty kernel's replay
+    floor = launch_floor_ms()
+    emit({"phase": "launch_floor", "name": "empty", "ms": floor,
+          "source": "src/repro_torch/kernels/csrc/empty.cu"})
 
     for (name, shape), r in results.items():
         emit({"phase": "kernel", "name": name, "shape": list(shape),
@@ -734,8 +773,12 @@ def check_fold_and_rows(torch, np, rng, T) -> dict:
 # dl, k, timed): the pca arms' layer
 # 0 (W = 1: 32 slots, k = 16), W = 2 and 4 (64 and 128 slots: the warp
 # tier's other widths), W = 8 (256 slots: the block tier), checked only
-PCA_ROWS_CASES = [(1024, 1, 32, 15, 16, True), (1024, 2, 32, 15, 16, True),
-                  (1024, 4, 32, 15, 16, True), (256, 8, 32, 15, 16, False)]
+PCA_ROWS_CASES = [(1024, 1, 32, 15, 16, True, "f32"),
+                  (1024, 1, 32, 15, 16, True, "bf16"),
+                  (1024, 2, 32, 15, 16, True, "f32"),
+                  (1024, 4, 32, 15, 16, True, "f32"),
+                  (256, 8, 32, 15, 16, False, "f32"),
+                  (256, 8, 32, 15, 16, False, "bf16")]
 
 
 def _pca_layer(np, rng, N, M0, dl, integer):
@@ -786,13 +829,14 @@ def _library_pca(torch, ref, adj, low, c_w, exp, q, th, kk):
     return sd[:, :kk], torch.gather(nb_i, 1, o[:, :kk])
 
 
-def _pca_rows_bytes(B, W, M0, dl, kk, gated: int, rows: int) -> int:
+def _pca_rows_bytes(B, W, M0, dl, kk, gated: int, rows: int,
+                    itemsize: int = 4) -> int:
     """Bytes the expand must move: per row its popped ids and gates, q,
     the threshold and the k outputs; per gated popped node its adjacency
     row (``gated`` of the B * W; a gated-off node loads nothing), and
-    ``rows`` payload rows of dl floats; plus node 0's adjacency row once
-    (the gated-off slots' ids)."""
-    return gated * M0 * 4 + rows * dl * 4 + M0 * 4 \
+    ``rows`` payload rows of dl elements of ``itemsize`` bytes; plus node
+    0's adjacency row once (the gated-off slots' ids)."""
+    return gated * M0 * 4 + rows * dl * itemsize + M0 * 4 \
         + B * (W * 5 + dl * 4 + 4 + kk * 8)
 
 
@@ -815,17 +859,22 @@ def check_pca_rows(torch, np, rng, T) -> dict:
     (a gated node's slots whose neighbour is not -1), with every gated
     node's whole [M0, dl] block (what the kernel stages) as
     ``bound_gated_blocks_ms`` and every popped node's as
-    ``bound_all_rows_ms``."""
-    from repro_torch.bench.kernel_footprint import bound_ms, graph_ms
+    ``bound_all_rows_ms``. The bf16 cases read the same layers rounded to
+    bf16 (integer rows exactly), one device kernel a call."""
+    from repro_torch.bench.kernel_footprint import (bound_ms,
+                                                    device_kernels,
+                                                    graph_ms)
     from repro_torch.kernels import ops, ref
     bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
     N, out = 50_000, {}
     layers = {integer: T(*_pca_layer(np, rng, N, 32, 15, integer))
               for integer in (True, False)}
-    for B, W, M0, dl, k, timed in PCA_ROWS_CASES:
-        shape, kk = (B, W, M0, dl, k), W * k
+    for B, W, M0, dl, k, timed, dt in PCA_ROWS_CASES:
+        shape, kk = (B, W, M0, dl, k, dt), W * k
         for integer in (True, False):
             adj, low = layers[integer]
+            if dt == "bf16":
+                low = low.to(torch.bfloat16)
             C_i, exp, q, heap = T(*_pca_pops(np, rng, B, W, N, dl, integer))
             c_w, th = C_i[:, :W], heap[:, -1]
             got = ops.fused_expand_rows(adj, low, c_w, exp, q, th, kk)
@@ -847,7 +896,13 @@ def check_pca_rows(torch, np, rng, T) -> dict:
             continue
         gated, rows = int(exp.sum()), _pca_needed_rows(torch, adj, c_w, exp)
         nops = rows * dl * 3 + B * (W * M0) ** 2
-        out[("fused_expand_rows", shape)] = dict(
+        isz = low.element_size()
+        calls = device_kernels(lambda: ops.fused_expand_rows(
+            adj, low, c_w, exp, q, th, kk))
+        need(calls == 1, f"fused_expand_rows{shape}: {calls} device "
+             "kernels a call")
+        key = shape[:-1] if dt == "f32" else shape
+        out[("fused_expand_rows", key)] = dict(
             max_abs_err=0.0,
             ms=graph_ms(lambda: ops.fused_expand_rows(adj, low, c_w, exp, q,
                                                       th, kk)),
@@ -857,13 +912,14 @@ def check_pca_rows(torch, np, rng, T) -> dict:
                 adj, low, c_w, exp, q, th, kk)),
             library_ms=graph_ms(lambda: _library_pca(
                 torch, ref, adj, low, c_w, exp, q, th, kk)),
-            bound=bound_ms(_pca_rows_bytes(B, W, M0, dl, kk, gated, rows),
-                           nops),
+            bound=bound_ms(_pca_rows_bytes(B, W, M0, dl, kk, gated, rows,
+                                           isz), nops),
             bound_gated_blocks_ms=bound_ms(_pca_rows_bytes(
-                B, W, M0, dl, kk, gated, gated * M0), nops)[0],
+                B, W, M0, dl, kk, gated, gated * M0, isz), nops)[0],
             bound_all_rows_ms=bound_ms(_pca_rows_bytes(
-                B, W, M0, dl, kk, B * W, B * W * M0), nops)[0],
-            gated_share=gated / (B * W), needed_row_share=rows / (B * W * M0))
+                B, W, M0, dl, kk, B * W, B * W * M0, isz), nops)[0],
+            gated_share=gated / (B * W), needed_row_share=rows / (B * W * M0),
+            device_kernels=calls)
     return out
 
 
@@ -933,23 +989,30 @@ def _library_filter(torch, x, q, k):
 
 
 def check_fused_filter(torch, np, rng, T) -> dict:
-    """fused_filter at the footprint bench's [64, 32, 15] k=16 and the
-    search's widths [1024, 32, 15] k=16 (timed), then edge rows (k = M,
-    k = 1, M = 100 over four lanes, B = 1), against the plain version:
+    """fused_filter at the footprint bench's [64, 32, 15] k=16 (timed on
+    f32 and bf16 rows, one device kernel a call) and the search's widths
+    [1024, 32, 15] k=16 (timed in f32), then edge rows (k = M, k = 1, M
+    = 100 over four lanes, B = 1, bf16 at dl = 16), against the plain
+    version:
     values and indices exact on integer inputs (ties by index: row 1 has
     all-equal distances); on float inputs distances to rtol 1e-5 / atol
     1e-3 and each returned index's plain distance equal to the returned
     one within the same tolerance (a near-tie may order two indices
     either way when the f32 sums round apart)."""
     from repro_torch.bench.kernel_footprint import (bound_ms,
+                                                    device_kernels,
                                                     fused_filter_cost,
                                                     graph_ms)
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.fused_filter import fused_filter_plan
     out = {}
-    for B, M, dl, k, timed in [(64, 32, 15, 16, True),
-                               (1024, 32, 15, 16, True),
-                               (64, 32, 15, 32, False), (64, 32, 15, 1, False),
-                               (8, 100, 4, 7, False), (1, 33, 15, 33, False)]:
+    for B, M, dl, k, timed, dt in [
+            (64, 32, 15, 16, True, "f32"), (64, 32, 15, 16, True, "bf16"),
+            (1024, 32, 15, 16, True, "f32"), (1024, 32, 15, 16, False, "bf16"),
+            (64, 32, 15, 32, False, "f32"), (64, 32, 15, 1, False, "f32"),
+            (8, 100, 4, 7, False, "f32"), (1, 33, 15, 33, False, "f32"),
+            (7, 100, 16, 9, False, "bf16")]:
         errs = []
         for integer in (True, False):
             if integer:
@@ -961,11 +1024,13 @@ def check_fused_filter(torch, np, rng, T) -> dict:
                 xn = rng.standard_normal((B, M, dl)).astype(np.float32)
                 qn = rng.standard_normal((B, dl)).astype(np.float32)
             x, q = T(xn, qn)
+            if dt == "bf16":
+                x = x.to(torch.bfloat16)
             gd, gi = ops.fused_filter(x, q, k)
             wd, wi = ref.fused_filter_ref(x, q, k)
             torch.cuda.synchronize()
             errs.append(float((gd - wd).abs().max()))
-            shape = (B, M, dl, k)
+            shape = (B, M, dl, k, dt)
             if integer:
                 need(torch.equal(gd, wd) and torch.equal(gi, wi),
                      f"fused_filter{shape}: differs on exact inputs")
@@ -977,13 +1042,21 @@ def check_fused_filter(torch, np, rng, T) -> dict:
                      f"fused_filter{shape}: an index's distance differs")
         if not timed:
             continue
-        cost = fused_filter_cost(B, M, dl, k)
-        out[("fused_filter", (B, M, dl, k))] = dict(
+        cost = fused_filter_cost(B, M, dl, k, x.element_size())
+        calls = device_kernels(lambda: ops.fused_filter(x, q, k))
+        need(calls == 1, f"fused_filter{shape}: {calls} device kernels a "
+             "call")
+        key = (B, M, dl, k) if dt == "f32" else (B, M, dl, k, "bf16")
+        out[("fused_filter", key)] = dict(
             max_abs_err=max(errs),
             ms=graph_ms(lambda: ops.fused_filter(x, q, k)),
             plain_ms=graph_ms(lambda: ref.fused_filter_ref(x, q, k)),
             library_ms=graph_ms(lambda: _library_filter(torch, x, q, k)),
-            bound=bound_ms(cost["bytes"], cost["ops"]))
+            bound=bound_ms(cost["bytes"], cost["ops"]),
+            plan=fused_filter_plan(
+                M, dl, x.data_ptr() % (4 * x.element_size()) == 0,
+                smem_optin(x.device)),
+            device_kernels=calls)
     return out
 
 
@@ -1305,13 +1378,35 @@ def ground_truth(torch, x, q, k: int, device: str, deleted=None):
 
 
 # the search arms at --n points: (name, filter kind, deferred,
-# rerank_mult, recall@10 floor). The pca arm calls search_batched with pca=;
-# the pq floor guards against a broken table (the tracked 8k value is
-# 0.923), the others are the sanity floor of the pca arm.
-ARMS = [("pca", "pca", False, None, 0.80),
-        ("pca-deferred", "pca", True, 3, 0.80),
-        ("pq", "pq", False, None, 0.60),
-        ("cascade-deferred", "cascade", True, 2, 0.80)]
+# rerank_mult, recall@10 floor, pca storage dtype). The pca arms call
+# search_batched with pca=; the pq floor guards against a broken table
+# (the tracked 8k value is 0.923), the others are the sanity floor of the
+# pca arm. The bf16 arms store layout (3) in bfloat16 and are held to
+# their f32 arm (BF16_ARMS).
+ARMS = [("pca", "pca", False, None, 0.80, "float32"),
+        ("pca-deferred", "pca", True, 3, 0.80, "float32"),
+        ("pq", "pq", False, None, 0.60, "float32"),
+        ("cascade-deferred", "cascade", True, 2, 0.80, "float32"),
+        ("pca-bf16", "pca", False, None, 0.80, "bfloat16"),
+        ("pca-deferred-bf16", "pca", True, 3, 0.80, "bfloat16")]
+# each bf16 arm's f32 twin: recall within BF16_RECALL of it (the
+# reference's bar for bf16 storage), bytes_layout3 below BF16_BYTES of it,
+# the same launches but for the trips the two arms' loops ran (a batch
+# stops at the first all-done check, every 8 trips, and bf16 distances
+# can latch a batch's queries a check earlier or later), and no cast
+# from or to bf16 in a batch (check_bf16_arms)
+BF16_ARMS = {"pca-bf16": "pca", "pca-deferred-bf16": "pca-deferred"}
+BF16_RECALL, BF16_BYTES = 0.02, 0.75
+# the pca arms' expand: one launch a trip, as trip_fold
+EXPAND = "fused_expand_rows"
+
+
+def per_trip_wrappers(deferred: bool) -> tuple:
+    """The wrappers a pca search launches once a trip (and a fixed number
+    of times a batch): the expand and the fold, and without deferral the
+    Dist.H of each trip's winners (plus the entry point's, once a
+    batch)."""
+    return (EXPAND, "trip_fold") + (() if deferred else ("dist_h",))
 # the kernels each arm's path must launch
 ARM_KERNELS = {
     "pca": ("fused_expand_rows", "trip_fold", "dist_h"),
@@ -1320,6 +1415,8 @@ ARM_KERNELS = {
     "cascade-deferred": ("pq_expand_rows", "trip_fold", "dist_h",
                          "dist_l"),
 }
+ARM_KERNELS.update({arm: ARM_KERNELS[twin]
+                    for arm, twin in BF16_ARMS.items()})
 PORTED = ("fused_expand", "merge_sorted", "dist_h", "dist_l",
           "pq_adc_expand", "ksort_l", "fused_filter", "flash_attention",
           "decode_attention", "trip_fold", "fused_expand_rows",
@@ -1365,18 +1462,20 @@ def run_search(torch, np, x, g, pca, filts, codes, q, gt, batch: int,
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     dbs, pack_s = {}, {}
     outs = []
-    for name, kind, deferred, rm, floor in ARMS:
-        if kind not in dbs:
+    for name, kind, deferred, rm, floor, low_dtype in ARMS:
+        key = (kind, low_dtype)
+        if key not in dbs:
             t0 = time.perf_counter()
             x_low = codes if kind != "pca" else \
                 pca.transform(x).astype(np.float32)
-            dbs[kind] = build_packed(
+            dbs[key] = build_packed(
                 g, x_low, filt=None if kind == "pca" else filts[kind],
+                low_dtype=low_dtype if kind == "pca" else None,
                 device=device)
             sync()
-            pack_s[kind] = time.perf_counter() - t0
-        db = dbs[kind]
-        kw = {"pca": pca} if name == "pca" else {
+            pack_s[key] = time.perf_counter() - t0
+        db = dbs[key]
+        kw = {"pca": pca} if kind == "pca" and not deferred else {
             "filt": filts[kind], "deferred": deferred, "rerank_mult": rm}
         search_batched(db, q[:batch], device=device, **kw)      # warm-up
         sync()
@@ -1397,21 +1496,26 @@ def run_search(torch, np, x, g, pca, filts, codes, q, gt, batch: int,
         prof = profile_batch(torch, lambda: search_batched(
             db, q[:batch], device=device, **kw)) \
             if device == "cuda" else None
+        casts = count_casts(torch, lambda: search_batched(
+            db, q[:batch], device=device, **kw)) \
+            if device == "cuda" else None
         outs.append({
             "phase": "search", "arm": name, "filter_kind": kind,
             "deferred": deferred, "rerank_mult": rm or 1,
             "promote_mult": g.cfg.promote_mult
             if (deferred and kind == "cascade") else 1,
+            "low_dtype": str(db.low.dtype).replace("torch.", ""),
             "n_points": len(x), "queries": len(q), "batch": batch,
             "seconds": secs, "qps": len(q) / secs,
             "recall_at_10": recall_at_10(fi, gt), "recall_floor": floor,
             "steps_mean": float(torch.cat(steps).float().mean()),
             "dist_h_mean": float(torch.cat(dhe).float().mean()),
-            "pack_seconds": pack_s[kind],
+            "pack_seconds": pack_s[key],
             "bytes_layout3": db.bytes_layout3,
             "bytes_layout4": db.bytes_layout4,
             "bytes_sidecar": db.bytes_sidecar,
-            "launches": counts, "profile_one_batch": prof})
+            "launches": counts, "casts_one_batch": casts,
+            "profile_one_batch": prof})
     return outs
 
 
@@ -1423,7 +1527,8 @@ SHARD_ARM_KERNELS = {arm: ks + ("ksort_l",)
 # many) before its PCA promote, so, like pq, its floor guards against a
 # broken table: the same 0.60 (PERF.md, § 2).
 SHARD_FLOORS = {"pca": 0.80, "pca-deferred": 0.80, "pq": 0.60,
-                "cascade-deferred": 0.60}
+                "cascade-deferred": 0.60, "pca-bf16": 0.80,
+                "pca-deferred-bf16": 0.80}
 
 
 def _arm_kwargs(cfg, kind, deferred, rm):
@@ -1434,17 +1539,24 @@ def _arm_kwargs(cfg, kind, deferred, rm):
 def build_sharded_dbs(torch, np, x, graphs, filts, codes, device,
                       deleted=None, kinds=("pca", "pq", "cascade")):
     """One ``ShardedDB`` per filter kind over the same shard graphs; the
-    PQ codes are encoded once and sliced per shard. Returns
-    ({kind: sdb}, {kind: seconds})."""
+    PQ codes are encoded once and sliced per shard. Kind "pca-bf16" is
+    the pca db stored in bfloat16 (the graphs' config with that
+    ``low_dtype``). Returns ({kind: sdb}, {kind: seconds})."""
+    import dataclasses
     from repro_torch.core.distributed import build_sharded, shard_bounds
     bounds = shard_bounds(len(x), len(graphs))
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sdbs, secs = {}, {}
     for kind in kinds:
         t0 = time.perf_counter()
-        pays = None if kind == "pca" else [codes[a:b] for a, b in bounds]
-        sdbs[kind] = build_sharded(x, graphs[0].cfg, filts[kind],
-                                   len(graphs), graphs=graphs,
+        pays = None if kind.startswith("pca") else \
+            [codes[a:b] for a, b in bounds]
+        gs, cfg = graphs, graphs[0].cfg
+        if kind == "pca-bf16":
+            cfg = dataclasses.replace(cfg, low_dtype="bfloat16")
+            gs = [dataclasses.replace(g, cfg=cfg) for g in graphs]
+        sdbs[kind] = build_sharded(x, cfg, filts[kind.split("-")[0]],
+                                   len(graphs), graphs=gs,
                                    payloads=pays, deleted=deleted,
                                    device=device)
         sync()
@@ -1475,8 +1587,9 @@ def run_sharded(torch, np, sdbs, filts, q, gt, batch: int, device: str,
     from repro_torch.kernels import ops
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     outs = []
-    for name, kind, deferred, rm, _ in ARMS:
-        sdb, filt = sdbs[kind], filts[kind]
+    for name, kind, deferred, rm, _, low_dtype in ARMS:
+        sdb = sdbs["pca-bf16" if low_dtype == "bfloat16" else kind]
+        filt = filts[kind]
         floor = SHARD_FLOORS[name]
         kw = _arm_kwargs(sdb.cfg, kind, deferred, rm)
         shard_search_host(sdb, q[:batch], filt=filt, device=device, **kw)
@@ -1494,6 +1607,9 @@ def run_sharded(torch, np, sdbs, filts, q, gt, batch: int, device: str,
         prof = profile_batch(torch, lambda: shard_search_host(
             sdb, q[:batch], filt=filt, device=device, **kw)) \
             if device == "cuda" else None
+        casts = count_casts(torch, lambda: shard_search_host(
+            sdb, q[:batch], filt=filt, device=device, **kw)) \
+            if device == "cuda" else None
         outs.append({
             "phase": "sharded", "arm": name, "filter_kind": kind,
             "deferred": deferred, "rerank_mult": rm or 1,
@@ -1502,10 +1618,15 @@ def run_sharded(torch, np, sdbs, filts, q, gt, batch: int, device: str,
             "queries": len(q), "batch": batch, "seconds": secs,
             "qps": len(q) / secs, "recall_at_10": recall_at_10(fi.numpy(),
                                                                gt),
-            "recall_floor": floor, "pack_seconds": pack_s[kind],
+            "recall_floor": floor,
+            "pack_seconds": pack_s["pca-bf16" if low_dtype == "bfloat16"
+                                   else kind],
+            "low_dtype": str(sdb.low.dtype).replace("torch.", ""),
+            "bytes_layout3": sum(sdb.shard_db(s).bytes_layout3
+                                 for s in range(sdb.n_shards)),
             "sharded_db_bytes": sdb.nbytes,
             "max_memory_allocated": peak, "launches": counts,
-            "profile_one_batch": prof})
+            "casts_one_batch": casts, "profile_one_batch": prof})
     return outs
 
 
@@ -1661,6 +1782,87 @@ def profile_batch(torch, fn, top: int = 10) -> dict:
                     for us, k, c in rows[:top]]}
 
 
+def count_casts(torch, fn) -> dict:
+    """One extra call of ``fn`` with every ATen op it dispatches seen on
+    the host: ``casts``, the copies that change a tensor's dtype
+    (``_to_copy``, and ``copy_`` between dtypes; on a CUDA tensor each is
+    a device kernel), ``bf16_casts``, those from or to bfloat16, and the
+    call's ``trips`` (``trip_fold`` launches). Counted where the op is
+    dispatched, so no event the profiler drops can hide one. The port's
+    kernels are called through ctypes and are not ATen ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels import ops
+    aten = torch.ops.aten
+    n = {"casts": 0, "bf16_casts": 0}
+    trips = ops.launch_counts()["trip_fold"]
+
+    class Casts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            pair = None
+            if func is aten._to_copy.default:
+                pair = (args[0].dtype, out.dtype)
+            elif func is aten.copy_.default \
+                    and isinstance(args[1], torch.Tensor):
+                pair = (args[1].dtype, args[0].dtype)
+            if pair is not None and pair[0] != pair[1]:
+                n["casts"] += 1
+                n["bf16_casts"] += int(torch.bfloat16 in pair)
+            return out
+
+    with Casts():
+        fn()
+    n["trips"] = ops.launch_counts()["trip_fold"] - trips
+    return n
+
+
+def check_bf16_arms(outs, phase: str) -> None:
+    """Each bf16 arm against its f32 twin (``BF16_ARMS``): recall@10
+    within ``BF16_RECALL``, ``bytes_layout3`` below ``BF16_BYTES`` of the
+    twin's, the same launches but for the loop's trips, and no cast in a
+    batch. A wrapper of ``per_trip_wrappers`` launches once a trip and a
+    fixed number of times a batch, so in each arm the expand launches as
+    often as ``trip_fold`` (one a trip), and each such wrapper's launches
+    less the arm's trips equal the twin's; every other wrapper launches
+    exactly as often as in the twin. On the card, the batch run by
+    ``count_casts`` casts nothing from or to bf16, and makes as many
+    casts as the twin's where the two ran as many trips (the CPU's plain
+    versions widen bf16 by a cast). Emits one line per arm."""
+    by = {o["arm"]: o for o in outs}
+    for arm, twin in BF16_ARMS.items():
+        b, f = by[arm], by[twin]
+        lb, lf = b["launches"], f["launches"]
+        line = {"phase": f"{phase}_bf16", "arm": arm, "twin": twin,
+                "recall_at_10": b["recall_at_10"],
+                "twin_recall_at_10": f["recall_at_10"],
+                "bytes_layout3": b["bytes_layout3"],
+                "twin_bytes_layout3": f["bytes_layout3"],
+                "bytes_ratio": b["bytes_layout3"] / f["bytes_layout3"],
+                "launches": lb, "twin_launches": lf,
+                "trips": lb["trip_fold"], "twin_trips": lf["trip_fold"],
+                "casts": b["casts_one_batch"],
+                "twin_casts": f["casts_one_batch"],
+                "qps": b["qps"], "twin_qps": f["qps"]}
+        emit(line)
+        need(abs(b["recall_at_10"] - f["recall_at_10"]) <= BF16_RECALL,
+             f"{phase} {arm}: recall {b['recall_at_10']} vs {twin}'s "
+             f"{f['recall_at_10']}")
+        need(line["bytes_ratio"] < BF16_BYTES,
+             f"{phase} {arm}: bytes_layout3 ratio {line['bytes_ratio']}")
+        per_trip = per_trip_wrappers(b["deferred"])
+        same = lb.keys() == lf.keys() and all(
+            lb[w] - lb["trip_fold"] == lf[w] - lf["trip_fold"]
+            if w in per_trip else lb[w] == lf[w] for w in lf)
+        one_a_trip = all(o["launches"][EXPAND] == o["launches"]["trip_fold"]
+                         for o in (b, f))
+        need(same and one_a_trip, f"{phase} {arm}: launches {lb} against "
+             f"{twin}'s {lf}")
+        cb, cf = line["casts"], line["twin_casts"]
+        need(cb is None or (cb["bf16_casts"] == 0 and (
+            cb["trips"] != cf["trips"] or cb["casts"] == cf["casts"])),
+             f"{phase} {arm}: {cb} casts in one batch, {twin} {cf}")
+
+
 # the 8k filter modes held card vs CPU: (filter kind, deferred,
 # rerank_mult), at the tracked bench's multipliers
 PARITY_MODES = {"pq": ("pq", False, None), "pq-deferred": ("pq", True, 3),
@@ -1769,6 +1971,21 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
                      st["dist_h_evals"].cpu()]
     bit = all(torch.equal(a, b) for a, b in zip(outs[device], outs["cpu"]))
     need(bit, "8k integer parity: card and CPU differ")
+    # the same with layout (3) stored in bf16, pca and pca-deferred
+    bf16 = {}
+    for mode, deferred in (("pca", False), ("pca-deferred", True)):
+        ob = {}
+        for dev in (device, "cpu"):
+            db = build_packed(gi, xli, low_dtype="bfloat16", device=dev)
+            fd, fi, st = search_batched(db, qi, qpi, deferred=deferred,
+                                        rerank_mult=3 if deferred else None,
+                                        return_stats=True, device=dev)
+            ob[dev] = [fd.cpu(), fi.cpu(), st["steps_per_layer"].cpu(),
+                       st["dist_h_evals"].cpu()]
+        bf16[mode] = all(torch.equal(a, b)
+                         for a, b in zip(ob[device], ob["cpu"]))
+        need(bf16[mode], f"8k bf16 {mode} integer parity: card and CPU "
+             "differ")
     wide = _wide_parity(torch, np, g, gi, cfg, pca, xl, xli, q, qi, qpi, gt,
                         device)
 
@@ -1806,7 +2023,9 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
               "ids_equal_frac": same,
               "dist_h_mean_card": float(card[2].mean()),
               "dist_h_mean_first64_card": dhe64,
-              "integer_bit_identical": bit, "wide": wide, "modes": modes,
+              "integer_bit_identical": bit,
+              "bf16_integer_bit_identical": bf16, "wide": wide,
+              "modes": modes,
               "sharded": _sharded_parity(torch, np, cfg, x, q, gt, filts,
                                          ifilts, seed, device)}
 
@@ -1899,6 +2118,7 @@ def _sharded_parity(torch, np, cfg, x, q, gt, filts, ifilts, seed: int,
     integer filters) bit-identical in ids, dists and coverage, with and
     without tombstones (1% of the points plus every query's nearest
     neighbour)."""
+    import dataclasses
     from repro_torch.core import filters
     from repro_torch.core.distributed import (build_sharded, shard_bounds,
                                               shard_search_host)
@@ -1956,6 +2176,33 @@ def _sharded_parity(torch, np, cfg, x, q, gt, filts, ifilts, seed: int,
         out["modes"][mode] = {"recall_card": rc, "recall_cpu": rh,
                               "ids_equal_frac": eq,
                               "integer_bit_identical": bits}
+    # layout (3) stored in bf16 (the graphs' config says so), pca and
+    # pca-deferred on the integer data, with and without tombstones
+    bcfg = dataclasses.replace(cfg, low_dtype="bfloat16")
+    bgraphs = [dataclasses.replace(g, cfg=bcfg) for g in igraphs]
+    out["bf16"] = {}
+    for mode in ("pca", "pca-deferred"):
+        kind, deferred, rm = SHARD_PARITY_MODES[mode]
+        kw = _arm_kwargs(cfg, kind, deferred, rm)
+        for tombs in (False, True):
+            got = {}
+            for dev in (device, "cpu"):
+                sdb = build_sharded(xi, bcfg, ifilts[kind], shards,
+                                    graphs=bgraphs,
+                                    deleted=deleted if tombs else None,
+                                    device=dev)
+                need(sdb.low.dtype == torch.bfloat16, "bf16 sharded db")
+                fd, fi, st = shard_search_host(
+                    sdb, qi, filt=ifilts[kind], live=[False, True, True,
+                                                      True][:shards]
+                    if tombs else None, return_stats=True, device=dev, **kw)
+                got[dev] = (fd.cpu(), fi.cpu(), st["coverage"])
+            ok = torch.equal(got[device][0], got["cpu"][0]) \
+                and torch.equal(got[device][1], got["cpu"][1]) \
+                and got[device][2] == got["cpu"][2]
+            out["bf16"][f"{mode} tombstones={tombs}"] = ok
+            need(ok, f"8k sharded bf16 {mode} integer parity "
+                 f"(tombstones={tombs}): card and CPU differ")
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2090,10 +2337,12 @@ def main(argv=None) -> int:
         need(sout["recall_at_10"] >= sout["recall_floor"],
              f"arm {arm}: recall@10 {sout['recall_at_10']} < "
              f"{sout['recall_floor']}")
+    check_bf16_arms(souts, "search")
 
     gt = ground_truth(torch, x, q, 10, "cuda")
-    sdbs, pack_s = build_sharded_dbs(torch, np, x, graphs, filts, codes,
-                                     "cuda")
+    sdbs, pack_s = build_sharded_dbs(
+        torch, np, x, graphs, filts, codes, "cuda",
+        kinds=("pca", "pq", "cascade", "pca-bf16"))
     del codes
     shouts = run_sharded(torch, np, sdbs, filts, q, gt, args.batch, "cuda",
                          pack_s)
@@ -2106,13 +2355,14 @@ def main(argv=None) -> int:
         need(sout["recall_at_10"] >= sout["recall_floor"],
              f"sharded arm {arm}: recall@10 {sout['recall_at_10']} < "
              f"{sout['recall_floor']}")
+    check_bf16_arms(shouts, "sharded")
     # the degraded and tombstone phases check properties, not rates: the
     # first four batches are enough
     nq = 4 * args.batch
     if P > 1:
         emit(run_degraded(torch, np, sdbs["pca"], filts["pca"], q[:nq],
                           args.batch, "cuda"))
-    del sdbs["pq"], sdbs["cascade"]
+    del sdbs["pq"], sdbs["cascade"], sdbs["pca-bf16"]
     for tout in run_tombstones(torch, np, x, graphs, filts, q[:nq], gt[:nq],
                                args.batch, "cuda", args.seed):
         emit(tout)

@@ -25,8 +25,9 @@ the CPU. ``--out`` writes the rows as JSON; it never writes
 ``BENCH_table3.json``.
 
 ``graph_ms`` and ``bound_ms`` are the one timer and the one bound of the
-port's measurements, and ``attention_excess`` the one attention
-tolerance of its checks (``chip_smoke.py`` uses them too)."""
+port's measurements, ``launch_floor_ms`` the floor under them (an empty
+kernel's replay), and ``attention_excess`` the one attention tolerance
+of its checks (``chip_smoke.py`` uses them too)."""
 from __future__ import annotations
 
 import argparse
@@ -79,20 +80,42 @@ def graph_ms(fn: Callable, reps: int = 20, replays: int = 10) -> float:
     return t0.elapsed_time(t1) / (reps * replays)
 
 
+def launch_floor_ms() -> float:
+    """``graph_ms`` of a kernel that does nothing (``csrc/empty.cu``, one
+    block of one warp): the least any kernel of the port costs in a CUDA
+    graph replay, the floor under every small kernel's time."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load("empty")
+    fn = lib.empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        _build.check(lib, "empty", fn(torch.cuda.current_stream()
+                                      .cuda_stream))
+    return graph_ms(launch)
+
+
 def device_kernels(fn: Callable) -> int:
     """Device-side operations (kernels, copies, sets) of one ``fn()``
-    call after a warm-up call, from ``torch.profiler``'s device
-    events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    call: the nodes of a CUDA graph that captures it, after a warm-up
+    call (libcuda's ``cuGraphGetNodes``; a profiler's trace can miss a
+    kernel of a few microseconds)."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-        torch.cuda.synchronize()
-    return sum(int(e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUDA error {err}")
+    return int(n.value)
 
 
 def bound_ms(nbytes: float, ops_: float,
@@ -159,10 +182,12 @@ def decode_cost(H: int, d: int, itemsize: int, lengths, T: int,
             + 4 * B, "ops": 4 * d * H * valid}
 
 
-def fused_filter_cost(B: int, M: int, dl: int, k: int) -> Dict[str, float]:
-    """The [B, M, dl] block, q and the (f32, int32) outputs; Dist.L's
-    3 operations per element and M compares per element's rank."""
-    return {"bytes": 4 * (B * M * dl + B * dl) + 8 * B * k,
+def fused_filter_cost(B: int, M: int, dl: int, k: int,
+                      itemsize: int = 4) -> Dict[str, float]:
+    """The [B, M, dl] block (``itemsize`` bytes an element: 4 f32, 2
+    bf16), the f32 q and the (f32, int32) outputs; Dist.L's 3 operations
+    per element and M compares per element's rank."""
+    return {"bytes": itemsize * B * M * dl + 4 * B * dl + 8 * B * k,
             "ops": 3 * B * M * dl + B * M * M}
 
 

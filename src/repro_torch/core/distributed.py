@@ -53,7 +53,8 @@ from repro_torch.core.search_torch import (PackedDB, PackedLayer,
                                            _gather_rows,
                                            _rank_sort_with_payload,
                                            _search_batched_impl,
-                                           build_packed, pack_bitmap)
+                                           build_packed, pack_bitmap,
+                                           tensor_from_numpy)
 from repro_torch.kernels import ops
 
 
@@ -166,7 +167,9 @@ def build_sharded(x: np.ndarray, cfg: PHNSWConfig, filt, n_shards: int, *,
     partition) skips the builds: graphs do not depend on the filter, so
     callers comparing filter kinds build once. ``payloads`` (per-shard
     ``filt.encode`` of each shard's rows) skips the encoding, so a PQ
-    filter's codes can be encoded once for every shard."""
+    filter's codes can be encoded once for every shard. A pca payload is
+    stored in the graphs' ``cfg.low_dtype`` (bfloat16 or float32), as
+    the reference stores it."""
     from repro_torch.core.filters import PCAFilter
     if isinstance(filt, PCA):
         filt = PCAFilter(filt, low_dtype=cfg.low_dtype)
@@ -215,8 +218,8 @@ def from_reference(sdb_np: dict, cfg: PHNSWConfig, *,
     numpy: ``{"adj": [..], "packed_low": [..], "low", "high",
     "entries", "offsets", "counts", "filter_kind"}`` and, where present,
     ``"deleted"`` and ``"low2"`` — so both engines search the very same
-    state."""
-    t = lambda a: torch.tensor(np.asarray(a), device=device)  # a copy
+    state (bfloat16 payloads included)."""
+    t = lambda a: tensor_from_numpy(a, device)
     opt = lambda key: None if sdb_np.get(key) is None else t(sdb_np[key])
     i32 = lambda key: np.asarray(sdb_np[key], np.int32)
     return ShardedDB(

@@ -23,16 +23,17 @@ B queries run Algorithm 1 together, as in the reference:
     bit-identical to an exit at the first all-done trip.
 
 The filter kinds are those of ``core/filters.py``: "pca" (Dist.L on
-float32 rows, the fused expand kernel), "pq" (uint8 ADC codes, the PQ
+float32 or bfloat16 rows, the fused expand kernel), "pq" (uint8 ADC codes, the PQ
 expand kernel), "cascade" (PQ codes inline, a PCA side-car ``low2`` for
 the promote stage) and "none" (the filter bypass). Re-ranking is per
 step or deferred: a deferred search traverses on filter distances only
 and re-ranks the final list with ONE batched Dist.H per query (the
 deferred cascade first trims a wider PQ-space list through ``dist_l``
 on the side-car rows). Tombstones (``PackedDB.deleted``, a word-packed
-bitmap) are traversed but never returned. bfloat16 low storage is not
-ported yet and raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+bitmap) are traversed but never returned. The pca payload is stored in
+``cfg.low_dtype`` (float32, or bfloat16 to halve the layout-(3) stream,
+rounded once when packed); the kernels read bfloat16 rows as they are
+and widen them, so distances are f32 either way.
 """
 from __future__ import annotations
 
@@ -56,11 +57,6 @@ from repro_torch.kernels.ref import tombstone_bit as _tombstone_bit
 DONE_CHECK_EVERY = 8
 
 
-def _todo(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
-
-
 @dataclass
 class PackedLayer:
     adj: torch.Tensor          # [N, M] int32, -1 padded
@@ -72,7 +68,8 @@ class PackedDB:
     """Device-resident database in the paper's layout (3).
 
     ``filter_kind`` says which filter stage the payload in ``low`` and
-    every ``packed_low`` belongs to: "pca" (dense float32 low-dim rows),
+    every ``packed_low`` belongs to: "pca" (dense low-dim rows, float32
+    or bfloat16),
     "pq" (uint8 ADC codes), "cascade" (uint8 ADC codes inline plus a PCA
     side-car) or "none" (zero-width payload: every neighbor goes
     straight to Dist.H).
@@ -141,18 +138,31 @@ def pack_bitmap(flags: np.ndarray) -> np.ndarray:
     return words.view(np.int32)
 
 
-_PAYLOAD_DTYPE = {"pca": "float32", "pq": "uint8", "cascade": "uint8",
-                  "none": "float32"}
+# the payload's storage dtypes per filter kind (the first is the
+# encoder's)
+_PAYLOAD_DTYPES = {"pca": ("float32", "bfloat16"), "pq": ("uint8",),
+                   "cascade": ("uint8",), "none": ("float32",)}
+_TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _check_slice(filter_kind: str, low_dtype: str) -> None:
-    if filter_kind not in _PAYLOAD_DTYPE:
+def _check_payload(filter_kind: str, low_dtype: str) -> None:
+    if filter_kind not in _PAYLOAD_DTYPES:
         raise ValueError(f"unknown filter kind {filter_kind!r}")
-    if filter_kind == "pca" and low_dtype != "float32":
-        raise _todo(f"low_dtype={low_dtype}", "A3")
-    if low_dtype != _PAYLOAD_DTYPE[filter_kind]:
+    if low_dtype not in _PAYLOAD_DTYPES[filter_kind]:
         raise ValueError(f"a {filter_kind!r} payload is "
-                         f"{_PAYLOAD_DTYPE[filter_kind]}, got {low_dtype}")
+                         f"{' or '.join(_PAYLOAD_DTYPES[filter_kind])}, "
+                         f"got {low_dtype}")
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A copy of numpy array ``a`` on ``device``. A bfloat16 array (the
+    ``ml_dtypes`` type JAX hands out) is carried bit for bit through its
+    uint16 view: ``torch.tensor`` refuses that dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.uint16), device=device) \
+            .view(torch.bfloat16)
+    return torch.tensor(a, device=device)
 
 
 def build_packed(g: HNSWGraph, x_low: Optional[np.ndarray] = None, *,
@@ -163,8 +173,10 @@ def build_packed(g: HNSWGraph, x_low: Optional[np.ndarray] = None, *,
     PCA filter); passing ``filt`` (a ``core.filters.FilterSpec``)
     instead encodes the payload from the filter and stamps its kind
     onto the db ("pca" assumed otherwise). ``low_dtype`` (default
-    ``g.cfg.low_dtype``) is the PCA payload's storage dtype and must be
-    float32 here; PQ codes always store uint8. ``drop_empty_layers``
+    ``g.cfg.low_dtype``) is the PCA payload's storage dtype, "float32" or
+    "bfloat16" (the f32 rows rounded once, to nearest even, as the
+    reference's ``jnp.asarray`` rounds them); PQ codes always store
+    uint8. ``drop_empty_layers``
     drops all-padding top layers (the level assignment rarely reaches
     ``cfg.n_layers``); pass False where layer counts must stay uniform
     (stacked shards). The neighbor-payload gather runs on ``device``."""
@@ -175,14 +187,16 @@ def build_packed(g: HNSWGraph, x_low: Optional[np.ndarray] = None, *,
         x_low = filt.encode(g.x)
     x_low = np.asarray(x_low)
     if fkind == "pca":
-        _check_slice(fkind, low_dtype or g.cfg.low_dtype)
-        x_low = x_low.astype(np.float32, copy=False)
+        dt = low_dtype or g.cfg.low_dtype
+        _check_payload(fkind, dt)
+        low = torch.as_tensor(x_low.astype(np.float32, copy=False),
+                              device=device).to(_TORCH_DTYPE[dt])
     else:
-        _check_slice(fkind, str(x_low.dtype))
+        _check_payload(fkind, str(x_low.dtype))
+        low = torch.as_tensor(x_low, device=device)
     adjs = list(g.layers)
     while drop_empty_layers and len(adjs) > 1 and not (adjs[-1] >= 0).any():
         adjs.pop()
-    low = torch.as_tensor(x_low, device=device)
     layers = []
     for adj in adjs:
         a = torch.as_tensor(np.asarray(adj, np.int32), device=device)
@@ -204,9 +218,10 @@ def from_reference(db_np: dict, cfg: PHNSWConfig, *,
     numpy: ``{"adj": [..], "packed_low": [..], "low", "high", "entry",
     "filter_kind"}`` and, where present, the cascade's ``"low2"`` and the
     tombstone words ``"deleted"`` — so both engines search the very same
-    state."""
-    _check_slice(db_np["filter_kind"], str(np.asarray(db_np["low"]).dtype))
-    t = lambda a: torch.tensor(np.asarray(a), device=device)  # a copy
+    state (bfloat16 arrays included)."""
+    _check_payload(db_np["filter_kind"],
+                   str(np.asarray(db_np["low"]).dtype))
+    t = lambda a: tensor_from_numpy(a, device)
     layers = [PackedLayer(adj=t(a).to(torch.int32), packed_low=t(p))
               for a, p in zip(db_np["adj"], db_np["packed_low"])]
     low2, deleted = db_np.get("low2"), db_np.get("deleted")

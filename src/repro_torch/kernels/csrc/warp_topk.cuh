@@ -10,6 +10,9 @@
 // (d_j == d_i and j < i)}, counted by broadcasting every d_j through warp
 // shuffles; ranks are a permutation of 0..M-1, so the lanes whose rank is
 // below k write slot `rank` directly: no sort network, no shared memory.
+// The 32 shuffles of each source register are unrolled with the j < M
+// test as a predicate (no break), so they issue back to back instead of
+// one shuffle latency after another.
 // Rows wider than the warp's tiers take block_topk.cuh, the same rank
 // count with the row in shared (or global) memory.
 #pragma once
@@ -38,14 +41,15 @@ __device__ __forceinline__ void write_topk(const float (&d)[PER_LANE],
 #pragma unroll
   for (int e2 = 0; e2 < PER_LANE; ++e2) {
     if (e2 * 32 >= M) break;  // uniform across the warp
+#pragma unroll
     for (int src = 0; src < 32; ++src) {
       const float dj = __shfl_sync(0xffffffffu, d[e2], src);
       const int j = e2 * 32 + src;
-      if (j >= M) break;      // uniform: j does not depend on the lane
+      const bool in = j < M;  // uniform: j does not depend on the lane
 #pragma unroll
       for (int e = 0; e < PER_LANE; ++e) {
         const int i = e * 32 + lane;
-        rank[e] += (dj < d[e]) || (dj == d[e] && j < i);
+        rank[e] += in & ((dj < d[e]) | ((dj == d[e]) & (j < i)));
       }
     }
   }

@@ -11,7 +11,11 @@ Same op names, signatures and sentinels as the reference. A CPU tensor
 takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
 launches the hand-written kernel, and a kernel that fails to build or
 launch raises — there is no switch and no fallback. Each CUDA wrapper
-counts its launches in a plain integer (``launch_counts``)."""
+counts its launches in a plain integer (``launch_counts``). The Dist.L
+ops (``dist_l``, ``fused_filter``, ``fused_expand``,
+``fused_expand_rows``) take f32 or bf16 rows as they are, on either
+device: the kernels widen them in registers, as the TPU kernels do, and
+any other payload dtype raises."""
 from __future__ import annotations
 
 from typing import Dict
@@ -21,6 +25,7 @@ import torch
 from repro_torch.constants import VALID_MAX  # noqa: F401  (re-export:
 # callers of fused_expand test returned vals against this sentinel)
 from repro_torch.kernels import ref
+from repro_torch.kernels._launch import check_payload
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.dist_h import dist_h_cuda
 from repro_torch.kernels.dist_l import dist_l_cuda
@@ -70,10 +75,11 @@ def _on_cuda(*ts) -> bool:
 
 
 def dist_l(x, q):
-    """x: [B, M, dl]; q: [B, dl] -> [B, M] f32 squared distances."""
+    """x: [B, M, dl] f32 or bf16; q: [B, dl] -> [B, M] f32 squared
+    distances."""
+    check_payload(x, "dist_l: x")
     if _on_cuda(x, q):
-        return dist_l_cuda(x.to(torch.float32).contiguous(),
-                           q.to(torch.float32).contiguous())
+        return dist_l_cuda(x.contiguous(), q.to(torch.float32).contiguous())
     return ref.dist_l_ref(x, q)
 
 
@@ -98,13 +104,14 @@ def dist_h(x, q):
 
 def fused_filter(x, q, k: int):
     """pHNSW step 2 with no mask and no threshold: Dist.L + kSort.L.
-    x: [B, M, dl]; q: [B, dl] -> (vals [B, k] ascending, idx [B, k]
-    int32). k must not exceed M (the reference would leave slots
-    M..k-1 as (0.0, 0))."""
+    x: [B, M, dl] f32 or bf16; q: [B, dl] -> (vals [B, k] ascending,
+    idx [B, k] int32). k must not exceed M (the reference would leave
+    slots M..k-1 as (0.0, 0))."""
     if k > x.shape[1]:
         raise ValueError(f"fused_filter: k={k} exceeds M={x.shape[1]}")
+    check_payload(x, "fused_filter: x")
     if _on_cuda(x, q):
-        return fused_filter_cuda(x.to(torch.float32).contiguous(),
+        return fused_filter_cuda(x.contiguous(),
                                  q.to(torch.float32).contiguous(), k)
     return ref.fused_filter_ref(x, q, k)
 
@@ -112,14 +119,15 @@ def fused_filter(x, q, k: int):
 def fused_expand(x, q, valid, th, k: int):
     """One traversal expansion's full filter stage (Dist.L + validity
     mask + C_pca threshold + kSort.L) in a single kernel.
-    x: [B, M, dl]; q: [B, dl]; valid: [B, M] bool; th: [B] f32.
-    Returns (vals [B, k] ascending, idx [B, k]); filtered-out slots get
-    vals >= VALID_MAX. k must not exceed M (the reference would leave
+    x: [B, M, dl] f32 or bf16; q: [B, dl]; valid: [B, M] bool; th: [B]
+    f32. Returns (vals [B, k] ascending, idx [B, k]); filtered-out slots
+    get vals >= VALID_MAX. k must not exceed M (the reference would leave
     slots M..k-1 as (0.0, 0))."""
     if k > x.shape[1]:
         raise ValueError(f"fused_expand: k={k} exceeds M={x.shape[1]}")
+    check_payload(x, "fused_expand: x")
     if _on_cuda(x, q, valid, th):
-        return fused_expand_cuda(x.to(torch.float32).contiguous(),
+        return fused_expand_cuda(x.contiguous(),
                                  q.to(torch.float32).contiguous(),
                                  valid.to(torch.bool).contiguous(),
                                  th.to(torch.float32).contiguous(), k)
@@ -130,9 +138,9 @@ def fused_expand_rows(adj, packed_low, c_w, exp, q, th, k: int):
     """The pca traversal's expand with its row gathers fused: for the W
     popped ids ``c_w`` [B, W] (a strided view is read in place) and their
     gates ``exp`` [B, W] bool, the layer's ``adj`` [N, M0] and layout-(3)
-    ``packed_low`` [N, M0, dl] f32 give the W * M0 neighbour slots of
-    each row (a gated-off slot reads row 0 and is masked, as is a -1
-    neighbour; a -1 pop with its gate set reads node 0, as the
+    ``packed_low`` [N, M0, dl] f32 or bf16 give the W * M0 neighbour
+    slots of each row (a gated-off slot reads row 0 and is masked, as is
+    a -1 neighbour; a -1 pop with its gate set reads node 0, as the
     reference's clamp); Dist.L against ``q`` [B, dl], the C_pca threshold
     ``th`` [B] (a column view is read in place), kSort.L. Returns (kv
     [B, k] ascending, cand [B, k] int32 neighbour ids); filtered-out
@@ -141,6 +149,7 @@ def fused_expand_rows(adj, packed_low, c_w, exp, q, th, k: int):
     if k > W * M0:
         raise ValueError(f"fused_expand_rows: k={k} exceeds W * M0 = "
                          f"{W * M0}")
+    check_payload(packed_low, "fused_expand_rows: packed_low")
     if _on_cuda(adj, packed_low, c_w, exp, q, th):
         c_w = c_w.to(torch.int32)
         if c_w.stride(1) != 1:

@@ -194,3 +194,27 @@ def test_attention_excess_rows_without_keys_must_be_exact():
     assert kf.attention_excess(got, want) == 0.0
     got[0, 1, 2, 3] = 1e-3
     assert kf.attention_excess(got, want) == float("inf")
+
+
+def test_dist_l_designs_tile_plans():
+    """The tile design's launches timed beside dist_l's: a tile of rows
+    over SMs in whole warps (one wave), then the fixed tiles that fit the
+    rows, each with at most 256 threads and enough blocks for every
+    row."""
+    from repro_torch.bench import dist_l_designs as dd
+    assert [p["tile"] for p in dd.tile_plans(1024 * 60, 132)] == \
+        [480, 128, 240, 960]
+    assert [p["tile"] for p in dd.tile_plans(64 * 32, 132)] == \
+        [32, 128, 240, 960]
+    assert [p["tile"] for p in dd.tile_plans(100, 132)] == [32, 128]
+    for rows in (1024, 1024 * 60, 64 * 32, 100):
+        for p in dd.tile_plans(rows, 132):
+            assert p["threads"] == min(256, -(-p["tile"] // 32) * 32)
+            assert (p["grid"] - 1) * p["tile"] < rows <= p["grid"] * p["tile"]
+
+
+def test_dist_l_designs_refuses_without_cuda(monkeypatch):
+    from repro_torch.bench import dist_l_designs as dd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dd.main([])

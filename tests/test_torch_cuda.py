@@ -24,6 +24,10 @@ def cuda():
     return torch.device("cuda")
 
 
+# the payload types of the Dist.L kernels
+PAYLOADS = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
 def _t(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in arrays]
@@ -649,13 +653,15 @@ def test_fused_expand_rows_matches_unfused(cuda, W, layout):
         assert bool((d[2] < INF).any())
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("B,M,dl,k", [(1024, 32, 15, 16), (64, 32, 15, 16),
                                       (1024, 64, 15, 32), (512, 160, 15, 40),
                                       (256, 96, 16, 7)])
-def test_filter_bodies_match_plain(cuda, B, M, dl, k):
-    """fused_expand and fused_filter, which read their gathered block in
-    place, equal to their plain versions on integer rows in the warp
-    and block tiers, at an odd and an even dl."""
+def test_filter_bodies_match_plain(cuda, B, M, dl, k, dtype):
+    """fused_expand (its gathered block read in place) and fused_filter
+    equal to their plain versions on integer rows in the warp and block
+    tiers, at an odd and an even dl, on f32 rows and on the same values
+    in bf16 (equal to the f32 results too)."""
     from repro_torch.kernels.fused_filter import (fused_expand_cuda,
                                                   fused_filter_cuda)
     rng = np.random.default_rng(B + M + dl)
@@ -664,12 +670,17 @@ def test_filter_bodies_match_plain(cuda, B, M, dl, k):
     valid = rng.random((B, M)) < 0.8
     th = np.where(rng.random(B) < 0.5, 2.0 * dl, INF).astype(np.float32)
     tx, tq, tv, tt = _t(cuda, x, q, valid, th)
-    for got, plain in (
-            (fused_expand_cuda(tx, tq, tv, tt, k),
+    tb = tx.to(PAYLOADS[dtype])
+    for got, plain, f32 in (
+            (fused_expand_cuda(tb, tq, tv, tt, k),
+             ref.fused_expand_ref(tb, tq, tv, tt, k),
              ref.fused_expand_ref(tx, tq, tv, tt, k)),
-            (fused_filter_cuda(tx, tq, k), ref.fused_filter_ref(tx, tq, k))):
+            (fused_filter_cuda(tb, tq, k), ref.fused_filter_ref(tb, tq, k),
+             ref.fused_filter_ref(tx, tq, k))):
         torch.cuda.synchronize()
-        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        for want in (plain, f32):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("M", [160, 256])
@@ -796,3 +807,202 @@ def test_wide_search_and_build_card_equals_cpu(cuda, W, mode):
             out[d] += [pd.cpu(), pi.cpu()]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b)
+
+
+# ------------- the Dist.L kernels on f32 and bf16 rows ----------------------
+
+def _int_rows(rng, shape, lo=-64, hi=64):
+    """Integer rows, exact in bf16 (|v| <= 256) and in every f32 sum."""
+    return rng.integers(lo, hi, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(PAYLOADS))
+@pytest.mark.parametrize("K", [1, 60, 128])
+@pytest.mark.parametrize("dl", [8, 15, 16, 32])
+def test_dist_l_payloads_match_plain(cuda, dtype, K, dl):
+    """dist_l on f32 and bf16 rows: an odd B (rows that are no multiple of
+    a warp's or a block's), exact on integer rows, for the widths with a
+    compile-time loop (15, 16) and the runtime one (8, 32); a bf16 call
+    is one device kernel (no cast before it); a table viewed one element
+    in (rows off 16-byte alignment) gives the same bits; float rows to
+    rtol 1e-5 / atol 1e-3."""
+    rng = np.random.default_rng(K * 100 + dl)
+    B, dt = 1023, PAYLOADS[dtype]
+    x = _int_rows(rng, (B * K * dl + 1,))
+    q = _int_rows(rng, (B, dl))
+    tflat, tq = _t(cuda, x, q)
+    tflat = tflat.to(dt)
+    for off in (0, 1):
+        tx = tflat[off:off + B * K * dl].view(B, K, dl)
+        before = ops.launch_counts()["dist_l"]
+        got = ops.dist_l(tx, tq)
+        want = ref.dist_l_ref(tx, tq)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["dist_l"] == before + 1
+        assert torch.equal(got, want)
+    assert kf.device_kernels(lambda: ops.dist_l(tx, tq)) == 1
+    xf = torch.randn(B, K, dl, device=cuda).to(dt)
+    qf = torch.randn(B, dl, device=cuda)
+    torch.testing.assert_close(ops.dist_l(xf, qf), ref.dist_l_ref(xf, qf),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", list(PAYLOADS))
+@pytest.mark.parametrize("B,M,dl,k", [(64, 32, 15, 16), (1023, 32, 15, 16),
+                                      (63, 60, 8, 7), (65, 128, 16, 128),
+                                      (7, 100, 32, 1), (33, 33, 15, 33),
+                                      (5, 128, 120, 16),
+                                      (512, 160, 15, 40)])
+def test_fused_filter_payloads_match_plain(cuda, dtype, B, M, dl, k):
+    """fused_filter on f32 and bf16 rows in every launch its plan takes
+    for real inputs: the staged warp tier with chunk loads (an aligned
+    table, M * dl a multiple of 4) or element loads (M * dl odd, or the
+    table viewed one element in), the in-place warp body where the
+    slices do not fit (128 slots of 120) and the in-place block tier (160
+    slots); values and indices exact on integer rows (row 1: all-equal
+    distances, ties by index); a bf16 call is one device kernel."""
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.fused_filter import fused_filter_plan
+    rng = np.random.default_rng(B + M + dl + k)
+    x = _int_rows(rng, (B * M * dl + 1,), 0, 8)
+    x[M * dl:2 * M * dl] = np.tile(x[:dl], M)
+    q = _int_rows(rng, (B, dl), 0, 8)
+    tflat, tq = _t(cuda, x, q)
+    tflat = tflat.to(PAYLOADS[dtype])
+    fits = 16 * ((dl + 3) // 4 * 4 + (M * (dl | 1) + 3) // 4 * 4) \
+        <= smem_optin(cuda)
+    for off in (0, 1):
+        tx = tflat[off:off + B * M * dl].view(B, M, dl)
+        plan = fused_filter_plan(
+            M, dl, tx.data_ptr() % (4 * tx.element_size()) == 0,
+            smem_optin(cuda))
+        assert plan["staged"] == (M <= 128 and fits)
+        assert plan["vec"] == int(plan["staged"] and off == 0
+                                  and (M * dl) % 4 == 0)
+        want = ref.fused_filter_ref(tx, tq, k)
+        before = ops.launch_counts()["fused_filter"]
+        got = ops.fused_filter(tx, tq, k)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_filter"] == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kf.device_kernels(lambda: ops.fused_filter(tx, tq, k)) == 1
+
+
+# (dl, base offset in elements) of the bf16 pca rows: dl = 15 on an
+# aligned table (16-byte copies of the dense 960-byte blocks, at most
+# two-way bank conflicts), the same table one element in (rows 2 bytes
+# into a word: no cp.async copy, read in place), dl = 16 (4-byte copies
+# at the stride 18, an odd number of words), dl = 18 (dense 16-byte
+# copies, 9 words a row)
+BF16_ROWS_LAYOUTS = {"dl15": (15, 0), "dl15_misaligned": (15, 1),
+                     "dl16": (16, 0), "dl18": (18, 0)}
+
+
+@pytest.mark.parametrize("layout", list(BF16_ROWS_LAYOUTS))
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+def test_fused_expand_rows_bf16_matches_unfused(cuda, W, layout):
+    """The pca expand on a bf16 layer: bit for bit against the unfused
+    path on the same bf16 rows (index_select, fused_expand, id gather),
+    against its plain version on integer rows, and against itself on the
+    rows widened to f32; staged as ``filter_plan`` says; one launch and
+    one device kernel a call (no cast)."""
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.fused_filter import filter_plan
+    dl, offset = BF16_ROWS_LAYOUTS[layout]
+    B, M0, k = 1024, 32, 16
+    for integer in (True, False):
+        rng = np.random.default_rng(W + 10 * offset + dl + integer + 7)
+        adj, flat, C_i, exp, q, heap = _t(
+            cuda, *_pca_rows_case(rng, B, W, dl, offset, integer))
+        N = adj.shape[0]
+        low = flat.to(torch.bfloat16)[offset:].view(N, M0, dl)
+        c_w, th, kk = C_i[:, :W], heap[:, -1], W * k
+        c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+        nb_i = adj.index_select(0, c_safe).reshape(B, W * M0)
+        nb_mask = (nb_i >= 0) & exp.repeat_interleave(M0, dim=1)
+        nb_pay = low.index_select(0, c_safe).reshape(B, W * M0, dl)
+        ud, ui = ops.fused_expand(nb_pay, q, nb_mask, th, kk)
+        ucand = torch.gather(nb_i, 1, ui.long())
+        plan = filter_plan(W, M0, dl, low.data_ptr() % 16 == 0,
+                           smem_optin(adj.device), 2,
+                           low.data_ptr() % 4 == 0)
+        assert plan["staged"] == (layout != "dl15_misaligned")
+        before = ops.launch_counts()["fused_expand_rows"]
+        d, c = ops.fused_expand_rows(adj, low, c_w, exp, q, th, kk)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_expand_rows"] == before + 1
+        assert torch.equal(_bits(d), _bits(ud)) and torch.equal(c, ucand)
+        wd, wc = ops.fused_expand_rows(adj, low.float(), c_w, exp, q, th,
+                                       kk)
+        assert torch.equal(_bits(d), _bits(wd)) and torch.equal(c, wc)
+        if integer:
+            pd, pc = ref.fused_expand_rows_ref(adj, low, c_w, exp, q, th,
+                                               kk)
+            assert torch.equal(_bits(d), _bits(pd)) and torch.equal(c, pc)
+    assert kf.device_kernels(lambda: ops.fused_expand_rows(
+        adj, low, c_w, exp, q, th, kk)) == 1
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("shards", [1, 3])
+def test_bf16_search_card_equals_cpu(cuda, deferred, shards):
+    """The pca search with bf16 layout-(3) rows, single-shard and
+    sharded (three shards, a remainder split, shard 0 dead too): on
+    integer data ids, dists, steps, Dist.H counts and coverage are
+    bit-identical on the card and on the CPU; bf16 holds those integers
+    exactly, so they also equal the f32 search's; on float data (PCA
+    rows rounded to bf16) the card and the CPU agree as the f32 arms
+    do."""
+    import dataclasses
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.core import distributed, filters, search_torch
+    from repro_torch.core.graph import build_hnsw
+    from repro_torch.core.pca import fit_pca
+    rng = np.random.default_rng(8)
+    n = 1501
+    x = rng.integers(0, 8, (n, 16)).astype(np.float32)
+    q = rng.integers(0, 8, (64, 16)).astype(np.float32)
+    cfg = PHNSWConfig(name="int1501", n_points=n, dim=16, d_low=4, M=8,
+                      M0=16, ef_construction=32, wave_size=256,
+                      low_dtype="bfloat16")
+    bounds = distributed.shard_bounds(n, shards)
+    graphs = [build_hnsw(x[a:b], cfg, seed=2 + s, device="cpu")
+              for s, (a, b) in enumerate(bounds)]
+    filt = filters.from_reference("pca", {
+        "mean": np.zeros(16, np.float32),
+        "components": np.eye(16, 4, dtype=np.float32),
+        "explained": np.full(4, 0.25, np.float32)})
+    fpca = filters.PCAFilter(fit_pca(x + rng.random(x.shape, np.float32),
+                                     4))
+    kw = dict(deferred=deferred, rerank_mult=3 if deferred else None,
+              return_stats=True)
+
+    def run(d, c, f, xx):
+        gs = [dataclasses.replace(g, cfg=c, x=xx[a:b])
+              for g, (a, b) in zip(graphs, bounds)]
+        if shards == 1:
+            db = search_torch.build_packed(gs[0], filt=f, device=d)
+            assert db.low.dtype == search_torch._TORCH_DTYPE[c.low_dtype]
+            fd, fi, st = search_torch.search_batched(db, q, filt=f,
+                                                     device=d, **kw)
+            return [fd.cpu(), fi.cpu(), st["steps_per_layer"].cpu(),
+                    st["dist_h_evals"].cpu()]
+        sdb = distributed.build_sharded(xx, c, f, shards, graphs=gs,
+                                        device=d)
+        out = []
+        for live in (None, [False, True, True]):
+            fd, fi, st = distributed.shard_search_host(
+                sdb, q, filt=f, live=live, device=d, **kw)
+            out += [fd.cpu(), fi.cpu(), st["coverage"]]
+        return out
+
+    f32 = dataclasses.replace(cfg, low_dtype="float32")
+    got = {d: run(d, cfg, filt, x) for d in ("cuda", "cpu")}
+    for a, b, c in zip(got["cuda"], got["cpu"], run("cuda", f32, filt, x)):
+        for y in (b, c):
+            assert torch.equal(a, y) if isinstance(a, torch.Tensor) \
+                else a == y
+    xf = x + rng.random(x.shape).astype(np.float32)
+    fl = {d: run(d, cfg, fpca, xf) for d in ("cuda", "cpu")}
+    ids_c, ids_h = fl["cuda"][1].numpy(), fl["cpu"][1].numpy()
+    assert float((ids_c == ids_h).all(1).mean()) >= 0.95

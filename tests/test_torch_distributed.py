@@ -167,6 +167,46 @@ def test_shard_search_host_bit_equal(int_shards, P, mode, tombs):
             assert torch.equal(si, ti) and torch.equal(sd, td)
 
 
+@pytest.mark.parametrize("mode", ["pca", "pca-deferred"])
+def test_bf16_shard_search_host_bit_equal(int_shards, mode):
+    """low_dtype="bfloat16" at P = 4: the stacked bf16 payloads carry the
+    reference's bits (built by the port and carried over by
+    ``from_reference``), and ``shard_search_host`` is bit-equal to
+    ``repro.core.distributed``'s in ids, dists and the coverage stats,
+    with every shard live and with one shard dead."""
+    kind, deferred, rm = MODES[mode]
+    cfg, x, q, deleted, graphs = int_shards
+    cfg = dataclasses.replace(cfg, low_dtype="bfloat16")
+    gs = [dataclasses.replace(g, cfg=cfg) for g in graphs[4]]
+    rfilt, tfilt = _filters(kind)
+    rcfg, rgraphs = _ref_graphs(cfg, gs)
+    rsdb = rdist.build_sharded(x, rcfg, rfilt, 4, graphs=rgraphs,
+                               deleted=deleted)
+    tsdb = tdist.build_sharded(x, cfg, tfilt, 4, graphs=gs, deleted=deleted,
+                               device="cpu")
+    want = _ref_arrays(rsdb)
+    back = tdist.from_reference(want, cfg, device="cpu")
+    for own in (tsdb, back):
+        for a, b in zip(own.packed_low + [own.low], want["packed_low"]
+                        + [want["low"]]):
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_array_equal(a.view(torch.int16).numpy(),
+                                          b.view(np.int16))
+    one_dead = np.ones(4, bool)
+    one_dead[2] = False
+    for live in (None, one_dead):
+        jd, ji, js = rdist.shard_search_host(
+            rsdb, jnp.asarray(q), filt=rfilt, deferred=deferred,
+            rerank_mult=rm, live=live, return_stats=True)
+        for sdb in (tsdb, back):
+            td, ti, ts = tdist.shard_search_host(
+                sdb, q, filt=tfilt, deferred=deferred, rerank_mult=rm,
+                live=live, return_stats=True, device="cpu")
+            np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+            np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+            _assert_stats_equal(ts, js)
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 def test_one_shard_equals_search_batched(int_shards, mode):
     """P=1: the merge is the identity and the global promote / re-rank

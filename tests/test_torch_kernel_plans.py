@@ -11,13 +11,22 @@ imports no jax).
   chunk, at most ``MAX_SPLIT`` chunks per (b, h), the shared
   memory within an H100's 227 KB and equal to ``smem_bytes``, a copy
   mode each address and row width allows; merging the chunks' softmax
-  states in rank order gives the plain version's result."""
+  states in rank order gives the plain version's result.
+* ``dist_l.dist_l_plan``: a thread a row, blocks of whole warps that
+  cover every row once, narrower where that gives more SMs a block.
+* The pca expand's staging (``fused_filter.stage_layout``) and
+  ``fused_filter_plan``: the shared-memory row stride each picks keeps
+  the 32 lanes' reads of a column in distinct banks wherever the row is
+  a whole number of words (at most two-way conflicts for a bf16 row of
+  odd width), and the copies need only the alignment they are given."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.constants import INF
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import dist_l as dlk
+from repro_torch.kernels import fused_filter as ff
 from repro_torch.kernels import ksort_l as ks
 from repro_torch.kernels import ref
 from repro_torch.kernels.merge_sorted import staged_plan
@@ -209,3 +218,113 @@ def test_decode_chunks_merge_to_the_plain_version(T, d, lengths):
     want = ref.decode_attention_ref(q, k, v, ln)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert bool((got[ln <= 0] == 0).all())
+
+
+# ------------------------- dist_l's launch -----------------------------------
+
+SMS = 132                  # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("rows", [1, 31, 1024, 2048, 4223, 16896, 61440,
+                                  1023 * 128, 10 ** 7])
+def test_dist_l_plan_covers_the_rows(rows):
+    """A thread a row: the grid covers every row once, blocks of whole
+    warps, 64 to 128 threads, narrower than 128 only while that gives
+    more SMs a block."""
+    lo, hi = dlk.THREADS
+    plan = dlk.dist_l_plan(rows, SMS)
+    t = plan["threads"]
+    assert t % 32 == 0 and lo <= t <= hi
+    assert plan["grid"] == -(-rows // t) and (plan["grid"] - 1) * t < rows
+    if t < hi:
+        assert -(-rows // (t + 32)) < SMS
+
+
+def test_dist_l_plan_at_the_main_path():
+    """The cascade's promote pool [1024, 60, 15]: 480 blocks of 128; the
+    deferred entry score [1024, 1, 15] and the footprint's [64, 32, 15]:
+    two warps a block, 16 and 32 blocks."""
+    assert dlk.dist_l_plan(1024 * 60, SMS) == {"threads": 128, "grid": 480}
+    assert dlk.dist_l_plan(1024, SMS) == {"threads": 64, "grid": 16}
+    assert dlk.dist_l_plan(64 * 32, SMS) == {"threads": 64, "grid": 32}
+
+
+# --------------------- the pca expand's staging, fused_filter ----------------
+
+def _bank_ways(rw: int, itemsize: int, dl: int) -> int:
+    """The most distinct 4-byte words one bank serves when lanes l =
+    0..31 read element c of rows l at a stride of rw elements, over c."""
+    worst = 1
+    for c in range(dl):
+        words = {(l * rw + c) * itemsize // 4 for l in range(32)}
+        per_bank = {}
+        for w in words:
+            per_bank.setdefault(w % 32, set()).add(w)
+        worst = max(worst, max(len(v) for v in per_bank.values()))
+    return worst
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("dl", [1, 2, 3, 4, 8, 15, 16, 18, 30, 32, 128])
+def test_stage_layout_keeps_the_lanes_apart(dl, itemsize):
+    """16-byte copies of the dense block where every block is aligned,
+    4-byte copies of word rows at a padded stride, or none; whatever is
+    picked, a row that is a whole number of words is read by the 32 lanes
+    from 32 distinct banks, a bf16 row of odd width with at most two-way
+    conflicts."""
+    M0 = 32
+    for aligned, word_aligned in ((True, True), (False, True),
+                                  (False, False)):
+        copy, rw = ff.stage_layout(M0, dl, itemsize, aligned, word_aligned)
+        rb = dl * itemsize
+        if copy == 0:
+            assert rb % 4 != 0 or not word_aligned
+            assert not aligned or (M0 * rb) % 16 != 0
+            continue
+        assert rw >= dl
+        if copy == 16:
+            assert aligned and rw == dl and (M0 * rb) % 16 == 0
+        else:
+            assert copy == 4 and rb % 4 == 0 and word_aligned
+            assert (rw * itemsize) % 4 == 0
+        assert _bank_ways(rw, itemsize, dl) <= (1 if rb % 4 == 0 else 2)
+    # f32 keeps the rule it had: 16-byte copies at odd dl, else dl | 1
+    if itemsize == 4:
+        assert ff.stage_layout(M0, dl, 4, True) == \
+            ((16, dl) if dl % 2 else (4, dl | 1))
+
+
+def test_filter_plan_bf16_at_the_main_path():
+    """The bf16 pca expand at W = 1, M0 = 32, dl = 15: the 960-byte
+    blocks by 16-byte copies, dense, a warp's area half the f32 one's; a
+    table off 16-byte alignment is read in place; dl = 16 takes 4-byte
+    copies at the stride 18 (nine words)."""
+    plan = ff.filter_plan(1, 32, 15, True, OPTIN, 2)
+    assert plan["staged"] and (plan["copy"], plan["rw"]) == (16, 15)
+    assert ff.stage_words(1, 32, 15, 15, 2) == 16 + 240
+    assert plan["smem"] == 4 * 4 * (16 + 240)
+    off = ff.filter_plan(1, 32, 15, False, OPTIN, 2, False)
+    assert not off["staged"] and off["smem"] == 0
+    even = ff.filter_plan(1, 32, 16, True, OPTIN, 2)
+    assert (even["copy"], even["rw"]) == (4, 18)
+
+
+@pytest.mark.parametrize("M,dl,aligned,vec", [
+    (32, 15, True, 1), (32, 15, False, 0), (33, 15, True, 0),
+    (33, 16, True, 1), (100, 7, True, 1), (128, 32, True, 1)])
+def test_fused_filter_plan_stages_the_warp_tier(M, dl, aligned, vec):
+    """Up to 128 slots the staged warp tier: f32 rows at the odd stride dl
+    | 1 in four warps' slices; chunk loads (``vec``) where every row's
+    block starts on a four-element boundary; past 128 slots, or where the
+    slices pass the card's limit, the tiers read in place."""
+    plan = ff.fused_filter_plan(M, dl, aligned, OPTIN)
+    assert plan["staged"] and plan["tier"] == "warp"
+    assert plan["rw"] == dl | 1 and plan["vec"] == vec
+    assert plan["smem"] == 4 * ff.WARPS_PER_BLOCK * (
+        -(-dl // 4) * 4 + -(-M * (dl | 1) // 4) * 4)
+    assert plan["per_lane"] == ff.expand_plan(M, OPTIN)["per_lane"]
+    assert _bank_ways(plan["rw"], 4, dl) == 1
+    wide = ff.fused_filter_plan(160, dl, aligned, OPTIN)
+    assert wide["tier"] == "block" and not wide["staged"]
+    big = ff.fused_filter_plan(128, 512, aligned, OPTIN)
+    assert big["tier"] == "warp" and not big["staged"]

@@ -407,6 +407,77 @@ def test_mixed_devices_raise():
         ops.dist_h(x, q)
 
 
+# ------------------------- bf16 rows vs the Pallas kernels -------------------
+
+# tests/test_kernels.py's shapes of the three Dist.L kernels
+BF16_CASES = ([("dist_l", B, M, dl, 0) for B, M, dl in
+               [(8, 16, 15), (8, 32, 15), (16, 32, 16), (8, 64, 8),
+                (24, 128, 32)]]
+              + [(op, B, M, dl, k) for op in ("fused_filter", "fused_expand")
+                 for B, M, dl, k in [(8, 32, 15, 16), (8, 16, 15, 3),
+                                     (16, 64, 16, 8)]])
+
+
+@pytest.mark.parametrize("op,B,M,dl,k", BF16_CASES)
+def test_bf16_rows_match_pallas_kernels(op, B, M, dl, k):
+    """bf16 rows, f32 q: ``ops.dist_l``, ``ops.fused_filter`` and
+    ``ops.fused_expand`` against ``dist_l_pallas``,
+    ``fused_filter_pallas`` and ``fused_expand_pallas`` in interpret mode
+    on the same bf16 values. Both widen every element to f32 before any
+    arithmetic, so distances agree to rtol / atol 1e-5 and indices
+    exactly."""
+    from repro.kernels.dist_l import dist_l_pallas
+    from repro.kernels.fused_filter import (fused_expand_pallas,
+                                            fused_filter_pallas)
+    rng = np.random.default_rng(B * 1000 + M * 10 + dl + k)
+    x, q, valid, th = _expand_inputs(rng, B, M, dl)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    assert np.array_equal(np.asarray(jx).view(np.int16),
+                          tx.view(torch.int16).numpy())
+    jq, tq = jnp.asarray(q), torch.from_numpy(q)
+    if op == "dist_l":
+        got = ops.dist_l(tx, tq)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(dist_l_pallas(jx, jq, interpret=True)),
+            rtol=1e-5, atol=1e-5)
+        return
+    if op == "fused_filter":
+        got = ops.fused_filter(tx, tq, k)
+        want = fused_filter_pallas(jx, jq, k, interpret=True)
+    else:
+        got = ops.fused_expand(tx, tq, torch.from_numpy(valid),
+                               torch.from_numpy(th), k)
+        want = fused_expand_pallas(jx, jq, jnp.asarray(valid, jnp.int32),
+                                   jnp.asarray(th)[:, None], k,
+                                   interpret=True)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("op", ["dist_l", "fused_filter", "fused_expand",
+                                "fused_expand_rows"])
+def test_payload_outside_f32_and_bf16_raises(op, dtype):
+    """The Dist.L ops take f32 or bf16 rows only, on either device (a
+    CUDA tensor would reach a kernel built for those two)."""
+    x = torch.zeros(2, 8, 3, dtype=dtype)
+    q, th = torch.zeros(2, 3), torch.zeros(2)
+    valid = torch.ones(2, 8, dtype=torch.bool)
+    call = {"dist_l": lambda: ops.dist_l(x, q),
+            "fused_filter": lambda: ops.fused_filter(x, q, 4),
+            "fused_expand": lambda: ops.fused_expand(x, q, valid, th, 4),
+            "fused_expand_rows": lambda: ops.fused_expand_rows(
+                torch.zeros(2, 8, dtype=torch.int32), x,
+                torch.zeros(2, 1, dtype=torch.int32),
+                torch.ones(2, 1, dtype=torch.bool), q, th, 4)}[op]
+    with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
+        call()
+
+
 # ------------------------ fused_filter and attention -------------------------
 
 @pytest.mark.parametrize("B,M,dl,k", [(8, 32, 15, 16), (8, 16, 15, 3),

@@ -310,15 +310,20 @@ def test_filter_mismatch_and_bad_payload_raise(int_fixture):
         search_torch.from_reference(arrays, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["bf16", "tombstones", "device"])
+@pytest.mark.parametrize("case", ["float16", "tombstones", "device"])
 def test_outside_the_slice_raises(int_fixture, case):
-    """bf16 payloads are not ported yet; tombstone filtering needs a
-    bitmap (the reference asserts the same); a db lives on one device."""
+    """A pca payload is stored in float32 or bfloat16 only; tombstone
+    filtering needs a bitmap (the reference asserts the same); a db
+    lives on one device."""
     cfg, g, x, q = int_fixture
-    if case == "bf16":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-            search_torch.build_packed(g, x[:, :4], low_dtype="bfloat16",
+    if case == "float16":
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            search_torch.build_packed(g, x[:, :4], low_dtype="float16",
                                       device="cpu")
+        arrays = ref_db_arrays(_ref_db(cfg, g, "pca"))
+        arrays["low"] = arrays["low"].astype(np.float16)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            search_torch.from_reference(arrays, cfg, device="cpu")
         return
     db = search_torch.build_packed(g, x[:, :4], device="cpu")
     if case == "tombstones":
@@ -332,6 +337,102 @@ def test_outside_the_slice_raises(int_fixture, case):
     else:
         with pytest.raises(ValueError, match="lives on cpu"):
             search_torch.search_batched(db, q, q[:, :4])
+
+
+# --------------------------- bf16 layout-(3) rows ---------------------------
+
+def _bf16_pair(cfg, g, low):
+    """The reference's and the port's pca db over the same graph with
+    ``low`` stored in bfloat16 (the reference rounds by ``jnp.asarray``,
+    the port by ``Tensor.to``), and the port's db carried over from the
+    reference's arrays."""
+    bcfg = dataclasses.replace(cfg, low_dtype="bfloat16")
+    rg = RefGraph(cfg=RefConfig(**dataclasses.asdict(bcfg)), x=g.x,
+                  levels=g.levels, layers=g.layers, entry=g.entry)
+    jdb = search_jax.build_packed(rg, low.copy())
+    own = search_torch.build_packed(dataclasses.replace(g, cfg=bcfg), low,
+                                    device="cpu")
+    back = search_torch.from_reference(ref_db_arrays(jdb), bcfg,
+                                       device="cpu")
+    return bcfg, jdb, own, back
+
+
+def _bits16(t):
+    return t.view(torch.int16).numpy()
+
+
+@pytest.mark.parametrize("source", ["build_packed", "from_reference"])
+@pytest.mark.parametrize("mode", ["pca", "pca-deferred"])
+@pytest.mark.parametrize("W", [1, 2])
+def test_bf16_search_bit_equal_on_integer_fixture(int_fixture, mode, source,
+                                                  W):
+    """low_dtype="bfloat16": the port's pca and pca-deferred search, on a
+    db it packed itself or carried over from the reference's arrays, is
+    bit-equal to ``search_jax`` in ids, dists, ``steps_per_layer`` and
+    ``dist_h_evals``; the stored rows are bf16 with the reference's bits
+    and the layout-(3) bytes count two bytes an element."""
+    cfg, g, x, q = int_fixture
+    cfg = dataclasses.replace(cfg, expand_width=W)
+    g = dataclasses.replace(g, cfg=cfg)
+    deferred = mode == "pca-deferred"
+    bcfg, jdb, own, back = _bf16_pair(cfg, g, g.x[:, :4])
+    tdb = own if source == "build_packed" else back
+    assert tdb.low.dtype == torch.bfloat16
+    assert str(np.asarray(jdb.low).dtype) == "bfloat16"
+    for a, b in zip(tdb.layers, jdb.layers):
+        assert a.packed_low.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            _bits16(a.packed_low),
+            np.asarray(b.packed_low).view(np.int16))
+    jd, ji, js = search_jax.search_batched(
+        jdb, jnp.asarray(q), jnp.asarray(q[:, :4]), deferred=deferred,
+        rerank_mult=3, return_stats=True)
+    td, ti, ts = search_torch.search_batched(
+        tdb, q, q[:, :4], deferred=deferred, rerank_mult=3,
+        return_stats=True, device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ts["steps_per_layer"].numpy(),
+                                  np.asarray(js["steps_per_layer"]))
+    np.testing.assert_array_equal(ts["dist_h_evals"].numpy(),
+                                  np.asarray(js["dist_h_evals"]))
+    assert tdb.bytes_layout3 == jdb.bytes_layout3
+    assert tdb.bytes_layout4 == jdb.bytes_layout4
+
+
+def test_bf16_rows_round_as_the_reference_on_float_data(int_fixture):
+    """On float rows the one f32 -> bf16 rounding of ``build_packed``
+    gives the reference's bits in ``low`` and every ``packed_low`` (the
+    -1 slots' zeros included), and ``from_reference`` carries them bit
+    for bit."""
+    cfg, g, x, q = int_fixture
+    low = np.random.default_rng(11).standard_normal(
+        (len(g.x), 4)).astype(np.float32) * 37.0
+    low[:5] = [[1e-40, -0.0, 3.4e38, -1.00390625]] * 5
+    _, jdb, own, back = _bf16_pair(cfg, g, low)
+    for tdb in (own, back):
+        np.testing.assert_array_equal(_bits16(tdb.low),
+                                      np.asarray(jdb.low).view(np.int16))
+        for a, b in zip(tdb.layers, jdb.layers):
+            np.testing.assert_array_equal(
+                _bits16(a.packed_low),
+                np.asarray(b.packed_low).view(np.int16))
+
+
+def test_bf16_bytes_layout3_below_three_quarters_of_f32(int_fixture):
+    """The bf16 store's layout-(3) bytes are below 0.75x the f32 store's
+    (as ``tests/test_system.py`` holds the reference's), its bytes
+    beside the reference's."""
+    cfg, g, x, q = int_fixture
+    _, jdb, own, _ = _bf16_pair(cfg, g, g.x[:, :4])
+    f32 = search_torch.build_packed(g, g.x[:, :4], device="cpu")
+    assert own.bytes_layout3 == jdb.bytes_layout3
+    assert own.bytes_layout3 < 0.75 * f32.bytes_layout3
+    dl = own.low.shape[1]
+    extra = lambda db, isz: sum(int((l.adj >= 0).sum()) * (4 + dl * isz)
+                                for l in db.layers)
+    assert own.bytes_layout3 - extra(own, 2) \
+        == f32.bytes_layout3 - extra(f32, 4) == own.high.numel() * 4
 
 
 # ------------------------------- tombstones --------------------------------
