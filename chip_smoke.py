@@ -29,7 +29,10 @@ non-zero:
                 ``trip_fold`` (a trip's pop, accept test and three
                 merges in one launch) at the main path's fold shapes
                 (pca layers 0 / 1 / 2+, the deferred arms' layer 0, the
-                probe's layers, with tombstones) and at W = 4, 8 and a
+                probe's layers, with tombstones, and the mutable index's
+                insert probe, B=128 at ef 100 with tombstones; its
+                ``fused_expand_rows`` and ``dist_h`` rows at B=128 too)
+                and at W = 4, 8 and a
                 frontier past shared memory, and ``pq_expand_rows`` (the
                 PQ expand with its row gathers) at the pq and
                 cascade arms' layer 0 and W = 4, 8: each bit for bit
@@ -136,6 +139,34 @@ non-zero:
                 2 the probe raises ``ShardKilledError`` and the merge over
                 the survivors equals the live-masked search; a corrupted
                 answer fails ``check_shard_result``;
+ 10b. serve  — the README quickstart on the card at shard 0's size:
+                ``MutableIndex.from_graph`` (the pca filter) with
+                ``reserve(65536)`` and ``VectorSearchService(batch_size=
+                --batch)``: the ``--queries`` queries served, 8,192 fresh
+                points upserted (64 calls of ``insert_batch`` 128, each
+                timed), 2,500 original ids deleted (5 calls, timed), the
+                queries served again (no deleted id; recall@10 against the
+                live points >= 0.80), self-recall of the inserted points
+                (own id at rank 0) >= 0.95, ``save`` -> ``load`` on the
+                card serving bit-equal ids and dists on every query, the
+                first epoch's tensors unchanged, a NaN query refused; QPS
+                and p50/p99 from ``ServiceStats`` at ``--batch`` and at
+                64, peak device memory, and launches per part (the upserts
+                must launch ``trip_fold``, ``fused_expand_rows`` and
+                ``dist_h``, the queries the search's kernels);
+ 10c. serve_sharded — ``ShardedMutableIndex`` over the P shard graphs (one
+                shared pca filter) behind a ``FaultPolicy`` service: the
+                queries at recall@10 >= 0.80; shard 2 killed by a
+                ``FaultPlan`` -> degraded, coverage the live-count share
+                exactly, none of its ids; ``recover_shard(2)`` -> full
+                coverage and the healthy ids; a corrupt answer
+                quarantined; 4,096 round-robin upserts found by the next
+                queries (self-recall >= 0.95), the stacked db of the
+                epoch before them unchanged; a deferred search of the
+                index; the one-npz snapshot round-trips bit-equal; peak
+                device memory (every publish stacks a copy of the shards);
+                ``ksort_l`` and ``dist_l`` must launch besides the
+                search's and the probe's kernels;
  11. parity   — on the 8k bench fixture, the same graph packed on the card
                 and on the CPU, for pca and the pq, pq-deferred,
                 pca-deferred and cascade-deferred modes: bit-identical
@@ -149,7 +180,13 @@ non-zero:
                 pca-deferred bit-identical on integer data, single-shard
                 and at P=4 (with and without tombstones); and the pca arm at expand_width W = 4
                 and 8 (128 and 256 expand slots a row), card against CPU
-                on both fixtures (``wide``);
+                on both fixtures (``wide``); the mutable index (``mutable``)
+                and the sharded one at P=4 on the integer data, card
+                against CPU: the same integer upserts, deletes and a
+                replace-upsert give identical ids, adjacency, levels,
+                entry, dists and tombstone words; and ``compact()`` on the
+                card's 8k index with a quarter deleted (the remap dense,
+                recall@10 against the live points >= 0.80);
  12. filters  — the 8k filters table (first 64 queries, B=64) beside the
                 tracked ``BENCH_table3.json`` -> ``filters`` rows; each
                 recall within 0.02 of the tracked one;
@@ -157,8 +194,8 @@ non-zero:
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main-path run (the footprint
-bench, the build, each single-shard arm and each sharded arm) and read
-just after. The degraded and resilient phases need P >= 2 and are
+bench, the build, each single-shard arm, each sharded arm and each part
+of the serve phases) and read just after. The degraded and resilient phases need P >= 2 and are
 skipped at ``--shards 1``, which otherwise gives the single-shard smoke
 over all ``--n`` points. It needs no network and one card, and exits
 non-zero without CUDA or without the ``src/repro_torch`` package beside
@@ -369,11 +406,13 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
             bound=bound_ms(nbytes, nops))
 
     # --- dist_h: search K = 16/8/3 and the entry (1); probe K = 32/16;
-    #     the deferred re-rank K = 30 (pca) and 20 (cascade); the
-    #     footprint bench's [64, 16, 128] ---
+    #     the mutable index's insert probe [128, 16, 128]; the deferred
+    #     re-rank K = 30 (pca) and 20 (cascade); the footprint bench's
+    #     [64, 16, 128] ---
     dh_shapes = [(1024, 16, 128), (1024, 8, 128), (1024, 3, 128),
                  (1024, 1, 128), (2048, 32, 128), (2048, 16, 128),
-                 (1024, 30, 128), (1024, 20, 128), (64, 16, 128)]
+                 (128, 16, 128), (1024, 30, 128), (1024, 20, 128),
+                 (64, 16, 128)]
     for B, K, D in dh_shapes:
         errs = []
         for integer in (True, False):
@@ -610,9 +649,11 @@ def _fold_cost(B, ef, cap, k, kk, kv, tombs, nw):
 # trip_fold rows: (B, ef, k, W, kk, heap, kv row, tombstones, timed) — the
 # folds of the main path (the merges of mg_shapes: pca layers 0 / 1 / 2+,
 # pca-deferred and cascade-deferred layer 0, the probe's layer 0 and
-# upper layers, the tombstone arms' layer 0), then W = 4 and 8 (W * k >
-# 64: the block tier) and a frontier past shared memory (global tier)
+# upper layers, the tombstone arms' layer 0, the mutable index's insert
+# probe at every layer), then W = 4 and 8 (W * k > 64: the block tier)
+# and a frontier past shared memory (global tier)
 FOLD_CASES = [(1024, 10, 16, 1, 16, True, True, False, True),
+              (128, 100, 16, 1, 16, True, True, True, True),
               (1024, 30, 16, 1, 16, True, False, False, True),
               (1024, 60, 32, 1, 32, True, False, False, True),
               (2048, 100, 0, 1, 32, False, False, False, True),
@@ -771,9 +812,11 @@ def check_fold_and_rows(torch, np, rng, T) -> dict:
 
 # fused_expand_rows rows (on a layer of M0 = 32, dl = 15): (B, W, M0,
 # dl, k, timed): the pca arms' layer
-# 0 (W = 1: 32 slots, k = 16), W = 2 and 4 (64 and 128 slots: the warp
+# 0 (W = 1: 32 slots, k = 16), the mutable index's insert probe at layer
+# 0 (B = 128), W = 2 and 4 (64 and 128 slots: the warp
 # tier's other widths), W = 8 (256 slots: the block tier), checked only
 PCA_ROWS_CASES = [(1024, 1, 32, 15, 16, True, "f32"),
+                  (128, 1, 32, 15, 16, True, "f32"),
                   (1024, 1, 32, 15, 16, True, "bf16"),
                   (1024, 2, 32, 15, 16, True, "f32"),
                   (1024, 4, 32, 15, 16, True, "f32"),
@@ -1750,6 +1793,349 @@ def run_resilient(torch, np, sdb, filt, q, device: str) -> dict:
     return out
 
 
+
+# ------------------------------ serving ------------------------------------
+
+# the serve phases' sizes: shard 0's index reserved to 65,536 slots, 8,192
+# upserts (64 probes of insert_batch 128), 2,500 deletes; the sharded
+# index takes 4,096 upserts round-robin
+SERVE_RESERVE, SERVE_UPSERTS, SERVE_DELETES = 65_536, 8_192, 2_500
+SHARDED_UPSERTS = 4_096
+# the kernels each serving part must launch: the probe's on upsert, the
+# search's on query, and the merge's and the deferred entry's on the
+# sharded deferred search
+SERVE_UPSERT_KERNELS = ("trip_fold", "fused_expand_rows", "dist_h")
+SERVE_QUERY_KERNELS = ("trip_fold", "fused_expand_rows", "dist_h")
+SERVE_SHARDED_KERNELS = ("trip_fold", "fused_expand_rows", "dist_h",
+                         "ksort_l", "dist_l")
+
+
+def _epoch_tensors(db) -> list:
+    """Every tensor of a published PackedDB or ShardedDB (held on the
+    host by the frozen-epoch checks, so device memory peaks stay the
+    index's own)."""
+    if hasattr(db, "layers"):
+        return [db.low, db.high, db.deleted] + \
+            [t for lay in db.layers for t in (lay.adj, lay.packed_low)]
+    return [db.low, db.high, db.deleted] + list(db.adj) + \
+        list(db.packed_low)
+
+
+def _stream(svc, q):
+    """``run_stream`` over ``q`` with the service's stats reset just
+    before: (ids, stream stats, seconds)."""
+    svc.stats.reset()
+    t0 = time.perf_counter()
+    ids, st = svc.run_stream(q)
+    return ids, st, time.perf_counter() - t0
+
+
+def fresh_points(np, n_base: int, n: int, seed: int):
+    """``n`` new points of the smoke's SIFT-like distribution (the same
+    basis and cluster centres as its first ``n_base``)."""
+    from repro_torch.data.vectors import make_sift_like
+    return make_sift_like(n_base + n, seed=seed)[n_base:]
+
+
+def profile_upsert(svc, xb) -> dict:
+    """One upsert call under cProfile: its host-clock seconds and the
+    cumulative seconds of the probe (on the card, up to its results on
+    the host), the host linking and the publish. cProfile slows Python
+    calls, not the card or numpy's C loops, so the shares are a guide."""
+    import cProfile
+    import pstats
+    parts = ("probe_neighborhoods", "link_wave", "_publish_incremental",
+             "_publish_full")
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    svc.upsert(xb)
+    pr.disable()
+    out = {"seconds": time.perf_counter() - t0}
+    for (_, _, fn), (_, _, _, cum, _) in pstats.Stats(pr).stats.items():
+        if fn in parts:
+            out[fn] = out.get(fn, 0.0) + cum
+    return out
+
+
+def run_serve(torch, np, g, filt, q, batch: int, seed: int, n_base: int,
+              device: str = "cuda") -> dict:
+    """The README quickstart at shard 0's size: ``MutableIndex.from_graph``
+    + ``reserve`` + ``VectorSearchService``; serve ``q``, upsert
+    ``SERVE_UPSERTS`` fresh points one insert batch a call, delete
+    ``SERVE_DELETES`` original ids, serve again (no deleted id, recall@10
+    against the live points >= 0.80), self-recall of the inserted points
+    >= 0.95, ``save`` -> ``load`` on the card serving bit-equal ids and
+    dists, the first epoch's tensors unchanged, a NaN query refused; QPS
+    and latency at ``batch`` and at 64; one more upsert call profiled.
+    Launch counts are reset just before each part (query, upsert, delete
+    and query again) and read just after."""
+    from repro_torch.index import MutableIndex
+    from repro_torch.kernels import ops
+    from repro_torch.serve.vector_service import VectorSearchService
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "serve", "n_points": len(g.x), "queries": len(q),
+           "batch": batch}
+    t_phase = t0 = time.perf_counter()
+    idx = MutableIndex.from_graph(g, filt, seed=seed + 1, device=device)
+    idx.reserve(SERVE_RESERVE)
+    svc = VectorSearchService(idx, batch_size=batch, device=device)
+    sync()
+    out.update(setup_seconds=time.perf_counter() - t0, capacity=idx.cap)
+    db0, epoch0 = idx.db, idx.epoch
+    held = [t.to("cpu", copy=True) for t in _epoch_tensors(db0)]
+    launches = {}
+
+    ops.reset_launch_counts()
+    ids0, st, secs = _stream(svc, q)
+    launches["query"] = ops.launch_counts()
+    out["query"] = {"seconds": secs, "qps": len(q) / secs,
+                    "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+                    "path": st["path"]}
+    gt = ground_truth(torch, idx.x[:idx.n], q, 10, device)
+    out["query"]["recall_at_10"] = recall_at_10(ids0, gt)
+
+    bb = idx.cfg.insert_batch
+    xs = fresh_points(np, n_base, SERVE_UPSERTS + bb, seed)
+    xs, x_prof = xs[:SERVE_UPSERTS], xs[SERVE_UPSERTS:]
+    ops.reset_launch_counts()
+    up_s, new_ids = [], []
+    for i in range(0, len(xs), bb):
+        t1 = time.perf_counter()
+        new_ids.append(svc.upsert(xs[i:i + bb]))
+        sync()
+        up_s.append(time.perf_counter() - t1)
+    launches["upsert"] = ops.launch_counts()
+    new_ids = np.concatenate(new_ids)
+    rng = np.random.default_rng(seed + 23)
+    doomed = rng.choice(len(g.x), SERVE_DELETES, replace=False)
+    ops.reset_launch_counts()
+    del_s = []
+    for part in np.array_split(doomed, 5):
+        t1 = time.perf_counter()
+        n_del = svc.delete(part)
+        sync()
+        del_s.append(time.perf_counter() - t1)
+        need(n_del == len(part), f"serve: delete took {n_del} of "
+             f"{len(part)}")
+    launches["delete"] = ops.launch_counts()
+    out["upsert"] = {"vectors": len(xs), "calls": len(up_s),
+                     "seconds_per_call": up_s,
+                     "seconds_mean": float(np.mean(up_s)),
+                     "seconds_max": float(np.max(up_s))}
+    out["delete"] = {"ids": len(doomed), "calls": len(del_s),
+                     "seconds_per_call": del_s}
+    need(idx.cap == SERVE_RESERVE, f"serve: capacity {idx.cap} grew past "
+         f"the reserved {SERVE_RESERVE}")
+
+    ops.reset_launch_counts()
+    ids1, st, secs = _stream(svc, q)
+    launches["query_after"] = ops.launch_counts()
+    gt_live = ground_truth(torch, idx.x[:idx.n], q, 10, device,
+                           deleted=idx.deleted[:idx.n])
+    rec = recall_at_10(ids1, gt_live)
+    n_bad = int(np.isin(ids1, doomed).sum())
+    out["query_after"] = {"seconds": secs, "qps": len(q) / secs,
+                          "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+                          "recall_at_10_live": rec, "recall_floor": 0.80,
+                          "deleted_ids_returned": n_bad}
+    need(n_bad == 0, f"serve: {n_bad} deleted ids returned")
+    need(rec >= 0.80, f"serve: recall@10 {rec} against the live points "
+         "< 0.80")
+    self_ids, _ = svc.run_stream(xs)
+    self_rec = float((self_ids[:, 0] == new_ids).mean())
+    out["self_recall_at_1"] = self_rec
+    need(self_rec >= 0.95, f"serve: self-recall {self_rec} < 0.95")
+    out["upsert_profile"] = profile_upsert(svc, x_prof)
+
+    snap = ROOT / "build" / "serve_snapshot.npz"
+    t1 = time.perf_counter()
+    idx.save(snap)
+    t2 = time.perf_counter()
+    idx2 = MutableIndex.load(snap, idx.cfg, seed=seed + 1, device=device)
+    svc2 = VectorSearchService(idx2, batch_size=batch, device=device)
+    sync()
+    t3 = time.perf_counter()
+    snap.unlink()
+    same = True
+    for i in range(0, len(q), batch):
+        a, b = svc.query(q[i:i + batch]), svc2.query(q[i:i + batch])
+        same &= all(np.array_equal(u, v) for u, v in zip(a, b))
+    out["snapshot"] = {"save_seconds": t2 - t1, "load_seconds": t3 - t2,
+                       "bit_equal": bool(same)}
+    need(same, "serve: the restored index serves other ids or dists")
+    frozen = all(torch.equal(a, b.cpu()) for a, b in zip(
+        held, _epoch_tensors(db0)))
+    out["first_epoch_unchanged"] = frozen
+    out["epochs"] = {"held": epoch0, "last": idx.epoch,
+                     "service": svc.epoch}
+    need(frozen, "serve: an earlier epoch's tensors changed")
+    nan_q = q[:4].copy()
+    nan_q[0, 0] = np.nan
+    try:
+        svc.query(nan_q)
+        refused = False
+    except ValueError:
+        refused = True
+    out["nan_refused"] = refused
+    need(refused, "serve: nan_policy='raise' served a NaN query")
+
+    svc64 = VectorSearchService(idx, batch_size=64, device=device)
+    n64 = min(len(q), 64 * 64)
+    _, st, secs = _stream(svc64, q[:n64])
+    out["query_b64"] = {"queries": n64, "seconds": secs,
+                        "qps": n64 / secs, "p50_ms": st["p50_ms"],
+                        "p99_ms": st["p99_ms"]}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if device == "cuda" else None
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_serve_sharded(torch, np, graphs, filt, q, gt, batch: int,
+                      seed: int, n_base: int, device: str = "cuda") -> dict:
+    """``ShardedMutableIndex`` over the shard graphs (one shared filter)
+    served under a ``FaultPolicy``: recall@10 >= 0.80 over ``q``; shard 2
+    killed -> degraded, coverage the live-count share exactly, none of
+    its ids; ``recover_shard(2)`` -> full coverage and the healthy ids; a
+    corrupt answer quarantined; ``SHARDED_UPSERTS`` round-robin upserts
+    found by the next queries (self-recall >= 0.95), the ShardedDB of the
+    epoch before them unchanged; a deferred search of the index; the
+    one-npz snapshot round-trips bit-equal. Launch counts are reset just
+    before the part and read just after."""
+    from repro_torch.core.distributed import shard_bounds
+    from repro_torch.distributed import faults
+    from repro_torch.distributed.faults import FaultPlan, FaultPolicy
+    from repro_torch.index import MutableIndex, ShardedMutableIndex
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.vector_service import VectorSearchService
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    P = len(graphs)
+    victim = min(2, P - 1)
+    out = {"phase": "serve_sharded", "shards": P,
+           "n_points": sum(len(g.x) for g in graphs), "queries": len(q),
+           "batch": batch, "killed_shard": victim}
+    t_phase = t0 = time.perf_counter()
+    cfg = graphs[0].cfg
+    sidx = ShardedMutableIndex(
+        [MutableIndex.from_graph(g, filt, seed=seed + 101 * s + 1,
+                                 device=device)
+         for s, g in enumerate(graphs)], filt, cfg)
+    sidx.reserve(SERVE_RESERVE)
+    # deadlines well past a probe's time; every retry is data, not time
+    pol = FaultPolicy(deadline_ms=2000.0, max_retries=2, backoff_ms=5.0)
+    tracer = Tracer(capacity=8)
+    svc = VectorSearchService(sidx, batch_size=batch, fault_policy=pol,
+                              tracer=tracer, device=device)
+    sync()
+    out.update(setup_seconds=time.perf_counter() - t0, stride=sidx.stride,
+               sharded_db_bytes=sidx.sdb.nbytes)
+    # exact ids -> global ids (gid = shard * stride + local)
+    bounds = shard_bounds(sum(len(g.x) for g in graphs), P)
+    gid_of = np.concatenate([s * sidx.stride + np.arange(b - a)
+                             for s, (a, b) in enumerate(bounds)])
+    ggt = gid_of[gt]
+    ops.reset_launch_counts()
+    ids, st, secs = _stream(svc, q)
+    rec = recall_at_10(ids, ggt)
+    out["query"] = {"seconds": secs, "qps": len(q) / secs,
+                    "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+                    "recall_at_10": rec, "recall_floor": 0.80}
+    need(rec >= 0.80, f"serve_sharded: recall@10 {rec} < 0.80")
+
+    qb = q[:batch]
+    _, fi_h, st_h = svc.query(qb, return_stats=True)
+    lc = svc._live_counts
+    with faults.inject(FaultPlan()) as plan:
+        plan.add("kill_shard", victim)
+        _, fi_k, st_k = svc.query(qb, return_stats=True)
+    mask = np.arange(P) != victim
+    want = int(lc[mask].sum()) / int(lc.sum())
+    n_dead = int(((fi_k // sidx.stride) == victim).sum())
+    dead_marked = bool(svc.health.dead[victim])
+    svc.recover_shard(victim)
+    _, fi_r, st_r = svc.query(qb, return_stats=True)
+    out["kill"] = {"degraded": st_k["degraded"],
+                   "coverage": st_k["coverage"],
+                   "coverage_expected": want, "dead_shard_ids": n_dead,
+                   "dead_marked": dead_marked,
+                   "recovered_coverage": st_r["coverage"],
+                   "recovered_ids_equal": bool(np.array_equal(fi_r,
+                                                              fi_h))}
+    need(st_k["degraded"] and st_k["coverage"] == want,
+         f"serve_sharded: kill gave coverage {st_k['coverage']} != {want}")
+    need(n_dead == 0, f"serve_sharded: {n_dead} ids of the killed shard")
+    need(st_r["coverage"] == 1.0 and np.array_equal(fi_r, fi_h),
+         "serve_sharded: recover_shard did not restore the healthy ids")
+    with faults.inject(FaultPlan()) as plan:
+        plan.add("corrupt_shard", 0)
+        _, fi_c, st_c = svc.query(qb, return_stats=True)
+    root = tracer.last("serve.query")
+    probe0 = next(p for p in root.find_all("shard.probe")
+                  if p.attrs["shard"] == 0)
+    svc.recover_shard(0)
+    out["corrupt"] = {"answered": st_c["answered"].tolist(),
+                      "probe_events": probe0.event_kinds(),
+                      "shard0_ids": int(((fi_c // sidx.stride) == 0)
+                                        .sum())}
+    need(not st_c["answered"][0] and "quarantine" in probe0.event_kinds()
+         and out["corrupt"]["shard0_ids"] == 0,
+         "serve_sharded: the corrupt answer was not quarantined")
+
+    xs = fresh_points(np, n_base, SHARDED_UPSERTS, seed + 1)
+    sdb0 = sidx.sdb
+    held = [t.to("cpu", copy=True) for t in _epoch_tensors(sdb0)]
+    t1 = time.perf_counter()
+    gids = svc.upsert(xs)
+    sync()
+    up_s = time.perf_counter() - t1
+    frozen = all(torch.equal(a, b.cpu()) for a, b in zip(
+        held, _epoch_tensors(sdb0)))
+    del held, sdb0
+    out["earlier_epoch_unchanged"] = frozen
+    need(frozen, "serve_sharded: an earlier epoch's tensors changed")
+    self_ids, _ = svc.run_stream(xs)
+    self_rec = float((self_ids[:, 0] == gids).mean())
+    out["upsert"] = {"vectors": len(xs), "seconds": up_s,
+                     "per_shard": np.bincount(gids // sidx.stride,
+                                              minlength=P).tolist(),
+                     "self_recall_at_1": self_rec}
+    need(self_rec >= 0.95, f"serve_sharded: self-recall {self_rec} < 0.95")
+    # the deferred sharded mode: the merge on filter distances and one
+    # global Dist.H pass (dist_l scores the deferred entry points)
+    fd_d, fi_d = sidx.search(qb, deferred=True, rerank_mult=3)
+    sync()
+    launches = ops.launch_counts()
+
+    snap = ROOT / "build" / "serve_sharded_snapshot.npz"
+    t1 = time.perf_counter()
+    sidx.save(snap)
+    t2 = time.perf_counter()
+    back = ShardedMutableIndex.load(snap, cfg, seed=seed, device=device)
+    sync()
+    t3 = time.perf_counter()
+    snap.unlink()
+    same = True
+    for i in range(0, min(len(q), 4 * batch), batch):
+        a, b = sidx.search(q[i:i + batch]), back.search(q[i:i + batch])
+        same &= all(torch.equal(u, v) for u, v in zip(a, b))
+    out["snapshot"] = {"save_seconds": t2 - t1, "load_seconds": t3 - t2,
+                       "bit_equal": bool(same)}
+    need(same, "serve_sharded: the restored index searches otherwise")
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if device == "cuda" else None
+    out["epoch"] = sidx.epoch
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def profile_batch(torch, fn, top: int = 10) -> dict:
     """One extra call of ``fn`` under torch.profiler: device time by
     kernel name and the device's busy share of the profiled window (the
@@ -2018,6 +2404,9 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
                        "integer_bit_identical": ibit,
                        "integer_dist_h_mean": float(ri[device][3]
                                                     .float().mean())}
+    mutable = _mutable_parity(torch, np, gi, ifilts["pca"], qi, device,
+                              seed)
+    mutable["compact"] = run_compact_8k(torch, np, g, pca, q, device, seed)
     parity = {"phase": "parity_8k", "recall_card": rec_card,
               "recall_cpu": rec_host, "recall_first64_card": rec64,
               "ids_equal_frac": same,
@@ -2025,7 +2414,7 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
               "dist_h_mean_first64_card": dhe64,
               "integer_bit_identical": bit,
               "bf16_integer_bit_identical": bf16, "wide": wide,
-              "modes": modes,
+              "modes": modes, "mutable": mutable,
               "sharded": _sharded_parity(torch, np, cfg, x, q, gt, filts,
                                          ifilts, seed, device)}
 
@@ -2052,6 +2441,93 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
              f"{t['recall']}")
     return parity, {"phase": "filters_8k", "queries": 64, "batch": 64,
                     "rows": rows}
+
+
+def _mutate_int(np, idx, rng, n_up: int, n_del: int) -> list:
+    """Integer upserts (a replace-upsert among them) and deletes through
+    any index kind; returns the ids each step handed out or removed."""
+    rows = lambda n: np.round(rng.random((n, 128)) * 200).astype(np.float32)
+    g1 = idx.upsert(rows(n_up))
+    n = idx.delete(g1[::max(len(g1) // n_del, 1)][:n_del])
+    g2 = idx.upsert(rows(20), ids=g1[1:21])
+    return [g1, np.asarray([n]), g2]
+
+
+def _mutable_parity(torch, np, gi, filt, qi, device: str, seed: int) -> dict:
+    """The mutable index on the 8k integer fixture, on the card and on
+    the CPU: the same graph, the same integer upserts (the probe on each
+    device), deletes and a replace-upsert give identical adjacency rows,
+    levels, entry, ids, dists and tombstone words."""
+    from repro_torch.index import MutableIndex
+    got = {}
+    for dev in (device, "cpu"):
+        idx = MutableIndex.from_graph(gi, filt, seed=seed + 3, device=dev)
+        steps = _mutate_int(np, idx, np.random.default_rng(seed + 5), 512,
+                            200)
+        fd, fi = idx.search(qi)
+        got[dev] = (steps, [fd.cpu(), fi.cpu(), idx.db.deleted.cpu()],
+                    idx)
+    (sc, tc, ic), (sh, th, ih) = got[device], got["cpu"]
+    ok = all(np.array_equal(a, b) for a, b in zip(sc, sh)) \
+        and all(torch.equal(a, b) for a, b in zip(tc, th)) \
+        and (ic.n, ic.entry, ic.epoch) == (ih.n, ih.entry, ih.epoch) \
+        and np.array_equal(ic.levels, ih.levels) \
+        and all(np.array_equal(a, b) for a, b in zip(ic.adj, ih.adj))
+    need(ok, "8k mutable integer parity: card and CPU differ")
+    return {"n": ic.n, "epoch": ic.epoch, "deleted": ic.n_deleted,
+            "integer_bit_identical": ok}
+
+
+def _sharded_mutable_parity(torch, np, cfg, igraphs, filt, qi,
+                            device: str, seed: int) -> dict:
+    """The sharded mutable index over the integer shard graphs, on the
+    card and on the CPU: the same global ids from round-robin integer
+    upserts, deletes and a replace-upsert, identical ids, dists and
+    tombstone words."""
+    from repro_torch.index import MutableIndex, ShardedMutableIndex
+    got = {}
+    for dev in (device, "cpu"):
+        idx = ShardedMutableIndex(
+            [MutableIndex.from_graph(g, filt, seed=seed + 101 * s + 1,
+                                     device=dev)
+             for s, g in enumerate(igraphs)], filt, cfg)
+        steps = _mutate_int(np, idx, np.random.default_rng(seed + 6), 512,
+                            100)
+        fd, fi = idx.search(qi)
+        got[dev] = (steps, [fd.cpu(), fi.cpu(), idx.sdb.deleted.cpu()])
+    (sc, tc), (sh, th) = got[device], got["cpu"]
+    ok = all(np.array_equal(a, b) for a, b in zip(sc, sh)) \
+        and all(torch.equal(a, b) for a, b in zip(tc, th))
+    need(ok, "8k sharded mutable integer parity: card and CPU differ")
+    return {"shards": len(igraphs), "integer_bit_identical": ok}
+
+
+def run_compact_8k(torch, np, g, pca, q, device: str, seed: int) -> dict:
+    """``compact()`` on the card index of the 8k fixture with a quarter
+    of its points deleted: the remap drops exactly the deleted ids and
+    numbers the survivors densely, and recall@10 against the live
+    points stays >= 0.80."""
+    from repro_torch.index import MutableIndex
+    idx = MutableIndex.from_graph(g, pca, seed=seed + 1, device=device)
+    n0 = idx.n
+    doomed = np.random.default_rng(seed + 9).choice(n0, n0 // 4,
+                                                    replace=False)
+    idx.delete(doomed, auto_compact=False)
+    t0 = time.perf_counter()
+    rep = idx.compact()
+    secs = time.perf_counter() - t0
+    remap = rep["remap"]
+    dense = bool((remap[doomed] == -1).all() and np.array_equal(
+        np.sort(remap[remap >= 0]), np.arange(idx.n)))
+    gt = idx.live_ground_truth(q, 10)
+    _, fi = idx.search(q)
+    rec = recall_at_10(fi.cpu().numpy(), gt)
+    out = {"n_before": n0, "deleted": len(doomed), "n_after": idx.n,
+           "capacity": idx.cap, "seconds": secs, "remap_dense": dense,
+           "recall_at_10_live": rec, "recall_floor": 0.80}
+    need(dense, "compact: the remap is not dense over the survivors")
+    need(rec >= 0.80, f"compact: recall@10 {rec} < 0.80")
+    return out
 
 
 # the pca arm at these expand widths on the 8k fixture: W * M0 = 128
@@ -2203,6 +2679,9 @@ def _sharded_parity(torch, np, cfg, x, q, gt, filts, ifilts, seed: int,
             out["bf16"][f"{mode} tombstones={tombs}"] = ok
             need(ok, f"8k sharded bf16 {mode} integer parity "
                  f"(tombstones={tombs}): card and CPU differ")
+    out["mutable"] = _sharded_mutable_parity(torch, np, cfg, igraphs,
+                                             ifilts["pca"], qi, device,
+                                             seed)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2372,7 +2851,35 @@ def main(argv=None) -> int:
     else:
         emit({"phase": "degraded+resilient", "skipped": "needs --shards "
               ">= 2"})
-    del x, graphs, g0, sdbs
+    del sdbs
+    serve = run_serve(torch, np, g0, filts["pca"], q, args.batch,
+                      args.seed, args.n)
+    emit(serve)
+    for part, names in (("upsert", SERVE_UPSERT_KERNELS),
+                        ("query", SERVE_QUERY_KERNELS)):
+        for name in names:
+            need(serve["launches"][part][name] > 0,
+                 f"serve: the {part} part never launched {name}")
+    emit({"reduced": {"compact": "the 8k fixture (parity_8k -> mutable "
+                      "-> compact), not the serve index", "why": (
+        "compact() is a host loop per node: 93.65 s on an 8-core Intel "
+        "Xeon host for 50,000 points with 25% deleted (python -m "
+        "repro_torch.bench.compact_cost --n 50000 --device cpu), over the "
+        "60 s the smoke gives it")}})
+    serve_launches = [serve["launches"][part]
+                      for part in ("query", "upsert", "delete",
+                                   "query_after")]
+    if P > 1:
+        sserve = run_serve_sharded(torch, np, graphs, filts["pca"], q, gt,
+                                   args.batch, args.seed, args.n)
+        emit(sserve)
+        for name in SERVE_SHARDED_KERNELS:
+            need(sserve["launches"][name] > 0,
+                 f"serve_sharded: never launched {name}")
+        serve_launches.append(sserve["launches"])
+    else:
+        emit({"phase": "serve_sharded", "skipped": "needs --shards >= 2"})
+    del x, graphs, g0
 
     parity, table = run_parity(torch, np)
     emit(parity)
@@ -2383,15 +2890,17 @@ def main(argv=None) -> int:
         r = kres[(name, shape)]
         per_arm = {s["arm"]: s["launches"][name] for s in souts}
         per_sharded = {s["arm"]: s["launches"][name] for s in shouts}
+        n_serve = sum(c[name] for c in serve_launches)
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "shape": list(shape),
                      "launches": bout["launches"][name]
                      + sum(per_arm.values()) + sum(per_sharded.values())
-                     + fout["launches"][name],
+                     + fout["launches"][name] + n_serve,
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
                      "launches_sharded": per_sharded,
                      "launches_footprint": fout["launches"][name],
+                     "launches_serve": n_serve,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

@@ -1,8 +1,8 @@
 """The pHNSW configuration (port of ``PHNSWConfig`` from
 ``repro/configs/base.py``; the LM ``ModelConfig`` is not ported yet).
-It holds the reference's fields that the ported paths read, with the
-same names, defaults and methods; the mutable-index fields come with
-the slice that reads them."""
+It holds every field of the reference's ``PHNSWConfig``, with the same
+names, defaults and methods, so that ``core/graph._cfg_fingerprint``
+hashes a config to the same cache key in both packages."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -27,6 +27,9 @@ class PHNSWConfig:
     k_schedule: Tuple[int, ...] = (16, 8, 3, 3, 3, 3)
     ef_construction: int = 100
     recall_at: int = 10
+    # the reference's field; no ported path reads it, but the cache key
+    # of core/graph.cached_graph hashes every field
+    dtype: str = "float32"
     # ---- construction pipeline (core/build.py) ----
     # "wave": batched device-accelerated builder — insert in waves of
     # ``wave_size``, one fused-kernel beam search per wave against the
@@ -72,8 +75,7 @@ class PHNSWConfig:
     rerank_mult: int = 3
     # storage dtype of the inline low-dim vectors in layout (3)
     # ("bfloat16" halves the dominant HBM stream and the paper's ~2.9x
-    # memory blow-up; distances still accumulate in f32). Only float32
-    # is ported; build_packed raises for anything else.
+    # memory blow-up; distances still accumulate in f32)
     low_dtype: str = "float32"
     # per-layer expansion-step budgets for the batched engine (layer 0
     # first). None -> the default linear-in-ef budget. Tune from the
@@ -93,6 +95,16 @@ class PHNSWConfig:
     # as the probe's k; the identity-filter probe keeps W*M0 survivors
     # whatever its value)
     ef_construction_k: int = 16
+    # ---- mutable index (src/repro_torch/index/) ----
+    # upserts are chunked into device probes of this many vectors
+    insert_batch: int = 128
+    # compact() auto-triggers when deleted/live crosses this fraction
+    compact_tombstone_frac: float = 0.25
+    # PCA-drift report flags a refit when the frozen projection captures
+    # this much less variance on the live distribution than at fit time
+    pca_drift_tol: float = 0.10
+    # capacity floor for the power-of-two buffer growth schedule
+    min_capacity: int = 1024
 
     def k_for_layer(self, layer: int) -> int:
         return self.k_schedule[min(layer, len(self.k_schedule) - 1)]

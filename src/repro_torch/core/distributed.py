@@ -30,9 +30,10 @@ the surviving shards; a dead shard is not searched and its lists are
 shards one at a time (``probe_shard``, fault-injectable through
 ``repro_torch.distributed.faults``), checks each answer
 (``check_shard_result``) and merges whatever answered
-(``merge_surviving``). The collective path over several devices
-(``distributed_search``) and ``index/sharded.py`` are not ported yet
-(ROADMAP.md A8).
+(``merge_surviving``); ``index/sharded.py`` publishes its mutable
+shards as a ``ShardedDB`` and searches it through this path. The
+collective path over several devices (``distributed_search``) is not
+ported yet (ROADMAP.md A8).
 """
 from __future__ import annotations
 

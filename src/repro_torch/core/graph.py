@@ -16,15 +16,19 @@ linking. Two builders share those semantics:
 
 The host code here is numpy, the same arithmetic as the reference, so a
 seed gives the same levels and the same graph. Adjacency is stored as
-fixed-degree arrays ([N, M_l] int32, -1 padded). The reference's disk
-cache (``cached_graph``) is not ported yet.
+fixed-degree arrays ([N, M_l] int32, -1 padded). ``cached_graph`` keeps
+built graphs on disk under the reference's file names and npz keys, so a
+cache written by either package loads in the other.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import heapq
 import math
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
@@ -203,3 +207,49 @@ def build_hnsw(x: np.ndarray, cfg: PHNSWConfig, *, seed: int = 0,
     return build_hnsw_wave(x, cfg, seed=seed, verbose=verbose,
                            wave_size=wave_size, device=device,
                            timings=timings)
+
+
+# --------------------------- disk cache -------------------------------------
+
+# Bump whenever ANY builder's output changes for a fixed (cfg, seed) —
+# stale cache entries from an older construction pipeline must never be
+# served as if freshly built. Equal to the reference's: both builders give
+# the same graph for a seed.
+GRAPH_BUILD_VERSION = 2
+
+
+def _cfg_fingerprint(cfg: PHNSWConfig) -> str:
+    """Short stable hash over the FULL config (not just M/efc): any
+    field can steer construction (wave_size, n_layers, degrees, ...),
+    so two configs that differ anywhere must never share a cache
+    entry. The port's config has the reference's fields, so a config
+    hashes alike in both packages."""
+    items = sorted(dataclasses.asdict(cfg).items())
+    return hashlib.sha1(repr(items).encode()).hexdigest()[:10]
+
+
+def cached_graph(x: np.ndarray, cfg: PHNSWConfig, cache_dir: Path,
+                 *, seed: int = 0, verbose: bool = False,
+                 builder: Optional[str] = None,
+                 device="cuda") -> HNSWGraph:
+    """``build_hnsw`` behind an npz cache in ``cache_dir`` (the wave
+    builder's probe runs on ``device`` when the entry is missing)."""
+    cache_dir = Path(cache_dir)
+    builder = builder or getattr(cfg, "builder", "wave")
+    key = f"hnsw_{cfg.name}_{len(x)}_{x.shape[1]}_M{cfg.M}" \
+          f"_efc{cfg.ef_construction}_s{seed}" \
+          f"_{builder}v{GRAPH_BUILD_VERSION}_{_cfg_fingerprint(cfg)}"
+    f = cache_dir / f"{key}.npz"
+    if f.exists():
+        z = np.load(f)
+        n_layers = int(z["n_layers"])
+        return HNSWGraph(cfg=cfg, x=x, levels=z["levels"],
+                         layers=[z[f"adj{l}"] for l in range(n_layers)],
+                         entry=int(z["entry"]))
+    g = build_hnsw(x, cfg, seed=seed, verbose=verbose, builder=builder,
+                   device=device)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        f, levels=g.levels, entry=g.entry, n_layers=len(g.layers),
+        **{f"adj{l}": a for l, a in enumerate(g.layers)})
+    return g

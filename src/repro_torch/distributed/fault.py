@@ -1,0 +1,104 @@
+"""Heartbeat and straggler detection (port of ``StepEvent`` and
+``StepMonitor`` from ``repro/distributed/fault.py``).
+
+NOT to be confused with ``distributed.faults`` (plural), the serving
+plane's deterministic fault-INJECTION harness, whose ``ShardHealth``
+runs one ``StepMonitor`` per shard over query wall times. The training
+plane's other mechanisms in the reference module (``GradSkipPolicy``,
+``remesh``, ``healthy_mesh_shape``) come with the training plane
+(ROADMAP.md A10).
+
+Per-step wall times feed a robust (median + MAD) estimator; steps
+slower than ``straggler_factor`` x median raise a straggler event, and a
+missing heartbeat past ``dead_after_s`` marks the worker dead.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Deque, List, Optional
+
+import numpy as np
+
+
+@dataclass
+class StepEvent:
+    kind: str          # "ok" | "straggler" | "dead"
+    step: int
+    wall_s: float
+    detail: str = ""
+
+
+class StepMonitor:
+    def __init__(self, *, straggler_factor: float = 2.5,
+                 dead_after_s: float = 300.0, window: int = 64,
+                 mad_factor: Optional[float] = None,
+                 source: str = ""):
+        """``mad_factor`` (optional) adds a robust absolute-deviation
+        term to the threshold: a step is a straggler when its wall time
+        exceeds ``max(factor * median, median + mad_factor * MAD)``.
+        The additive MAD term keeps near-zero-latency workloads (e.g.
+        sub-ms shard queries, where any scheduler hiccup is a large
+        RATIO but a tiny absolute delay) from flagging noise, while the
+        multiplicative term still catches slow-but-steady drift. None
+        keeps the ratio-only rule.
+
+        ``source`` (optional) names this monitor in the unified obs
+        event stream (``repro_torch.obs``): with a source set,
+        heartbeats bump a per-source counter and straggler/liveness
+        verdicts land as ``ObsEvent``s in the process registry — the
+        SAME record type the serving plane's ``ShardHealth`` emits. An
+        unnamed monitor (the default) stays off the obs plane."""
+        self.factor = straggler_factor
+        self.mad_factor = mad_factor
+        self.dead_after_s = dead_after_s
+        self.times: Deque[float] = deque(maxlen=window)
+        self.last_beat = time.monotonic()
+        self.events: List[StepEvent] = []
+        self.source = source
+
+    def _obs(self):
+        from repro_torch.obs.metrics import default_registry
+        return default_registry()
+
+    def heartbeat(self, step: int, wall_s: float) -> StepEvent:
+        self.last_beat = time.monotonic()
+        if self.times:
+            hist = np.asarray(self.times)
+            med = float(np.median(hist))
+            mad = float(np.median(np.abs(hist - med)))
+        else:
+            med, mad = wall_s, 0.0
+        self.times.append(wall_s)
+        thresh = self.factor * med
+        if self.mad_factor is not None:
+            thresh = max(thresh, med + self.mad_factor * mad)
+        if len(self.times) >= 8 and wall_s > thresh:
+            ev = StepEvent("straggler", step, wall_s,
+                           f"{wall_s:.2f}s vs median {med:.2f}s "
+                           f"(mad {mad:.3f}s)")
+        else:
+            ev = StepEvent("ok", step, wall_s)
+        self.events.append(ev)
+        if self.source:
+            reg = self._obs()
+            reg.counter("phnsw_heartbeats_total",
+                        "monitor heartbeats by source",
+                        labels=("source",)).labels(
+                            source=self.source).inc()
+            if ev.kind == "straggler":
+                reg.emit("straggler", source=self.source, target=step,
+                         detail=ev.detail)
+        return ev
+
+    def check_liveness(self) -> Optional[StepEvent]:
+        gap = time.monotonic() - self.last_beat
+        if gap > self.dead_after_s:
+            ev = StepEvent("dead", -1, gap, f"no heartbeat for {gap:.0f}s")
+            self.events.append(ev)
+            if self.source:
+                self._obs().emit("dead", source=self.source,
+                                 detail=ev.detail)
+            return ev
+        return None

@@ -1,19 +1,21 @@
-"""Deterministic fault injection for the serving plane (port of the
-jax-free part of ``repro/distributed/faults.py``: the typed errors,
-``FaultEvent``, ``FaultPlan`` with its hooks and ``chaos``, and the
-``install``/``active``/``clear``/``inject`` registry; the port imports
-nothing of the JAX package, so it keeps its own copy).
+"""Deterministic fault injection for the serving plane and the shard
+health it drives (port of ``repro/distributed/faults.py``: the typed
+errors, ``FaultEvent``, ``FaultPlan`` with its hooks and ``chaos``, the
+``install``/``active``/``clear``/``inject`` registry, ``FaultPolicy``
+and ``ShardHealth``; the port imports nothing of the JAX package, so it
+keeps its own copy).
 
 A ``FaultPlan`` is a seedable script of failure events — kill/stall/
 corrupt a shard, kill a replica, delay a snapshot swap, truncate an npz
 snapshot — consumed through small hooks where real failures surface.
-In the port the per-shard query wrapper
+The per-shard query wrapper
 ``core/distributed.probe_shard`` consults it: kill raises
 ``ShardKilledError`` before the probe runs, stall sleeps, corrupt
 garbles the returned candidate lists (caught downstream by
-``check_shard_result``). The mutation, swap and snapshot hooks keep the
-reference's contract for the mutable and sharded indexes, which are not
-ported yet.
+``check_shard_result``). ``index/sharded.py`` consults the mutation hook
+(a killed shard rejects its slice of an upsert or delete) and the swap
+hook (a delayed publish); ``index/mutable.write_snapshot`` consults the
+snapshot hook (a truncated file that ``read_snapshot`` must catch).
 
 Time is LOGICAL: ``plan.tick()`` advances one step per request (or
 wherever the caller advances it), and events are active on
@@ -21,9 +23,10 @@ wherever the caller advances it), and events are active on
 real hardware, wall clocks, or races. No plan installed means one
 ``is None`` check on the hot path.
 
-``FaultPolicy`` and ``ShardHealth`` (the detection side) need the
-training plane's ``StepMonitor`` and the observability plane; they come
-with the service (ROADMAP.md A6).
+``FaultPolicy`` and ``ShardHealth`` are the detection side that
+``serve/vector_service.py``'s resilient query loop drives: retry,
+backoff and deadline knobs, one ``StepMonitor`` per shard over query
+wall times, and the dead mark.
 """
 from __future__ import annotations
 
@@ -33,6 +36,9 @@ from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.distributed.fault import StepMonitor
+from repro_torch.obs.metrics import default_registry
 
 
 # --------------------------------------------------------------------------
@@ -278,3 +284,97 @@ def inject(plan: FaultPlan):
     finally:
         clear()
 
+
+
+# --------------------------------------------------------------------------
+# detection side: per-shard health (StepMonitor per shard + liveness)
+# --------------------------------------------------------------------------
+
+@dataclass
+class FaultPolicy:
+    """Knobs of the service's resilient sharded query path.
+
+    ``deadline_ms`` bounds ONE request's total retry budget; after it,
+    the request completes from whichever shards answered (degraded).
+    ``backoff_ms`` is the exponential-backoff base between retries to
+    the same shard. ``dead_after_failures`` consecutive failures mark a
+    shard dead — subsequent requests skip it outright (no retry tax)
+    until ``ShardHealth.recover`` un-marks it. ``straggler_factor`` /
+    ``mad_factor`` feed the per-shard ``StepMonitor`` (median + MAD
+    over query wall times)."""
+    deadline_ms: float = 250.0
+    max_retries: int = 2
+    backoff_ms: float = 5.0
+    dead_after_failures: int = 2
+    straggler_factor: float = 4.0
+    mad_factor: Optional[float] = 6.0
+    window: int = 64
+
+
+class ShardHealth:
+    """Per-shard liveness + straggler tracking for the serving path:
+    one ``StepMonitor`` per shard fed with query wall times, a
+    consecutive-failure counter driving the dead mark, and an event log
+    (``(kind, shard, detail)``) for tests' structural assertions.
+
+    Every verdict ALSO lands in the unified obs event stream
+    (``repro_torch.obs``) tagged ``source="serve.shard<N>"`` — the same
+    ``ObsEvent`` record type ``StepMonitor`` emits."""
+
+    def __init__(self, n_shards: int, policy: FaultPolicy):
+        self.policy = policy
+        self.monitors = [StepMonitor(straggler_factor=policy.straggler_factor,
+                                     mad_factor=policy.mad_factor,
+                                     window=policy.window,
+                                     source=f"serve.shard{s}")
+                         for s in range(n_shards)]
+        self.failures = np.zeros(n_shards, np.int64)
+        self.dead = np.zeros(n_shards, bool)
+        self.events: List[Tuple[str, int, str]] = []
+        self._obs = default_registry()
+        self._step = 0
+
+    def heartbeat(self, s: int, wall_s: float):
+        """A successful shard answer: reset the failure streak, feed the
+        monitor; records (and returns) a straggler event if flagged."""
+        self._step += 1
+        self.failures[s] = 0
+        ev = self.monitors[s].heartbeat(self._step, wall_s)
+        if ev.kind == "straggler":
+            self.events.append(("straggler", s, ev.detail))
+        return ev
+
+    def failure(self, s: int, err: Exception) -> bool:
+        """A failed shard attempt. Returns True if the streak just
+        crossed ``dead_after_failures`` (shard now marked dead)."""
+        self.failures[s] += 1
+        self.events.append(("failure", s, repr(err)))
+        self._obs.emit("failure", source=f"serve.shard{s}", target=s,
+                       detail=repr(err))
+        if not self.dead[s] and \
+                self.failures[s] >= self.policy.dead_after_failures:
+            self.mark_dead(s, f"{int(self.failures[s])} consecutive "
+                              f"failures")
+            return True
+        return False
+
+    def mark_dead(self, s: int, reason: str) -> None:
+        self.dead[s] = True
+        self.events.append(("dead", s, reason))
+        self._obs.emit("dead", source=f"serve.shard{s}", target=s,
+                       detail=reason)
+
+    def recover(self, s: int) -> None:
+        """Un-mark a shard (after the operator / fault plan healed it):
+        next request probes it again."""
+        self.dead[s] = False
+        self.failures[s] = 0
+        self.events.append(("recovered", s, ""))
+        self._obs.emit("recovered", source=f"serve.shard{s}", target=s)
+
+    def live_mask(self) -> np.ndarray:
+        return ~self.dead
+
+    @property
+    def n_live(self) -> int:
+        return int((~self.dead).sum())

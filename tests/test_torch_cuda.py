@@ -1006,3 +1006,114 @@ def test_bf16_search_card_equals_cpu(cuda, deferred, shards):
     fl = {d: run(d, cfg, fpca, xf) for d in ("cuda", "cpu")}
     ids_c, ids_h = fl["cuda"][1].numpy(), fl["cpu"][1].numpy()
     assert float((ids_c == ids_h).all(1).mean()) >= 0.95
+
+
+def _int_mutable_setup(n, shards, low_dtype="float32"):
+    """The integer fixture of the mutable tests: integer points, shard
+    graphs built on the CPU, and a coordinate-selecting 'PCA'."""
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.core import distributed, filters
+    from repro_torch.core.graph import build_hnsw
+    rng = np.random.default_rng(12)
+    x = rng.integers(0, 8, (n, 16)).astype(np.float32)
+    cfg = PHNSWConfig(name="intmut", n_points=n, dim=16, d_low=4, M=8,
+                      M0=16, ef_construction=32, wave_size=256,
+                      ef_construction_k=8, min_capacity=32,
+                      low_dtype=low_dtype)
+    graphs = [build_hnsw(x[a:b], cfg, seed=2 + s, device="cpu")
+              for s, (a, b) in enumerate(distributed.shard_bounds(n,
+                                                                  shards))]
+    filt = filters.from_reference("pca", {
+        "mean": np.zeros(16, np.float32),
+        "components": np.eye(16, 4, dtype=np.float32),
+        "explained": np.full(4, 0.25, np.float32),
+        "low_dtype": low_dtype})
+    return cfg, graphs, filt
+
+
+def _mutate(idx, rng):
+    """One upsert past the capacity (a growth), deletes, a
+    replace-upsert and a second upsert, through any index kind."""
+    q = rng.integers(0, 8, (64, 16)).astype(np.float32)
+    g1 = idx.upsert(rng.integers(0, 8, (300, 16)).astype(np.float32))
+    idx.delete(g1[::7])
+    idx.upsert(rng.integers(0, 8, (20, 16)).astype(np.float32),
+               ids=g1[1:21])
+    idx.upsert(rng.integers(0, 8, (90, 16)).astype(np.float32))
+    fd, fi = idx.search(q)
+    return [fd.cpu(), fi.cpu()]
+
+
+@pytest.mark.parametrize("low_dtype", ["float32", "bfloat16"])
+def test_mutable_index_card_equals_cpu(cuda, low_dtype):
+    """On integer data the mutable index is exact: the same graph, the
+    same upserts (the probe on the card), deletes and a growth give the
+    same adjacency, levels, entry and tombstones, and bit-identical
+    search results, on the card and on the CPU; the upserts launch the
+    probe's kernels."""
+    from repro_torch.index import MutableIndex
+    cfg, graphs, filt = _int_mutable_setup(1000, 1, low_dtype)
+    out = {}
+    for d in ("cuda", "cpu"):
+        idx = MutableIndex.from_graph(graphs[0], filt, seed=3, device=d)
+        ops.reset_launch_counts()
+        res = _mutate(idx, np.random.default_rng(5))
+        if d == "cuda":
+            counts = ops.launch_counts()
+        out[d] = (res, idx)
+    (rc, ic), (rh, ih) = out["cuda"], out["cpu"]
+    for a, b in zip(rc, rh):
+        assert torch.equal(a, b)
+    assert (ic.n, ic.cap, ic.entry, ic.epoch) == (ih.n, ih.cap, ih.entry,
+                                                  ih.epoch)
+    np.testing.assert_array_equal(ic.levels, ih.levels)
+    np.testing.assert_array_equal(ic.deleted, ih.deleted)
+    for a, b in zip(ic.adj, ih.adj):
+        np.testing.assert_array_equal(a, b)
+    for la, lb in zip(ic.db.layers, ih.db.layers):
+        assert torch.equal(la.packed_low.cpu(), lb.packed_low)
+    assert torch.equal(ic.db.deleted.cpu(), ih.db.deleted)
+    for name in ("trip_fold", "fused_expand_rows", "dist_h"):
+        assert counts[name] > 0, name
+
+
+def test_sharded_mutable_index_card_equals_cpu(cuda):
+    """The sharded mutable index at P = 4 on integer data: the same
+    global ids and bit-identical search results on the card and on the
+    CPU."""
+    from repro_torch.index import MutableIndex, ShardedMutableIndex
+    cfg, graphs, filt = _int_mutable_setup(1001, 4)
+    out = {}
+    for d in ("cuda", "cpu"):
+        idx = ShardedMutableIndex(
+            [MutableIndex.from_graph(g, filt, seed=10 + s, device=d)
+             for s, g in enumerate(graphs)], filt, cfg)
+        out[d] = _mutate(idx, np.random.default_rng(6)) \
+            + [idx.live_global_ids()]
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(out["cuda"][2], out["cpu"][2])
+
+
+def test_earlier_epoch_stays_frozen_on_card(cuda):
+    """A PackedDB and a ShardedDB held from before an upsert and a delete
+    keep every tensor unchanged on the card: publication is out of
+    place."""
+    from repro_torch.index import MutableIndex, ShardedMutableIndex
+    cfg, graphs, filt = _int_mutable_setup(1001, 4)
+    idx = MutableIndex.from_graph(graphs[0], filt, seed=3, device="cuda")
+    sidx = ShardedMutableIndex(
+        [MutableIndex.from_graph(g, filt, seed=10 + s, device="cuda")
+         for s, g in enumerate(graphs)], filt, cfg)
+    db0, sdb0 = idx.db, sidx.sdb
+    held = [db0.low, db0.high, db0.deleted] \
+        + [t for lay in db0.layers for t in (lay.adj, lay.packed_low)] \
+        + [sdb0.low, sdb0.high, sdb0.deleted] + sdb0.adj + sdb0.packed_low
+    before = [t.clone() for t in held]
+    rng = np.random.default_rng(9)
+    for index in (idx, sidx):
+        ids = index.upsert(rng.integers(0, 8, (40, 16)).astype(np.float32))
+        index.delete(ids[:5])
+    torch.cuda.synchronize()
+    assert idx.db is not db0 and sidx.sdb is not sdb0
+    assert all(torch.equal(a, b) for a, b in zip(before, held))

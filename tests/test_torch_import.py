@@ -39,7 +39,15 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.distributed.faults",
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.decode_attention",
-              "repro_torch.bench.kernel_footprint"):
+              "repro_torch.bench.kernel_footprint",
+              "repro_torch.bench.compact_cost",
+              "repro_torch.configs.base", "repro_torch.core.graph",
+              "repro_torch.obs", "repro_torch.obs.metrics",
+              "repro_torch.obs.trace", "repro_torch.obs.export",
+              "repro_torch.distributed.fault",
+              "repro_torch.index", "repro_torch.index.mutable",
+              "repro_torch.index.sharded", "repro_torch.serve",
+              "repro_torch.serve.vector_service"):
         assert m in got["modules"]
     assert got["bad"] == []
     assert got["built"] == []
