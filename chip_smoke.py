@@ -190,12 +190,45 @@ non-zero:
  12. filters  — the 8k filters table (first 64 queries, B=64) beside the
                 tracked ``BENCH_table3.json`` -> ``filters`` rows; each
                 recall within 0.02 of the tracked one;
- 13. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+ 13. replica  — (runs after 10c) the serve phase's setup cloned into a
+                ``ReplicaSet`` of three replicas, each with its own copy
+                of the index on the card: the ``--queries`` queries
+                through ``rs.query`` (QPS, p50/p99 per request) and
+                bit-equal on every replica; 8 replicated upserts of 128
+                and one delete of 500 (``assert_converged`` at
+                ``applied_seq`` 9); a checkpoint; replica 0 killed by a
+                ``FaultPlan`` -> the request fails over to replica 1
+                and 4 more upserts go in; ``recover(0)`` from the stale
+                checkpoint replays exactly those 4, ``republish(0)``
+                then 0, the three converge, and every id the recovered
+                replica serves is live; every replica killed ->
+                ``AllReplicasDeadError``; seconds per replicated upsert,
+                checkpoint and recovery, and peak device memory; the
+                queries and the upserts must launch ``trip_fold``,
+                ``fused_expand_rows`` and ``dist_h``;
+ 14. table3   — (runs after 13) the paper's Table III and Fig 5 on shard
+                0's graph over the first 200 queries: the host oracle's
+                HNSW-CPU and pHNSW-CPU rows (this machine's CPU; its time
+                measured on 20 queries first, and the count cut, with a
+                ``reduced`` line, if the four passes would pass 90 s),
+                the six rows of the cost model of the PAPER's 65 nm
+                processor (not the card) with its orderings held,
+                ``layout3_memory``, the Fig 5 energy rows, and the card's
+                batched rows ``table3/pHNSW-torch-batched/pca`` and
+                ``/none`` at ``--batch`` on the same queries padded to
+                one batch: the pca recall@10 within 0.02 of pHNSW-CPU's;
+                ``record_search_stats`` folds the pca batch into a fresh
+                registry (its seven families) and prints the measured
+                and predicted us per query and their ratio;
+ 15. the ``{"kernels": [...]}`` line (each kernel's ``launches`` sums
+     every main-path run, ``launches_replica`` and ``launches_table3``
+     included), the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main-path run (the footprint
-bench, the build, each single-shard arm, each sharded arm and each part
-of the serve phases) and read just after. The degraded and resilient phases need P >= 2 and are
+bench, the build, each single-shard arm, each sharded arm, each part
+of the serve and replica phases and the table3 batched rows) and read
+just after. The degraded and resilient phases need P >= 2 and are
 skipped at ``--shards 1``, which otherwise gives the single-shard smoke
 over all ``--n`` points. It needs no network and one card, and exits
 non-zero without CUDA or without the ``src/repro_torch`` package beside
@@ -2136,6 +2169,251 @@ def run_serve_sharded(torch, np, graphs, filt, q, gt, batch: int,
     return out
 
 
+# phase replica: 3 replicas of the serve phase's index; replicated
+# upserts of one insert batch each, one delete, and the upserts that go
+# in while replica 0 is dead (the gap its recovery replays)
+REPLICAS, REPLICA_UPSERTS, REPLICA_DELETES, REPLICA_GAP = 3, 8, 500, 4
+REPLICA_KERNELS = ("trip_fold", "fused_expand_rows", "dist_h")
+# phase table3: the reference bench's 200 queries, and the host oracle's
+# time budget on the card machine's CPU (past it the queries are cut)
+TABLE3_QUERIES, TABLE3_HOST_BUDGET_S = 200, 90.0
+TABLE3_KERNELS = ("trip_fold", "fused_expand_rows", "dist_h")
+# the seven metric families of the cost bridge
+BRIDGE_FAMILIES = ("phnsw_search_steps", "phnsw_search_dist_h_evals",
+                   "phnsw_search_coverage", "phnsw_search_batches_total",
+                   "phnsw_query_measured_us", "phnsw_query_predicted_us",
+                   "phnsw_cost_ratio")
+
+
+def run_replica(torch, np, g, filt, q, batch: int, seed: int, n_base: int,
+                device: str = "cuda") -> dict:
+    """The serve phase's setup (shard 0's ``MutableIndex`` reserved to
+    ``SERVE_RESERVE`` behind a ``VectorSearchService``) cloned by
+    ``ReplicaSet.replicate`` into ``REPLICAS`` replicas, each with its own
+    copy of the index on the card: ``q`` through ``rs.query`` (QPS and
+    p50/p99 per request), bit-equal on every replica; replicated upserts
+    and a delete, converged at ``applied_seq`` 9; a checkpoint; replica 0
+    killed by a ``FaultPlan`` -> the same request fails over, more upserts
+    go in; ``recover(0)`` from the stale checkpoint replays exactly the
+    gap, ``republish(0)`` then replays nothing, the three replicas
+    converge, and every id the recovered replica serves is live; every
+    replica killed -> ``AllReplicasDeadError``. Launch counts are reset
+    just before each part (query, upsert) and read just after."""
+    import shutil
+    from repro_torch.distributed import faults
+    from repro_torch.distributed.faults import (AllReplicasDeadError,
+                                                FaultPlan)
+    from repro_torch.index import MutableIndex
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ReplicaSet, VectorSearchService
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "replica", "n_points": len(g.x), "queries": len(q),
+           "batch": batch, "replicas": REPLICAS}
+    t_phase = t0 = time.perf_counter()
+    snap_dir = ROOT / "build" / "replica_snapshots"
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    idx = MutableIndex.from_graph(g, filt, seed=seed + 1, device=device)
+    idx.reserve(SERVE_RESERVE)
+    svc = VectorSearchService(idx, batch_size=batch, device=device)
+    rs = ReplicaSet.replicate(svc, REPLICAS, snapshot_dir=snap_dir)
+    sync()
+    out["setup_seconds"] = time.perf_counter() - t0
+    out["devices"] = sorted({str(r.svc.device) for r in rs.replicas})
+    need(len({id(r.svc._mut) for r in rs.replicas}) == REPLICAS,
+         "replica: the replicas share an index")
+    launches = {}
+
+    ops.reset_launch_counts()
+    lat, got = [], []
+    for i in range(0, len(q), batch):
+        t1 = time.perf_counter()
+        got.append(rs.query(q[i:i + batch]))
+        lat.append(time.perf_counter() - t1)
+    launches["query"] = ops.launch_counts()
+    out["query"] = {"seconds": sum(lat), "qps": len(q) / sum(lat),
+                    "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                    "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                    "requests": len(lat)}
+    same = True
+    for r in rs.replicas[1:]:
+        for j, i in enumerate(range(0, len(q), batch)):
+            a = r.svc.query(q[i:i + batch])
+            same &= all(np.array_equal(u, v) for u, v in zip(a, got[j]))
+    out["replicas_bit_equal"] = bool(same)
+    need(same, "replica: the replicas answer differently")
+
+    bb = idx.cfg.insert_batch
+    xs = fresh_points(np, n_base, (REPLICA_UPSERTS + REPLICA_GAP) * bb,
+                      seed + 3)
+    ops.reset_launch_counts()
+    up_s = []
+    for i in range(REPLICA_UPSERTS):
+        t1 = time.perf_counter()
+        rs.upsert(xs[i * bb:(i + 1) * bb])
+        sync()
+        up_s.append(time.perf_counter() - t1)
+    launches["upsert"] = ops.launch_counts()
+    doomed = np.random.default_rng(seed + 29).choice(
+        len(g.x), REPLICA_DELETES, replace=False)
+    t1 = time.perf_counter()
+    n_del = rs.delete(doomed)
+    sync()
+    del_s = time.perf_counter() - t1
+    need(n_del == REPLICA_DELETES, f"replica: delete took {n_del}")
+    conv = rs.assert_converged()
+    need(conv["n_healthy"] == REPLICAS and conv["applied_seq"]
+         == REPLICA_UPSERTS + 1, f"replica: converged as {conv}")
+    out["upsert"] = {"calls": len(up_s), "vectors": len(up_s) * bb,
+                     "seconds_per_call": up_s,
+                     "seconds_mean": float(np.mean(up_s))}
+    out["delete"] = {"ids": REPLICA_DELETES, "seconds": del_s}
+    out["converged"] = conv
+
+    t1 = time.perf_counter()
+    ckpt, ckpt_seq = rs.checkpoint()
+    out["checkpoint_seconds"] = time.perf_counter() - t1
+    gap_s = []
+    with faults.inject(FaultPlan()) as plan:
+        plan.add("kill_replica", 0)
+        t1 = time.perf_counter()
+        rs.query(q[:batch])
+        out["failover_seconds"] = time.perf_counter() - t1
+        fo_ok = any(e[0] == "failover" and e[1] == 1 for e in rs.events)
+        need(fo_ok and not rs.replicas[0].alive,
+             f"replica: no failover to 1 ({rs.events})")
+        for i in range(REPLICA_UPSERTS, REPLICA_UPSERTS + REPLICA_GAP):
+            t1 = time.perf_counter()
+            rs.upsert(xs[i * bb:(i + 1) * bb])
+            sync()
+            gap_s.append(time.perf_counter() - t1)
+        need(rs.assert_converged()["n_healthy"] == REPLICAS - 1,
+             "replica: the survivors diverged")
+    out["upsert_while_dead"] = {"calls": len(gap_s),
+                                "seconds_per_call": gap_s}
+    behind = rs.seq - ckpt_seq
+    t1 = time.perf_counter()
+    replayed = rs.recover(0, snapshot=ckpt, snapshot_seq=ckpt_seq)
+    sync()
+    out["recover_seconds"] = time.perf_counter() - t1
+    again = rs.republish(0)
+    conv = rs.assert_converged()
+    out.update(ops_replayed=replayed, behind=behind, republished=again,
+               converged_after_recover=conv)
+    need(replayed == behind == REPLICA_GAP and again == 0,
+         f"replica: replayed {replayed} of a {behind}-op gap, then "
+         f"{again}")
+    need(conv["n_healthy"] == REPLICAS and conv["applied_seq"] == rs.seq,
+         f"replica: converged as {conv} after the recovery")
+    live = rs.replicas[1].svc._mut.live_ids()
+    n_dead_ids = 0
+    for i in range(0, len(q), batch):
+        _, fi = rs.replicas[0].svc.query(q[i:i + batch])
+        n_dead_ids += int((~np.isin(fi, live)).sum())
+    out["recovered_dead_ids"] = n_dead_ids
+    need(n_dead_ids == 0, f"replica: the recovered replica served "
+         f"{n_dead_ids} ids that are not live")
+    with faults.inject(FaultPlan()) as plan:
+        plan.add("kill_replica", -1)
+        try:
+            rs.query(q[:batch])
+            all_dead = False
+        except AllReplicasDeadError:
+            all_dead = True
+    out["all_dead_raised"] = all_dead
+    need(all_dead, "replica: a query with every replica dead served")
+    out["events"] = [list(e) for e in rs.events]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if device == "cuda" else None
+    out["launches"] = launches
+    del rs, svc, idx
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_table3(torch, np, g, x, pca, filt, q, gt, batch: int,
+               device: str = "cuda") -> dict:
+    """The paper's Table III and Fig 5 on ``g`` (shard 0's graph) over the
+    first ``TABLE3_QUERIES`` queries: the host oracle's HNSW-CPU and
+    pHNSW-CPU rows (timed on this machine's CPU; a pilot of 20 queries
+    first, and the query count cut if the four passes would pass
+    ``TABLE3_HOST_BUDGET_S``), the six rows of the cost model of the
+    paper's 65 nm processor from the oracle's traces (its orderings
+    held), ``layout3_memory``, and the card's batched pca and none rows
+    at ``batch`` on the same queries padded to one batch: the pca
+    recall@10 within 0.02 of pHNSW-CPU's. ``record_search_stats`` folds
+    the card's pca batch into a fresh registry. Launch counts are reset
+    just before the batched rows and read just after."""
+    from repro_torch.bench import table3_qps as t3q
+    from repro_torch.bench.fig5_energy import energy_rows
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Registry, record_search_stats
+    out = {"phase": "table3", "n_points": len(g.x), "batch": batch}
+    t_phase = time.perf_counter()
+    x_low = filt.encode(x)
+    n = min(TABLE3_QUERIES, len(q))
+    pilot = min(20, n)
+    t0 = time.perf_counter()
+    t3q.host_rows(g, x_low, pca, q[:pilot], gt[:pilot])
+    out["host_pilot"] = {"queries": pilot,
+                         "seconds": time.perf_counter() - t0}
+    projected = out["host_pilot"]["seconds"] * n / pilot
+    if projected > TABLE3_HOST_BUDGET_S:
+        n_cut = max(pilot, int(n * TABLE3_HOST_BUDGET_S / projected))
+        emit({"reduced": {"table3_queries": n_cut, "of": n, "why": (
+            f"the host oracle's four passes would take {projected:.1f} s "
+            f"on this machine's CPU, over the {TABLE3_HOST_BUDGET_S} s "
+            "the smoke gives them")}})
+        n = n_cut
+    qn, gtn = q[:n], gt[:n]
+    out["queries"] = n
+    rows, traces, host = t3q.host_rows(g, x_low, pca, qn, gtn)
+    out["host"] = host
+    crows, t3 = t3q.cost_rows(traces, n, x.shape[1], x_low.shape[1])
+    out["cost_model"] = "the paper's 65 nm pHNSW processor with DDR4 / " \
+        "HBM1.0 (core/cost_model.py), not the card"
+    ops.reset_launch_counts()
+    brows, ms = t3q.batched_rows(g.cfg, x, g, pca, qn, gtn, batch=batch,
+                                 reps=5, device=device)
+    out["launches"] = ops.launch_counts()
+    rows += crows + [t3q.layout3_row(ms[0]["bytes_layout3"], x)] + brows
+    rows += energy_rows(t3)
+    out["rows"] = [{"name": nm, "us": us, "derived": d}
+                   for nm, us, d in rows]
+    pca_m, none_m = ms
+    out["batched"] = {m["name"]: {k: m[k] for k in (
+        "qps", "us_per_query", "recall", "steps_mean", "dist_h_mean",
+        "wall_s")} for m in ms}
+    gap = abs(pca_m["recall"] - host["phnsw_recall"])
+    out["recall_gap_vs_host"] = gap
+    need(gap <= 0.02, f"table3: the card's pca recall@10 "
+         f"{pca_m['recall']} is {gap} from the host oracle's "
+         f"{host['phnsw_recall']}")
+    for d in ("DDR4", "HBM"):
+        need(t3["pHNSW"][d].qps > t3["pHNSW-Sep"][d].qps
+             and t3["pHNSW"][d].qps > t3["HNSW-Std"][d].qps,
+             f"table3: the modeled pHNSW is not the fastest on {d}")
+        need(t3["pHNSW"][d].energy_uj < min(t3["HNSW-Std"][d].energy_uj,
+                                            t3["pHNSW-Sep"][d].energy_uj),
+             f"table3: the modeled pHNSW is not the lowest energy on {d}")
+    for v in t3:
+        need(t3[v]["HBM"].qps >= t3[v]["DDR4"].qps,
+             f"table3: {v} is slower on HBM than on DDR4")
+    reg = Registry()
+    br = record_search_stats(pca_m["stats"], wall_s=pca_m["wall_s"],
+                             n_queries=n, registry=reg, cfg=g.cfg,
+                             filt=filt)
+    missing = [f for f in BRIDGE_FAMILIES if reg.get(f) is None]
+    need(not missing, f"table3: the bridge left out {missing}")
+    out["bridge"] = {k: br[k] for k in ("steps_mean", "dist_h_mean",
+                                        "measured_us", "predicted_us",
+                                        "cost_ratio")}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def profile_batch(torch, fn, top: int = 10) -> dict:
     """One extra call of ``fn`` under torch.profiler: device time by
     kernel name and the device's busy share of the profiled window (the
@@ -2879,6 +3157,18 @@ def main(argv=None) -> int:
         serve_launches.append(sserve["launches"])
     else:
         emit({"phase": "serve_sharded", "skipped": "needs --shards >= 2"})
+    rep = run_replica(torch, np, g0, filts["pca"], q, args.batch, args.seed,
+                      args.n)
+    emit(rep)
+    for part in ("query", "upsert"):
+        for name in REPLICA_KERNELS:
+            need(rep["launches"][part][name] > 0,
+                 f"replica: the {part} part never launched {name}")
+    t3 = run_table3(torch, np, g0, x[:n0], pca, filts["pca"], q, gt0,
+                    args.batch)
+    emit(t3)
+    for name in TABLE3_KERNELS:
+        need(t3["launches"][name] > 0, f"table3: never launched {name}")
     del x, graphs, g0
 
     parity, table = run_parity(torch, np)
@@ -2891,16 +3181,21 @@ def main(argv=None) -> int:
         per_arm = {s["arm"]: s["launches"][name] for s in souts}
         per_sharded = {s["arm"]: s["launches"][name] for s in shouts}
         n_serve = sum(c[name] for c in serve_launches)
+        n_replica = sum(c[name] for c in rep["launches"].values())
+        n_table3 = t3["launches"][name]
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "shape": list(shape),
                      "launches": bout["launches"][name]
                      + sum(per_arm.values()) + sum(per_sharded.values())
-                     + fout["launches"][name] + n_serve,
+                     + fout["launches"][name] + n_serve + n_replica
+                     + n_table3,
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
                      "launches_sharded": per_sharded,
                      "launches_footprint": fout["launches"][name],
                      "launches_serve": n_serve,
+                     "launches_replica": n_replica,
+                     "launches_table3": n_table3,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

@@ -48,6 +48,18 @@ class HNSWGraph:
     def n(self) -> int:
         return len(self.x)
 
+    def degree(self, layer: int) -> int:
+        return self.layers[layer].shape[1]
+
+    def stats(self) -> dict:
+        return {
+            "n": self.n,
+            "levels_max": int(self.levels.max()),
+            "layer_sizes": [int((self.levels >= l).sum())
+                            for l in range(len(self.layers))],
+            "mean_degree0": float((self.layers[0] >= 0).sum(1).mean()),
+        }
+
 
 def _search_layer_build(x, adj, q, eps, ef):
     """Beam search in one layer during construction. Returns list of

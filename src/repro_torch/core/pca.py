@@ -48,6 +48,9 @@ class PCA:
         mean, comps = self._dev[key]
         return torch.matmul(x.to(torch.float32) - mean, comps)
 
+    def inverse(self, z):
+        return z @ self.components.T + self.mean
+
 
 def fit_pca(x: np.ndarray, d_low: int) -> PCA:
     """x: [N, D] float; exact PCA via covariance eigendecomposition."""

@@ -130,24 +130,30 @@ def adc_table(cb: PQCodebook, q: np.ndarray) -> np.ndarray:
     return tabs
 
 
+def adc_tables_from_centroids(centroids, q, xp):
+    """Backend-generic batched ADC tables: centroids [M, 256, dsub],
+    q [B, D] -> [B, M, 256] f32. ONE implementation shared by the host
+    tables (``adc_table_batch``, xp=numpy) and the device prep
+    (``adc_tables_torch``, xp=torch) so the two cannot drift."""
+    B = q.shape[0]
+    M, _, dsub = centroids.shape
+    q = q.astype(xp.float32) if xp is np else q.to(xp.float32)
+    qs = q.reshape(B, M, 1, dsub)
+    return ((qs - centroids[None]) ** 2).sum(-1)
+
+
 def adc_table_batch(cb: PQCodebook, q: np.ndarray) -> np.ndarray:
     """Batched ADC tables: q [B, D] -> [B, n_sub, 256] f32 — the
     per-query preparation of the PQ filter on the host."""
-    B = q.shape[0]
-    M, _, dsub = cb.centroids.shape
-    qs = q.astype(np.float32).reshape(B, M, 1, dsub)
-    return ((qs - cb.centroids[None]) ** 2).sum(-1)
+    return adc_tables_from_centroids(cb.centroids, q, np)
 
 
 def adc_tables_torch(centroids_t: torch.Tensor,
                      q_t: torch.Tensor) -> torch.Tensor:
     """Batched ADC tables on the tensors' device: centroids [M, 256,
     dsub], q [B, D] -> [B, M, 256] f32 (the device prep of the PQ and
-    cascade filters; the arithmetic of ``adc_table_batch``)."""
-    B = q_t.shape[0]
-    M, _, dsub = centroids_t.shape
-    qs = q_t.to(torch.float32).reshape(B, M, 1, dsub)
-    return ((qs - centroids_t[None]) ** 2).sum(-1)
+    cascade filters)."""
+    return adc_tables_from_centroids(centroids_t, q_t, torch)
 
 
 def adc_distances(tabs: np.ndarray, codes: np.ndarray) -> np.ndarray:

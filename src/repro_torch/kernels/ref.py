@@ -27,13 +27,17 @@ def dist_l_ref(x, q):
     return torch.sum(d * d, dim=-1)
 
 
-def ksort_l_ref(d, k: int):
+def ksort_l_ref(d, k: int, valid=None):
     """kSort.L: the k smallest (dist, index) pairs of each row, ascending,
     ties -> lower index (a stable sort gives exactly the reference's
     comparison-matrix rank order). d: [B, M] -> (vals [B, k] f32, idx
-    [B, k] int32). For k > M the reference leaves slots M..k-1 as
+    [B, k] int32). ``valid``: optional [B, M] bool mask; invalid entries
+    become ``float("inf")`` (the reference's ``jnp.inf``, not ``INF``)
+    and sort last. For k > M the reference leaves slots M..k-1 as
     (0.0, 0); this version keeps that quirk."""
     d = d.to(torch.float32)
+    if valid is not None:
+        d = torch.where(valid, d, torch.full_like(d, float("inf")))
     B, M = d.shape
     vals, idx = torch.sort(d, dim=1, stable=True)
     vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)

@@ -1,8 +1,8 @@
 """Unified observability plane (port of ``repro/obs``): metrics registry,
-per-request trace spans and exporters. Dependency-free (numpy only).
-The device-telemetry cost bridge (``repro/obs/bridge.py``) is not ported
-yet: it needs the cost model and the host search's stats (ROADMAP.md
-A9)."""
+per-request trace spans, exporters and the device-telemetry cost bridge.
+Dependency-free (numpy only): the bridge imports the cost model and the
+host oracle inside ``predicted_query_ns``, so importing this package
+pulls in no torch module."""
 from repro_torch.obs.metrics import (Counter, Family, Gauge, Histogram,
                                      ObsEvent, Registry, counter,
                                      default_registry, emit_event, gauge,
@@ -10,6 +10,7 @@ from repro_torch.obs.metrics import (Counter, Family, Gauge, Histogram,
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER, Span, Tracer
 from repro_torch.obs.export import (parse_prometheus, prometheus_families,
                                     snapshot, snapshot_json, to_prometheus)
+from repro_torch.obs.bridge import predicted_query_ns, record_search_stats
 
 __all__ = [
     "Counter", "Family", "Gauge", "Histogram", "ObsEvent", "Registry",
@@ -17,4 +18,5 @@ __all__ = [
     "NULL_SPAN", "NULL_TRACER", "Span", "Tracer",
     "parse_prometheus", "prometheus_families", "snapshot",
     "snapshot_json", "to_prometheus",
+    "predicted_query_ns", "record_search_stats",
 ]

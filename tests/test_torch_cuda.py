@@ -1117,3 +1117,83 @@ def test_earlier_epoch_stays_frozen_on_card(cuda):
     torch.cuda.synchronize()
     assert idx.db is not db0 and sidx.sdb is not sdb0
     assert all(torch.equal(a, b) for a, b in zip(before, held))
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_replica_set_failover_and_recovery_on_card(cuda, shards, tmp_path):
+    """A 3-replica set on the card at N = 600: the replicas answer bit
+    for bit alike and equal to the CPU's same set, ``rs.query`` equals a
+    single replica's answer, a killed primary fails over, a stale
+    checkpoint recovers it with exactly the gap replayed, and the set
+    converges; the queries and upserts launch the search's kernels."""
+    from repro_torch.distributed import faults
+    from repro_torch.distributed.faults import (AllReplicasDeadError,
+                                                FaultPlan)
+    from repro_torch.index import MutableIndex, ShardedMutableIndex
+    from repro_torch.serve import ReplicaSet, VectorSearchService
+    cfg, graphs, filt = _int_mutable_setup(600, shards)
+    rng = np.random.default_rng(21)
+    q = rng.integers(0, 8, (16, 16)).astype(np.float32)
+    new = rng.integers(0, 8, (8, 16)).astype(np.float32)
+    out = {}
+    for d in ("cuda", "cpu"):
+        if shards == 1:
+            idx = MutableIndex.from_graph(graphs[0], filt, seed=3,
+                                          device=d)
+        else:
+            idx = ShardedMutableIndex(
+                [MutableIndex.from_graph(g, filt, seed=10 + s, device=d)
+                 for s, g in enumerate(graphs)], filt, cfg)
+        svc = VectorSearchService(idx, batch_size=16, device=d)
+        rs = ReplicaSet.replicate(svc, 3, snapshot_dir=tmp_path / d)
+        assert all(r.svc.device.type == d for r in rs.replicas)
+        ops.reset_launch_counts()
+        answers = [r.svc.query(q) for r in rs.replicas]
+        via = rs.query(q)
+        for a in answers[1:] + [via]:
+            assert all(np.array_equal(u, v) for u, v in zip(a, answers[0]))
+        gids = rs.upsert(new[:4])
+        assert rs.delete(gids[:1]) == 1
+        counts = ops.launch_counts()
+        ckpt, seq = rs.checkpoint()
+        with faults.inject(FaultPlan()) as plan:
+            plan.add("kill_replica", 0)
+            rs.query(q)
+            assert ("failover", 1, "primary -> 1") in rs.events
+            rs.upsert(new[4:])
+            with pytest.raises(AllReplicasDeadError):
+                plan.add("kill_replica", -1)
+                rs.query(q)
+        rs.replicas[1].alive = rs.replicas[2].alive = True
+        assert rs.recover(0, snapshot=ckpt, snapshot_seq=seq) == 1
+        assert rs.republish(0) == 0
+        rep = rs.assert_converged()
+        assert rep["n_healthy"] == 3 and rep["applied_seq"] == 3
+        live = rs.replicas[1].svc._mut.live_ids()
+        assert np.isin(rs.replicas[0].svc.query(q)[1], live).all()
+        out[d] = [r.svc.query(q) for r in rs.replicas]
+        if d == "cuda":
+            for name in ("trip_fold", "fused_expand_rows", "dist_h"):
+                assert counts[name] > 0, name
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert all(np.array_equal(u, v) for u, v in zip(a, b))
+
+
+def test_record_search_stats_on_card_batch(cuda):
+    """The bridge folds a card batch's telemetry (CUDA tensors) exactly
+    as the same batch's on the CPU."""
+    from repro_torch.core.search_torch import build_packed, search_batched
+    from repro_torch.obs import Registry, record_search_stats
+    cfg, graphs, filt = _int_mutable_setup(600, 1)
+    q = np.random.default_rng(4).integers(0, 8, (32, 16)).astype(np.float32)
+    outs = {}
+    for d in ("cuda", "cpu"):
+        db = build_packed(graphs[0], filt=filt, device=d)
+        _, _, st = search_batched(db, q, filt=filt, return_stats=True,
+                                  device=d)
+        reg = Registry()
+        outs[d] = record_search_stats(st, wall_s=0.002, registry=reg,
+                                      cfg=cfg, filt=filt)
+        assert reg.histogram("phnsw_search_steps").count == 32
+        assert st["steps_total"].device.type == d
+    assert outs["cuda"] == outs["cpu"]

@@ -47,8 +47,32 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.distributed.fault",
               "repro_torch.index", "repro_torch.index.mutable",
               "repro_torch.index.sharded", "repro_torch.serve",
-              "repro_torch.serve.vector_service"):
+              "repro_torch.serve.vector_service",
+              "repro_torch.serve.replica", "repro_torch.core.search_ref",
+              "repro_torch.core.cost_model", "repro_torch.core.kselect",
+              "repro_torch.obs.bridge", "repro_torch.bench.common",
+              "repro_torch.bench.table3_qps",
+              "repro_torch.bench.fig5_energy",
+              "repro_torch.bench.fig2_kselect"):
         assert m in got["modules"]
     assert got["bad"] == []
     assert got["built"] == []
     assert set(got["launches"].values()) == {0}
+
+
+def test_chip_smoke_imports_no_jax():
+    """``chip_smoke.py`` runs where only PyTorch is installed: none of
+    its imports, at module level or inside a phase, names jax or the JAX
+    package."""
+    import ast
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert "repro_torch.serve" in names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                   "repro")]
+    assert bad == []

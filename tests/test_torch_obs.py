@@ -6,10 +6,11 @@ This file imports no jax (the card's machine has none): log-bucketed
 histograms with exact-to-bucket percentiles and lossless merge,
 thread-safe counters, labeled families, in-place registry reset, trace
 spans and the zero-allocation disabled path, the Prometheus and JSON
-exporters, and the unified event stream. The device-telemetry cost
-bridge (``repro/obs/bridge.py``) and ``ReplicaSet`` are not ported yet
-(ROADMAP.md A9, A6), so their cases wait with them; the traced service
-cases are in tests/test_torch_service.py."""
+exporters, the unified event stream, the device-telemetry cost bridge
+(``repro_torch.obs.bridge``) and the traced ``ReplicaSet`` failover and
+recovery. The traced service cases are in tests/test_torch_service.py;
+the bridge and ``ReplicaSet`` are held against the reference in
+tests/test_torch_oracle.py and tests/test_torch_replica.py."""
 import json
 import threading
 
@@ -20,7 +21,8 @@ from repro_torch.distributed.fault import StepMonitor
 from repro_torch.distributed.faults import FaultPolicy, ShardHealth
 from repro_torch.obs import (NULL_SPAN, NULL_TRACER, Registry, Span, Tracer,
                              parse_prometheus, prometheus_families,
-                             snapshot_json, to_prometheus)
+                             record_search_stats, snapshot_json,
+                             to_prometheus)
 from repro_torch.obs.metrics import DEFAULT, Histogram
 
 
@@ -219,6 +221,97 @@ def test_prometheus_roundtrip_and_snapshot_stability():
     assert lat["children"][0]["p50"] > 0
 
 
+# --------------------------------------------------------------------------
+# the device-telemetry cost bridge
+# --------------------------------------------------------------------------
+
+def test_bridge_folds_telemetry_and_prices_queries():
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.obs.bridge import predicted_query_ns
+    cfg = PHNSWConfig()
+    reg = Registry()
+    stats = {"steps_total": np.full(32, 20.0),
+             "dist_h_evals": np.full(32, 60.0), "coverage": 1.0}
+    out = record_search_stats(stats, wall_s=0.004, registry=reg,
+                              cfg=cfg)
+    assert reg.histogram("phnsw_search_steps").count == 32
+    assert reg.histogram("phnsw_search_dist_h_evals").count == 32
+    assert reg.gauge("phnsw_search_coverage").value == 1.0
+    assert out["steps_mean"] == 20.0 and out["dist_h_mean"] == 60.0
+    assert out["measured_us"] == pytest.approx(125.0)
+    assert out["predicted_us"] > 0
+    assert out["cost_ratio"] == pytest.approx(
+        out["measured_us"] / out["predicted_us"])
+    assert reg.histogram("phnsw_cost_ratio").count == 1
+    # the prediction is monotone in the telemetry it prices
+    lo = predicted_query_ns(cfg, steps_mean=10, dist_h_mean=30)
+    hi = predicted_query_ns(cfg, steps_mean=40, dist_h_mean=120)
+    assert hi > lo > 0
+
+
+def test_obs_import_pulls_in_no_torch(tmp_path):
+    """``repro_torch.obs`` (the bridge included) stays numpy-only: its
+    cost-model imports wait inside ``predicted_query_ns``."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    probe = ("import sys, repro_torch.obs; "
+             "print(sorted(m for m in sys.modules if m == 'torch' or "
+             "m.startswith(('torch.', 'repro_torch.core'))))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=str(src)),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+# --------------------------------------------------------------------------
+# ReplicaSet: failover and recovery, traced
+# --------------------------------------------------------------------------
+
+def test_replica_failover_and_recovery_trace(tmp_path):
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.core.graph import build_hnsw
+    from repro_torch.core.pca import fit_pca
+    from repro_torch.data.vectors import make_queries, make_sift_like
+    from repro_torch.index import MutableIndex
+    from repro_torch.serve.replica import ReplicaSet
+    from repro_torch.serve.vector_service import VectorSearchService
+    cfg = PHNSWConfig(name="obs-rep", n_points=600, ef_construction=32)
+    x = make_sift_like(600, seed=61)
+    q = make_queries(x, 8, seed=62)
+    pca = fit_pca(x, cfg.d_low)
+    idx = MutableIndex.from_graph(build_hnsw(x, cfg, seed=0, device="cpu"),
+                                  pca, seed=1, device="cpu")
+    svc = VectorSearchService(idx, batch_size=8, device="cpu")
+    tracer = Tracer()
+    rs = ReplicaSet.replicate(svc, 2, snapshot_dir=tmp_path)
+    rs.tracer = tracer
+    rs.query(q)
+    rq = tracer.last("replica.query")
+    # the serving replica's request span is PARENTED under the
+    # failover loop's span (explicit context passing end to end)
+    assert [s.name for s in rq.iter_spans()][:2] == ["replica.query",
+                                                     "serve.query"]
+    assert rq.attrs["served_by"] == 0
+    rs.upsert(make_sift_like(4, seed=63))
+    rs._mark_dead(0, "test kill")
+    rs.query(q)
+    rq2 = tracer.last("replica.query")
+    assert rq2.attrs["served_by"] == 1
+    rs.recover(0)
+    rc = tracer.last("replica.recover")
+    names = [s.name for s in rc.iter_spans()]
+    assert names == ["replica.recover", "replica.checkpoint",
+                     "snapshot.ship", "oplog.replay"]
+    assert rc.attrs["replica"] == 0
+    assert rc.find("oplog.replay").attrs["n_replayed"] >= 0
+    rs.assert_converged()
+    # each replica owns its own copy of the index, on the donor's device
+    assert rs.replicas[0].svc._mut is not rs.replicas[1].svc._mut
+    assert rs.replicas[0].svc.device == svc.device
 
 
 # --------------------------------------------------------------------------
