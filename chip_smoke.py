@@ -33,7 +33,11 @@ non-zero:
                 insert probe, B=128 at ef 100 with tombstones; its
                 ``fused_expand_rows`` and ``dist_h`` rows at B=128 too)
                 and at W = 4, 8 and a
-                frontier past shared memory, and ``pq_expand_rows`` (the
+                frontier past shared memory, then gated per row (row
+                ``trip_fold_gated``: random ``ef_eff`` and ``pop``, the
+                scheduler's bank of 64 slots at ef 10 and 30, the block
+                and the global tier; every row popped at the compiled
+                bound equal to the ungated kernel), and ``pq_expand_rows`` (the
                 PQ expand with its row gathers) at the pq and
                 cascade arms' layer 0 and W = 4, 8: each bit for bit
                 against its plain version (raw f32 bits) on integer and
@@ -178,7 +182,11 @@ non-zero:
                 data with and without tombstones, the same recall and id
                 bars on float data; with layout (3) in bf16, pca and
                 pca-deferred bit-identical on integer data, single-shard
-                and at P=4 (with and without tombstones); and the pca arm at expand_width W = 4
+                and at P=4 (with and without tombstones); ``run_stream()``
+                through the scheduler (``stream``), single-shard and at
+                P=4, bit-identical card against CPU and equal to the
+                card's ``run_stream_sync()``; and the pca arm at
+                expand_width W = 4
                 and 8 (128 and 256 expand slots a row), card against CPU
                 on both fixtures (``wide``); the mutable index (``mutable``)
                 and the sharded one at P=4 on the integer data, card
@@ -220,15 +228,34 @@ non-zero:
                 ``record_search_stats`` folds the pca batch into a fresh
                 registry (its seven families) and prints the measured
                 and predicted us per query and their ratio;
+ 14b. stream  — (runs after 14) the continuous-batching scheduler:
+                shard 0's ``MutableIndex`` behind a service of 64 (the
+                bank's S = 64 slots): ``--stream-queries`` (10k) queries
+                through ``run_stream()`` (the scheduler) and
+                ``run_stream_sync()``, bit-equal, with QPS, p50 and p99
+                of each and the escalations; 2,000 mixed-k submits (k
+                10, 50, 100) at ``scheduler(ef=100)``: each rid exactly
+                once with k ids, recall@10 >= 0.80; a pca-deferred
+                service's scheduler bit-equal to its sync path; the P=4
+                service over all points behind a ``FaultPolicy``:
+                healthy bit-equal to its sync path, then shard 2 killed
+                by a ``FaultPlan`` until marked dead: every completion
+                degraded with the exact coverage, none of its ids, equal
+                to the degraded sync answers; ``slot_cache_sizes()``
+                unchanged after each scheduler's warm-up; and
+                ``repro_torch.bench.load`` at 0.5 and 0.9 of capacity
+                (capacity, ``sync_tight``, the scheduler arm, the cost
+                bridge); the scheduler parts must launch the gated fold,
+                the sync part never;
  15. the ``{"kernels": [...]}`` line (each kernel's ``launches`` sums
-     every main-path run, ``launches_replica`` and ``launches_table3``
-     included), the ``nvidia-smi`` line, and last
+     every main-path run, ``launches_replica``, ``launches_table3`` and
+     ``launches_stream`` included), the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main-path run (the footprint
 bench, the build, each single-shard arm, each sharded arm, each part
-of the serve and replica phases and the table3 batched rows) and read
-just after. The degraded and resilient phases need P >= 2 and are
+of the serve, replica and stream phases and the table3 batched rows)
+and read just after. The degraded and resilient phases need P >= 2 and are
 skipped at ``--shards 1``, which otherwise gives the single-shard smoke
 over all ``--n`` points. It needs no network and one card, and exits
 non-zero without CUDA or without the ``src/repro_torch`` package beside
@@ -629,14 +656,17 @@ def _fold_case(np, rng, B, ef, cap, k, kk, integer, n_ids=50_000):
 
 
 def _library_fold(torch, F_d, F_i, C_d, C_i, W, Cp, dh, cand, kv,
-                  deleted):
+                  deleted, ef_eff=None, pop=None):
     """The fold as library calls: the stable torch.sort route of the
     search body before the fold (accept, where rows, one stable sort of
     each frontier followed by its feed; a stable sort of [a, b] keeps
-    the merge's ties, the a side first, then the lower slot)."""
+    the merge's ties, the a side first, then the lower slot); gated per
+    row by ``ef_eff`` (the bound's slot) and ``pop``."""
     B = dh.shape[0]
     inf = 3.4e38
-    acc = dh < F_d[:, -1:]
+    bnd = F_d[:, -1:] if ef_eff is None else torch.gather(
+        F_d, 1, (ef_eff.clamp(1, F_d.shape[1]) - 1).long()[:, None])
+    acc = dh < bnd
     cd = torch.where(acc, dh, inf)
     ci = torch.where(acc, cand, -1)
     fd, fi = cd, ci
@@ -654,8 +684,12 @@ def _library_fold(torch, F_d, F_i, C_d, C_i, W, Cp, dh, cand, kv,
     out = list(merge(F_d, F_i, fd, fi, F_d.shape[1]))
     pad_d = C_d.new_full((B, W), inf)
     pad_i = C_i.new_full((B, W), -1)
-    out += merge(torch.cat([C_d[:, W:], pad_d], 1),
-                 torch.cat([C_i[:, W:], pad_i], 1), cd, ci, C_d.shape[1])
+    sh_d = torch.cat([C_d[:, W:], pad_d], 1)
+    sh_i = torch.cat([C_i[:, W:], pad_i], 1)
+    if pop is not None:
+        sh_d = torch.where(pop[:, None], sh_d, C_d)
+        sh_i = torch.where(pop[:, None], sh_i, C_i)
+    out += merge(sh_d, sh_i, cd, ci, C_d.shape[1])
     if Cp is not None:
         pv = torch.where(acc, kv, inf) if kv is not None else cd
         out.append(torch.sort(torch.cat([Cp, pv], 1), dim=1,
@@ -698,6 +732,15 @@ FOLD_CASES = [(1024, 10, 16, 1, 16, True, True, False, True),
               (256, 10, 16, 8, 128, True, True, True, False),
               (256, 100, 0, 8, 256, False, False, True, False),
               (2, 30000, 16, 1, 32, True, True, True, False)]
+# the fold gated per row (the slotted search: ``ef_eff`` picks the
+# bound's slot, ``pop`` keeps a done or budget-frozen row's C unpopped),
+# in the same layout: the pca scheduler's bank (S = 64 slots, ef 10, the
+# mutable index's tombstones: row 2c), the pca-deferred bank (ef 30),
+# then the block tier (W = 8) and the global tier
+GATED_FOLD_CASES = [(64, 10, 16, 1, 16, True, True, True, True),
+                    (64, 30, 16, 1, 16, True, False, True, False),
+                    (64, 10, 16, 8, 128, True, True, True, False),
+                    (2, 30000, 16, 1, 32, True, True, True, False)]
 # pq_expand_rows rows: (B, W, M0, S, k, cascade, timed): the pq arm's
 # layer 0 (k = 16 of 32), the cascade-deferred arm's (k = M0), then W =
 # 2 and 4 (64 and 128 slots: the warp tier's other widths) and W = 8
@@ -773,6 +816,51 @@ def check_fold_and_rows(torch, np, rng, T) -> dict:
             plain_ms=graph_ms(lambda: ref.trip_fold_ref(*args)),
             library_ms=graph_ms(lambda: _library_fold(torch, *args)),
             bound=bound_ms(nbytes, nops))
+    for B, ef, k, W, kk, heap, kv_row, tombs, timed in GATED_FOLD_CASES:
+        cap = max(ef + kk, 8)
+        shape = (B, ef, cap, k, kk, W, "heap" if heap else "bypass",
+                 "kv" if kv_row else "-", "tombs" if tombs else "-")
+        for integer in (True, False):
+            F_d, F_i, C_d, C_i, Cp, dh, cand, kv, words = T(
+                *_fold_case(np, rng, B, ef, cap, k, kk, integer))
+            ef_eff, pop = T(rng.integers(1, ef + 1, B).astype(np.int32),
+                            rng.random(B) < 0.6)
+            ef_eff[:1], pop[:1] = ef, True
+            args = (F_d, F_i, C_d, C_i, W, Cp if heap else None, dh, cand,
+                    kv if kv_row else None, words if tombs else None)
+            gates = dict(ef_eff=ef_eff, pop=pop)
+            got = ops.trip_fold(*args, **gates)
+            want = ref.trip_fold_ref(*args, **gates)
+            torch.cuda.synchronize()
+            need(all(torch.equal(bits(g), bits(w)) for g, w in
+                     zip(got, want) if w is not None),
+                 f"trip_fold_gated{shape} (integer={integer}): differs "
+                 "from the plain version")
+            # every row popped at the compiled bound is today's fold
+            full = dict(ef_eff=torch.full_like(ef_eff, ef),
+                        pop=torch.ones_like(pop))
+            need(all(torch.equal(bits(g), bits(w)) for g, w in
+                     zip(ops.trip_fold(*args, **full), ops.trip_fold(*args))
+                     if w is not None),
+                 f"trip_fold_gated{shape}: ungated rows differ from the "
+                 "ungated kernel")
+            if not integer:
+                lib = _library_fold(torch, *args, **gates)
+                need(all(torch.equal(g, w) for g, w in zip(got, lib)),
+                     f"trip_fold_gated{shape}: differs from the library "
+                     "route")
+        if not timed:
+            continue
+        nbytes, nops = _fold_cost(B, ef, cap, k, kk, kv_row, tombs,
+                                  words.numel())
+        out[("trip_fold_gated", shape)] = dict(
+            max_abs_err=0.0,
+            tier=fold_plan(ef, cap, k, kk, smem_optin(F_d.device))["tier"],
+            ms=graph_ms(lambda: ops.trip_fold(*args, **gates)),
+            plain_ms=graph_ms(lambda: ref.trip_fold_ref(*args, **gates)),
+            library_ms=graph_ms(lambda: _library_fold(torch, *args,
+                                                      **gates)),
+            bound=bound_ms(nbytes + B * 5, nops))
     for B, W, M0, S, k, cascade, timed in ROWS_CASES:
         adj, codes, C_i, exp, flat, heap = T(*_rows_case(np, rng, B, W, M0,
                                                          S))
@@ -1854,12 +1942,15 @@ def _epoch_tensors(db) -> list:
         list(db.packed_low)
 
 
-def _stream(svc, q):
+def _stream(svc, q, scheduler=False):
     """``run_stream`` over ``q`` with the service's stats reset just
-    before: (ids, stream stats, seconds)."""
+    before: (ids, stream stats, seconds). The serve, serve_sharded and
+    replica phases keep the synchronous batch path (``scheduler=False``),
+    so their figures compare with earlier runs; the stream phase passes
+    None (the scheduler, ``run_stream``'s default)."""
     svc.stats.reset()
     t0 = time.perf_counter()
-    ids, st = svc.run_stream(q)
+    ids, st = svc.run_stream(q, scheduler=scheduler)
     return ids, st, time.perf_counter() - t0
 
 
@@ -1977,7 +2068,7 @@ def run_serve(torch, np, g, filt, q, batch: int, seed: int, n_base: int,
     need(n_bad == 0, f"serve: {n_bad} deleted ids returned")
     need(rec >= 0.80, f"serve: recall@10 {rec} against the live points "
          "< 0.80")
-    self_ids, _ = svc.run_stream(xs)
+    self_ids, _ = svc.run_stream(xs, scheduler=False)
     self_rec = float((self_ids[:, 0] == new_ids).mean())
     out["self_recall_at_1"] = self_rec
     need(self_rec >= 0.95, f"serve: self-recall {self_rec} < 0.95")
@@ -2133,7 +2224,7 @@ def run_serve_sharded(torch, np, graphs, filt, q, gt, batch: int,
     del held, sdb0
     out["earlier_epoch_unchanged"] = frozen
     need(frozen, "serve_sharded: an earlier epoch's tensors changed")
-    self_ids, _ = svc.run_stream(xs)
+    self_ids, _ = svc.run_stream(xs, scheduler=False)
     self_rec = float((self_ids[:, 0] == gids).mean())
     out["upsert"] = {"vectors": len(xs), "seconds": up_s,
                      "per_shard": np.bincount(gids // sidx.stride,
@@ -2165,6 +2256,251 @@ def run_serve_sharded(torch, np, graphs, filt, q, gt, batch: int,
         if device == "cuda" else None
     out["epoch"] = sidx.epoch
     out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# phase stream: the continuous-batching scheduler (run_stream's default
+# path) on shard 0's mutable index behind a service of STREAM_SLOTS
+# (the bank's S); the mixed-k traffic's k and their shares; the
+# deferred and sharded parts' query counts; the load bench's offered
+# loads, request size, seconds per point and queries (its closed loops
+# serve them all, a request at a time)
+STREAM_SLOTS, STREAM_QUERIES, STREAM_MIXED = 64, 10_000, 2_000
+STREAM_KS, STREAM_K_SHARES = (10, 50, 100), (0.45, 0.45, 0.10)
+STREAM_DEFERRED, STREAM_SHARDED = 2_000, 1_000
+STREAM_LOAD_FRACS, STREAM_LOAD_REQ, STREAM_LOAD_SECONDS = (0.5, 0.9), 16, 3.0
+STREAM_LOAD_QUERIES = 256
+# the kernels the scheduler's parts must launch (the gated fold on every
+# slotted trip; dist_l scores the deferred admissions' entry points)
+STREAM_KERNELS = ("trip_fold", "trip_fold_gated", "fused_expand_rows",
+                  "dist_h")
+STREAM_DEFERRED_KERNELS = ("trip_fold_gated", "fused_expand_rows", "dist_h",
+                           "dist_l")
+
+
+def _sched_counters(svc) -> dict:
+    reg = svc.stats.registry
+    shed = reg.get("phnsw_sched_shed_total")
+    return {"escalations": reg.get("phnsw_sched_escalations_total").value,
+            "admitted": reg.get("phnsw_sched_admitted_total").value,
+            "retired": reg.get("phnsw_sched_retired_total").value,
+            "shed": sum(c.value for c in shed.children()) if shed else 0}
+
+
+def _drain_all(sched, q, ks) -> list:
+    """Submit ``q[i]`` with k ``ks[i]`` as rid i, ticking whenever the
+    queue is full, then drain; every completion in retirement order."""
+    comps = []
+    for i in range(len(q)):
+        while not sched.has_capacity():
+            comps.extend(sched.tick())
+        need(sched.submit(q[i], k=int(ks[i]), rid=i) == i,
+             f"stream: submit {i} was shed")
+    comps.extend(sched.drain())
+    return comps
+
+
+def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
+                     device: str = "cuda", n_queries: int = STREAM_QUERIES,
+                     load: bool = True) -> dict:
+    """The continuous-batching scheduler on the card: ``MutableIndex``
+    over shard 0's graph ``g`` behind a ``STREAM_SLOTS`` service. The
+    first ``n_queries`` of ``q`` through ``run_stream()`` (the scheduler)
+    and ``run_stream_sync()``: bit-equal ids, QPS and p50/p99 of each;
+    ``STREAM_MIXED`` mixed-k submits at ``scheduler(ef=100)``: each rid
+    exactly once, k ids each, recall@10 >= 0.80 against ``gt``; a
+    pca-deferred service's scheduler bit-equal to its sync path; the
+    P-shard non-deferred service over ``graphs`` (all of ``x``) with
+    ``FaultPolicy``: healthy bit-equal to its sync path, then shard 2
+    killed by a ``FaultPlan`` until the policy marks it dead: every
+    completion degraded with the exact coverage and none of its ids;
+    ``slot_cache_sizes()`` unchanged after each scheduler's warm-up; and
+    ``repro_torch.bench.load`` at ``STREAM_LOAD_FRACS`` of capacity.
+    Launch counts are reset just before each part and read just after."""
+    import dataclasses
+    from repro_torch.bench.load import run_load
+    from repro_torch.core.distributed import build_sharded
+    from repro_torch.core.search_torch import build_packed, slot_cache_sizes
+    from repro_torch.distributed import faults
+    from repro_torch.distributed.faults import FaultPlan, FaultPolicy
+    from repro_torch.index import MutableIndex
+    from repro_torch.kernels import ops
+    from repro_torch.serve.vector_service import VectorSearchService
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    n = min(n_queries, len(q))
+    out = {"phase": "stream", "n_points": len(g.x), "slots": STREAM_SLOTS,
+           "queries": n}
+    launches = {}
+    idx = MutableIndex.from_graph(g, filt, seed=seed + 1, device=device)
+    svc = VectorSearchService(idx, batch_size=STREAM_SLOTS, device=device)
+    t0 = time.perf_counter()
+    sched = svc.scheduler()
+    sync()
+    out["warmup_seconds"] = time.perf_counter() - t0
+    out["rungs"] = sched.rungs
+    warm = slot_cache_sizes()
+
+    ops.reset_launch_counts()
+    ids_s, st_s, secs_s = _stream(svc, q[:n], scheduler=None)
+    launches["scheduler"] = ops.launch_counts()
+    esc = _sched_counters(svc)
+    ops.reset_launch_counts()
+    ids_y, st_y, secs_y = _stream(svc, q[:n], scheduler=False)
+    launches["sync"] = ops.launch_counts()
+    same = bool(np.array_equal(ids_s, ids_y.astype(np.int64)))
+    out["scheduler"] = {"path": st_s["path"], "seconds": secs_s,
+                        "qps": n / secs_s, "p50_ms": st_s["p50_ms"],
+                        "p99_ms": st_s["p99_ms"],
+                        "recall_at_10": recall_at_10(ids_s, gt[:n]),
+                        **esc}
+    out["sync"] = {"path": st_y["path"], "seconds": secs_y,
+                   "qps": n / secs_y, "p50_ms": st_y["p50_ms"],
+                   "p99_ms": st_y["p99_ms"]}
+    out["bit_equal_to_sync"] = same
+    need(st_s["path"] == "scheduler", "stream: run_stream() did not take "
+         "the scheduler")
+    need(same, "stream: the scheduler's ids differ from run_stream_sync's")
+    need(launches["sync"]["trip_fold_gated"] == 0,
+         "stream: the synchronous path launched the gated fold")
+
+    rng = np.random.default_rng(seed + 31)
+    ks = rng.choice(STREAM_KS, size=STREAM_MIXED, p=STREAM_K_SHARES)
+    picks = rng.integers(0, len(q), STREAM_MIXED)
+    mk = svc.scheduler(ef=max(STREAM_KS))
+    warm_mk = slot_cache_sizes()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    comps = _drain_all(mk, q[picks], ks)
+    secs = time.perf_counter() - t0
+    launches["mixed_k"] = ops.launch_counts()
+    rids = sorted(c.rid for c in comps)
+    ids_mk = np.stack([c.ids[:10] for c in sorted(comps,
+                                                  key=lambda c: c.rid)])
+    rec_mk = recall_at_10(ids_mk, gt[picks])
+    lens_ok = all(len(c.ids) == ks[c.rid] for c in comps)
+    out["mixed_k"] = {"submits": STREAM_MIXED, "ks": list(STREAM_KS),
+                      "shares": list(STREAM_K_SHARES), "seconds": secs,
+                      "qps": STREAM_MIXED / secs,
+                      "exactly_once": rids == list(range(STREAM_MIXED)),
+                      "k_ids_each": lens_ok, "recall_at_10": rec_mk,
+                      "recall_floor": 0.80,
+                      "forced": int(sum(c.forced for c in comps)),
+                      "steps_mean": float(np.mean([c.steps for c in comps])),
+                      "new_keys": [a - b for a, b in
+                                   zip(slot_cache_sizes(), warm_mk)]}
+    need(rids == list(range(STREAM_MIXED)) and lens_ok,
+         "stream: mixed-k completions not exactly once with k ids each")
+    need(rec_mk >= 0.80, f"stream: mixed-k recall@10 {rec_mk} < 0.80")
+    need(slot_cache_sizes() == warm_mk, "stream: the mixed-k traffic "
+         f"added slotted-program keys {out['mixed_k']['new_keys']}")
+
+    # the pca-deferred service: the promote-free re-rank at retirement
+    dcfg = dataclasses.replace(g.cfg, deferred_rerank=True)
+    ddb = build_packed(dataclasses.replace(g, cfg=dcfg), filt=filt,
+                       device=device)
+    dsvc = VectorSearchService(ddb, filt=filt, batch_size=STREAM_SLOTS,
+                               device=device)
+    dsvc.scheduler()
+    warm_d = slot_cache_sizes()
+    nd = min(STREAM_DEFERRED, len(q))
+    ops.reset_launch_counts()
+    ids_d, st_d, secs_d = _stream(dsvc, q[:nd], scheduler=None)
+    launches["deferred"] = ops.launch_counts()
+    ids_dy, _, secs_dy = _stream(dsvc, q[:nd], scheduler=False)
+    same_d = bool(np.array_equal(ids_d, ids_dy.astype(np.int64)))
+    out["deferred"] = {"queries": nd, "rerank_mult": dcfg.rerank_mult,
+                       "seconds": secs_d, "qps": nd / secs_d,
+                       "p50_ms": st_d["p50_ms"], "p99_ms": st_d["p99_ms"],
+                       "sync_qps": nd / secs_dy,
+                       "recall_at_10": recall_at_10(ids_d, gt[:nd]),
+                       "bit_equal_to_sync": same_d}
+    need(st_d["path"] == "scheduler" and same_d,
+         "stream: the deferred scheduler differs from its sync path")
+    need(slot_cache_sizes() == warm_d, "stream: the deferred traffic added "
+         "slotted-program keys")
+    del dsvc, ddb
+
+    # P shards, not deferred, behind a FaultPolicy; shard 2 killed
+    P = len(graphs)
+    if P > 1:
+        sdb = build_sharded(x, g.cfg, filt, P, graphs=graphs, device=device)
+        pol = FaultPolicy(deadline_ms=2000.0, max_retries=2, backoff_ms=5.0)
+        ssvc = VectorSearchService(sdb, filt=filt, batch_size=STREAM_SLOTS,
+                                   fault_policy=pol, device=device)
+        ssvc.scheduler()
+        warm_s = slot_cache_sizes()
+        ns = min(STREAM_SHARDED, len(q))
+        ops.reset_launch_counts()
+        ids_h, st_h, secs_h = _stream(ssvc, q[:ns], scheduler=None)
+        launches["sharded"] = ops.launch_counts()
+        ids_hy, _, secs_hy = _stream(ssvc, q[:ns], scheduler=False)
+        same_h = bool(np.array_equal(ids_h, ids_hy.astype(np.int64)))
+        victim = min(2, P - 1)
+        with faults.inject(FaultPlan()) as plan:
+            plan.add("kill_shard", victim)
+            for _ in range(4):
+                if ssvc.health.dead[victim]:
+                    break
+                ssvc.query(q[:STREAM_SLOTS])
+        dead = bool(ssvc.health.dead[victim])
+        live = np.arange(P) != victim
+        lc = ssvc._live_counts
+        want = int(lc[live].sum()) / int(lc.sum())
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        comps = _drain_all(ssvc.scheduler(), q[:ns], np.full(ns, 10))
+        secs_k = time.perf_counter() - t0
+        launches["sharded_degraded"] = ops.launch_counts()
+        lo = int(sdb.offsets[victim])
+        hi = lo + int(sdb.counts[victim])
+        ids_k = np.stack([c.ids for c in sorted(comps,
+                                                key=lambda c: c.rid)])
+        # the synchronous degraded answers: the live-masked shard loop
+        fi_k = np.concatenate([ssvc.query(q[i:min(i + STREAM_SLOTS, ns)])[1]
+                               for i in range(0, ns, STREAM_SLOTS)])
+        ssvc.recover_shard(victim)
+        cov_ok = all(c.degraded and c.coverage == want for c in comps)
+        n_victim = int(((ids_k >= lo) & (ids_k < hi)).sum())
+        out["sharded"] = {
+            "shards": P, "queries": ns, "qps": ns / secs_h,
+            "p50_ms": st_h["p50_ms"], "p99_ms": st_h["p99_ms"],
+            "sync_qps": ns / secs_hy, "bit_equal_to_sync": same_h,
+            "killed_shard": victim, "dead_marked": dead,
+            "degraded_qps": ns / secs_k, "coverage_expected": want,
+            "coverage_exact": cov_ok, "victim_ids": n_victim,
+            "degraded_equal_to_sync": bool(np.array_equal(
+                ids_k, fi_k.astype(np.int64)))}
+        need(same_h, "stream: the sharded scheduler differs from its sync "
+             "path")
+        need(dead and cov_ok and n_victim == 0
+             and out["sharded"]["degraded_equal_to_sync"],
+             f"stream: the killed shard: dead {dead}, coverage exact "
+             f"{cov_ok}, {n_victim} of its ids, equal to the degraded "
+             f"sync answers {out['sharded']['degraded_equal_to_sync']}")
+        need(slot_cache_sizes() == warm_s, "stream: the sharded traffic "
+             "added slotted-program keys")
+        del ssvc, sdb
+
+    if load:
+        t0 = time.perf_counter()
+        svc.stats.reset()
+        nl = STREAM_LOAD_QUERIES
+        res = run_load(svc, q[:nl], gt[:nl], req_size=STREAM_LOAD_REQ,
+                       offered_fracs=STREAM_LOAD_FRACS, calib_reps=2,
+                       seed=seed, mixed_k=False,
+                       point_seconds=STREAM_LOAD_SECONDS)
+        out["load"] = {"seconds": time.perf_counter() - t0,
+                       **res["entry"],
+                       "rows": [list(r) for r in res["rows"]]}
+        need(sum(res["entry"]["new_keys"]) == 0,
+             "stream: the load bench added slotted-program keys")
+    out["launches"] = launches
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if device == "cuda" else None
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2684,6 +3020,8 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
                                                     .float().mean())}
     mutable = _mutable_parity(torch, np, gi, ifilts["pca"], qi, device,
                               seed)
+    stream = _stream_parity(np, lambda dev: build_packed(
+        gi, filt=ifilts["pca"], device=dev), ifilts["pca"], qi, device)
     mutable["compact"] = run_compact_8k(torch, np, g, pca, q, device, seed)
     parity = {"phase": "parity_8k", "recall_card": rec_card,
               "recall_cpu": rec_host, "recall_first64_card": rec64,
@@ -2692,7 +3030,7 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
               "dist_h_mean_first64_card": dhe64,
               "integer_bit_identical": bit,
               "bf16_integer_bit_identical": bf16, "wide": wide,
-              "modes": modes, "mutable": mutable,
+              "modes": modes, "mutable": mutable, "stream": stream,
               "sharded": _sharded_parity(torch, np, cfg, x, q, gt, filts,
                                          ifilts, seed, device)}
 
@@ -2729,6 +3067,30 @@ def _mutate_int(np, idx, rng, n_up: int, n_del: int) -> list:
     n = idx.delete(g1[::max(len(g1) // n_del, 1)][:n_del])
     g2 = idx.upsert(rows(20), ids=g1[1:21])
     return [g1, np.asarray([n]), g2]
+
+
+def _stream_parity(np, backend, filt, qi, device: str, batch: int = 64
+                   ) -> dict:
+    """``run_stream()`` (the continuous-batching scheduler) over the
+    integer queries on the card and on the CPU, each service over
+    ``backend(dev)``: bit-identical ids, and the card's equal to its own
+    ``run_stream_sync()``."""
+    from repro_torch.serve.vector_service import VectorSearchService
+    got = {}
+    for dev in (device, "cpu"):
+        svc = VectorSearchService(backend(dev), filt=filt, batch_size=batch,
+                                  device=dev)
+        ids, st = svc.run_stream(qi)
+        need(st["path"] == "scheduler", "stream parity: not the scheduler")
+        got[dev] = ids
+        if dev == device:
+            sync_ids = svc.run_stream_sync(qi)[0]
+    ok = bool(np.array_equal(got[device], got["cpu"]))
+    ok_sync = bool(np.array_equal(got[device], sync_ids.astype(np.int64)))
+    need(ok and ok_sync, f"stream parity: card vs CPU {ok}, card vs its "
+         f"sync path {ok_sync}")
+    return {"queries": len(qi), "slots": batch, "integer_bit_identical": ok,
+            "equal_to_sync": ok_sync}
 
 
 def _mutable_parity(torch, np, gi, filt, qi, device: str, seed: int) -> dict:
@@ -2957,6 +3319,9 @@ def _sharded_parity(torch, np, cfg, x, q, gt, filts, ifilts, seed: int,
             out["bf16"][f"{mode} tombstones={tombs}"] = ok
             need(ok, f"8k sharded bf16 {mode} integer parity "
                  f"(tombstones={tombs}): card and CPU differ")
+    out["stream"] = _stream_parity(np, lambda dev: build_sharded(
+        xi, cfg, ifilts["pca"], shards, graphs=igraphs, device=dev),
+        ifilts["pca"], qi, device)
     out["mutable"] = _sharded_mutable_parity(torch, np, cfg, igraphs,
                                              ifilts["pca"], qi, device,
                                              seed)
@@ -2996,6 +3361,11 @@ KERNEL_META = {
     "trip_fold": ("cuda", "src/repro_torch/kernels/csrc/trip_fold.cu",
                   "src/repro/kernels/merge_sorted.py:52",
                   (1024, 10, 26, 16, 16, 1, "heap", "kv", "-")),
+    # the same fold gated per row (ef_eff, pop), at the pca scheduler's
+    # bank of 64 slots on the mutable index (row 2c)
+    "trip_fold_gated": ("cuda", "src/repro_torch/kernels/csrc/trip_fold.cu",
+                        "src/repro/kernels/merge_sorted.py:52",
+                        (64, 10, 26, 16, 16, 1, "heap", "kv", "tombs")),
     # fused_expand_pallas with the row gathers fused, at the pca arm's
     # layer 0
     "fused_expand_rows": ("cuda",
@@ -3021,6 +3391,8 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stream-queries", type=int, default=STREAM_QUERIES,
+                    help="queries of the stream phase's run_stream parts")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3091,6 +3463,8 @@ def main(argv=None) -> int:
         for name in ARM_KERNELS[arm]:
             need(sout["launches"][name] > 0,
                  f"search arm {arm} never launched {name}")
+        need(sout["launches"]["trip_fold_gated"] == 0,
+             f"search arm {arm} launched the gated fold")
         need(sout["recall_at_10"] >= sout["recall_floor"],
              f"arm {arm}: recall@10 {sout['recall_at_10']} < "
              f"{sout['recall_floor']}")
@@ -3169,6 +3543,20 @@ def main(argv=None) -> int:
     emit(t3)
     for name in TABLE3_KERNELS:
         need(t3["launches"][name] > 0, f"table3: never launched {name}")
+    stream = run_stream_phase(torch, np, g0, graphs, x, filts["pca"], q, gt0,
+                              args.seed, n_queries=args.stream_queries)
+    emit(stream)
+    for part, names in (("scheduler", STREAM_KERNELS),
+                        ("mixed_k", STREAM_KERNELS),
+                        ("deferred", STREAM_DEFERRED_KERNELS)):
+        for name in names:
+            need(stream["launches"][part][name] > 0,
+                 f"stream: the {part} part never launched {name}")
+    if args.stream_queries < STREAM_QUERIES:
+        emit({"reduced": {"stream_queries": args.stream_queries,
+                          "of": STREAM_QUERIES, "why": "--stream-queries"}})
+    stream_launches = [c for part, c in stream["launches"].items()
+                       if part != "sync"]
     del x, graphs, g0
 
     parity, table = run_parity(torch, np)
@@ -3183,12 +3571,13 @@ def main(argv=None) -> int:
         n_serve = sum(c[name] for c in serve_launches)
         n_replica = sum(c[name] for c in rep["launches"].values())
         n_table3 = t3["launches"][name]
+        n_stream = sum(c[name] for c in stream_launches)
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "shape": list(shape),
                      "launches": bout["launches"][name]
                      + sum(per_arm.values()) + sum(per_sharded.values())
                      + fout["launches"][name] + n_serve + n_replica
-                     + n_table3,
+                     + n_table3 + n_stream,
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
                      "launches_sharded": per_sharded,
@@ -3196,6 +3585,7 @@ def main(argv=None) -> int:
                      "launches_serve": n_serve,
                      "launches_replica": n_replica,
                      "launches_table3": n_table3,
+                     "launches_stream": n_stream,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

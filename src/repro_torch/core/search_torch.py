@@ -303,13 +303,29 @@ def _layer_init(db: PackedDB, start_d, start_i, *, ef: int, k: int,
 
 def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
                 k: int, W: int, steps: int, filter_deleted: bool = False,
-                deferred: bool = False):
+                deferred: bool = False, ef_eff=None, budget=None):
     """The ONE-expansion-iteration body over the layer state
     ``(C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe)``. The visited
     bitmap V is updated in place. ``deferred`` traverses on filter
     distances: no high-dim gather and no Dist.H inside the loop.
     ``filter_deleted`` keeps tombstoned candidates out of F (they still
-    enter C and the C_pca heap)."""
+    enter C and the C_pca heap).
+
+    ``search_layer_batched`` drives it with a static ``steps`` budget;
+    the slotted stepper (``_slot_step``) drives the SAME body with two
+    per-slot data generalisations, each the static program when None:
+
+    * ``ef_eff`` [B] int32 in [1, ef] — the per-slot effective ef: the
+      accept and termination bound is ``F_d[i, ef_eff[i] - 1]`` instead
+      of ``F_d[i, -1]`` (the mixed-k and adaptive-ef hook);
+    * ``budget`` [B] int32 — the per-slot step budget replacing
+      ``steps``: a slot frozen at its budget (or done) neither expands
+      nor pops, and resumes where it froze when the budget is raised.
+      The reference runs a trip only while some slot can still make
+      progress and latches ``done`` on every slot in a trip it runs; a
+      trip here takes that test on the device at its start (``go``) and
+      latches nothing without it, so the host may check it only every
+      ``DONE_CHECK_EVERY`` trips."""
     B = q_high.shape[0]
     lay = db.layers[layer]
     M = lay.adj.shape[1]
@@ -328,17 +344,31 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
     lane = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     jj = torch.arange(kk, device=dev)
     later = (jj[:, None] > jj[None, :])[None]              # [1, kk, kk]
+    bslot = None if ef_eff is None \
+        else (ef_eff.clamp(1, ef) - 1).long()[:, None]
+    lim = steps if budget is None else budget[:, None]
 
     def body(state):
         C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe = state
-        bnd = F_d[:, -1:]
+        # the accept/termination bound: F.max over the slot's effective
+        # result width (the compiled width without per-slot ef)
+        bnd = F_d[:, -1:] if bslot is None else torch.gather(F_d, 1, bslot)
         # -- pop the W nearest candidates: slots 0..W-1 of sorted C (the
         #    fold below drops them from C) --
         d_w, c_w = C_d[:, :W], C_i[:, :W]
         # termination is monotone, so the freeze is latched; an exhausted
         # frontier (slot 0 is the -1/INF pad) latches too (lines 7-8)
-        done = done | (C_d[:, 0] > bnd[:, 0]) | (C_i[:, 0] < 0)
-        exp = (d_w <= bnd) & ~done[:, None] & (nsteps[:, None] + lane < steps)
+        latched = done | (C_d[:, 0] > bnd[:, 0]) | (C_i[:, 0] < 0)
+        if budget is None:
+            done, pop = latched, None
+        else:
+            # slotted: the trip is real only if some slot can progress
+            # (the reference's loop test); a done or budget-frozen slot
+            # keeps its frontier unpopped
+            go = (~done & (nsteps < budget)).any()
+            done = torch.where(go, latched, done)
+            pop = ~done & (nsteps < budget)
+        exp = (d_w <= bnd) & ~done[:, None] & (nsteps[:, None] + lane < lim)
         if fkind in ("pq", "cascade"):
             # -- step 2, fused: the PQ expand reads the W popped rows of
             #    the layer (layout (3) bursts) itself: ADC + mask +
@@ -388,7 +418,7 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
         F_d, F_i, C_d, C_i, Cp_n = ops.trip_fold(
             F_d, F_i, C_d, C_i, W, None if fkind == "none" else Cp, dh,
             cand, kv if need_kv_row else None,
-            db.deleted if filter_deleted else None)
+            db.deleted if filter_deleted else None, ef_eff=ef_eff, pop=pop)
         if Cp_n is not None:
             Cp = Cp_n
         nsteps = nsteps + exp.sum(1, dtype=torch.int32)
@@ -400,6 +430,7 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
 def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
                          start_d, start_i, *, ef: int, k: int,
                          max_steps: Optional[int] = None,
+                         expand_width: Optional[int] = None,
                          filter_deleted: bool = False,
                          deferred: bool = False):
     """One layer of Algorithm 1 for a batch of queries.
@@ -408,9 +439,9 @@ def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
     [B, dl] for "pca", ADC tables [B, S, 256] for "pq", the flat row
     [B, S*256 + dl] for "cascade", a zero-width tensor for "none").
     start_d/start_i: [B, E] entry candidates ascending (FILTER-space
-    dists when ``deferred``). Each trip pops the W =
-    ``cfg.expand_width`` nearest frontier candidates and expands them
-    jointly. ``deferred`` traverses on filter distances only (a no-op
+    dists when ``deferred``). Each trip pops the W = ``expand_width``
+    (default ``cfg.expand_width``) nearest frontier candidates and
+    expands them jointly. ``deferred`` traverses on filter distances only (a no-op
     for the identity filter). ``filter_deleted`` (needs ``db.deleted``)
     applies the tombstone semantics: deleted nodes enter C and the C_pca
     heap and are expanded, but never enter F, so F.max is over live
@@ -420,7 +451,7 @@ def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
     dist_h [B] int32 = per-query Dist.H evaluations in this layer)."""
     B = q_high.shape[0]
     M = db.layers[layer].adj.shape[1]
-    W = db.cfg.expand_width
+    W = expand_width or db.cfg.expand_width
     kk = W * M if db.filter_kind == "none" else W * k
     CAP = max(ef + kk, 8)
     steps = max_steps or db.cfg.max_steps_for_layer(layer)
@@ -580,6 +611,40 @@ def search_batched(db: PackedDB, queries, qprep=None, *, pca=None,
     return fd, fi
 
 
+def _descend(db: PackedDB, queries, qprep, k_schedule: Tuple[int, ...],
+             deferred: bool):
+    """The descent to layer 0: the entry point scored (against the
+    payload in filter space when ``deferred``, else by Dist.H), then
+    each routing layer above 0 (which never filter tombstones: a deleted
+    node is a fine waypoint). Returns (ep_d, ep) [B, ef] ascending, the
+    Dist.H count [B] and the per-layer steps, top layer first."""
+    cfg = db.cfg
+    B = queries.shape[0]
+    k_of = lambda l: k_schedule[min(l, len(k_schedule) - 1)]
+    if deferred:
+        ep = torch.full((B, 1), int(db.entry), dtype=torch.int32,
+                        device=db.device)
+        pay = _gather_rows(db.low, ep)                  # [B, 1, P]
+        if db.filter_kind == "pca":
+            ep_d = ops.dist_l(pay, qprep)
+        elif db.filter_kind == "cascade":
+            ep_d = ops.pq_adc(pay, _cascade_lut(qprep, pay.shape[-1]))
+        else:
+            ep_d = ops.pq_adc(pay, qprep)
+        dhe = torch.zeros((B,), dtype=torch.int32, device=db.device)
+    else:
+        ep_d, ep = _entry_start(db, queries)
+        dhe = torch.ones((B,), dtype=torch.int32, device=db.device)
+    steps = []
+    for layer in range(len(db.layers) - 1, 0, -1):
+        ep_d, ep, st, de = search_layer_batched(
+            db, layer, queries, qprep, ep_d, ep,
+            ef=cfg.ef_for_layer(layer), k=k_of(layer), deferred=deferred)
+        steps.append(st)
+        dhe = dhe + de
+    return ep_d, ep, dhe, steps
+
+
 def _search_batched_impl(db: PackedDB, queries, qprep, *, ef0: int,
                          k_schedule: Tuple[int, ...], deferred: bool,
                          rerank_mult: int, promote_mult: int,
@@ -599,32 +664,11 @@ def _search_batched_impl(db: PackedDB, queries, qprep, *, ef0: int,
     (deferred only) skips the promote stage and the re-rank and returns
     the WIDE filter-space list: the sharded path merges the shards'
     lists first and runs both once, globally."""
-    cfg = db.cfg
-    B = queries.shape[0]
     k_of = lambda l: k_schedule[min(l, len(k_schedule) - 1)]
     deferred = deferred and db.filter_kind != "none"
     cascade = deferred and db.filter_kind == "cascade"
-    if deferred:
-        ep = torch.full((B, 1), int(db.entry), dtype=torch.int32,
-                        device=db.device)
-        pay = _gather_rows(db.low, ep)                  # [B, 1, P]
-        if db.filter_kind == "pca":
-            ep_d = ops.dist_l(pay, qprep)
-        elif cascade:
-            ep_d = ops.pq_adc(pay, _cascade_lut(qprep, pay.shape[-1]))
-        else:
-            ep_d = ops.pq_adc(pay, qprep)
-        dhe = torch.zeros((B,), dtype=torch.int32, device=db.device)
-    else:
-        ep_d, ep = _entry_start(db, queries)
-        dhe = torch.ones((B,), dtype=torch.int32, device=db.device)
-    steps = []
-    for layer in range(len(db.layers) - 1, 0, -1):
-        ep_d, ep, st, de = search_layer_batched(
-            db, layer, queries, qprep, ep_d, ep,
-            ef=cfg.ef_for_layer(layer), k=k_of(layer), deferred=deferred)
-        steps.append(st)
-        dhe = dhe + de
+    ep_d, ep, dhe, steps = _descend(db, queries, qprep, k_schedule,
+                                    deferred)
     wide_mult = promote_mult if cascade else rerank_mult
     ef_run = ef0 * wide_mult if deferred else ef0
     fd, fi, st, de = search_layer_batched(
@@ -636,18 +680,372 @@ def _search_batched_impl(db: PackedDB, queries, qprep, *, ef0: int,
         if cascade:
             # promote stage: ONE batched PCA score over side-car rows
             # trims the PQ-space pool to the Dist.H rerank pool
-            ok = fi >= 0
-            qpca = _cascade_qpca(qprep, db.low.shape[1])
-            dm = torch.where(ok, ops.dist_l(_gather_rows(db.low2, fi), qpca),
-                             INF)
-            pd, pi = _rank_sort_with_payload(dm, torch.where(ok, fi, -1))
+            pd, pi = _promote(db, qprep, fi)
             fd, fi = pd[:, :ef0 * rerank_mult], pi[:, :ef0 * rerank_mult]
         # the deferred high-dim re-rank: ONE batched Dist.H over the
         # final filter-space list, then a single sort back to ef0
-        ok = fi >= 0
-        dh = torch.where(ok, ops.dist_h(_gather_rows(db.high, fi), queries),
-                         INF)
-        dhe = dhe + ok.sum(1, dtype=torch.int32)
-        rd, ri = _rank_sort_with_payload(dh, torch.where(ok, fi, -1))
+        rd, ri, n_ok = _rerank(db, queries, fi)
+        dhe = dhe + n_ok
         fd, fi = rd[:, :ef0], ri[:, :ef0]
     return fd, fi, torch.stack(steps), dhe
+
+
+def _promote(db: PackedDB, qprep, fi):
+    """The cascade's promote stage: PCA distances of the side-car rows of
+    the filter-space list ``fi`` (-1 pads score INF), stably sorted."""
+    ok = fi >= 0
+    qpca = _cascade_qpca(qprep, db.low.shape[1])
+    dm = torch.where(ok, ops.dist_l(_gather_rows(db.low2, fi), qpca), INF)
+    return _rank_sort_with_payload(dm, torch.where(ok, fi, -1))
+
+
+def _rerank(db: PackedDB, queries, fi):
+    """The deferred re-rank: ONE batched Dist.H over the filter-space
+    list ``fi`` (-1 pads score INF), stably sorted; with the count of
+    Dist.H evaluations per row."""
+    ok = fi >= 0
+    dh = torch.where(ok, ops.dist_h(_gather_rows(db.high, fi), queries), INF)
+    rd, ri = _rank_sort_with_payload(dh, torch.where(ok, fi, -1))
+    return rd, ri, ok.sum(1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# slotted resumable search state — the continuous-batching substrate
+# (serve/scheduler.py), the port of the reference's slotted programs.
+#
+# The synchronous path runs descent + layer 0 to completion for one batch;
+# a query whose ``done`` latched early idles until the slowest query of
+# its batch converges (the convoy). Here the layer-0 traversal state is a
+# long-lived bank of S slots:
+#
+#   * ``_slot_step`` advances every live slot by up to ``quantum`` trips
+#     of the SAME ``_layer_body`` the synchronous search runs, and returns
+#     — the host then retires slots whose ``done`` latched and refills
+#     them;
+#   * ``_slot_admit`` descends fresh queries through the routing layers
+#     and writes their layer-0 state into chosen slots (a fixed-width
+#     scatter; pad rows carry a slot id >= S and land in a spare row that
+#     nothing reads, so no admission syncs with the host);
+#   * the per-slot ``ef_eff`` (mixed k) and ``budget`` (adaptive step
+#     budgets) are data in the state — see ``_layer_body``.
+#
+# Every program is functional: it returns a new ``SlotState`` and never
+# writes a tensor of the state it was given (the body's in-place visited
+# update runs on a copy), so a state held by the caller stays as it was.
+# The sharded twins step each shard's view (``ShardedDB.shard_db``) in a
+# host loop over the stacked [P, S, ...] state, every shard dead or
+# alive; the scheduler merges the disjoint per-shard lists at retirement.
+# ``slot_cache_sizes`` counts the distinct (program, static arguments,
+# shapes) keys each program has been called with: the counterpart of the
+# reference's compiled-program caches, which steady-state churn must not
+# grow.
+# ---------------------------------------------------------------------------
+
+_SLOT_FIELDS = ("C_d", "C_i", "F_d", "F_i", "V", "Cp", "done", "nsteps",
+                "dhe", "q_high", "qprep", "ef_eff", "budget")
+
+
+@dataclass
+class SlotState:
+    """The resumable layer-0 traversal state of S slots (leading dim S;
+    the sharded bank prepends the shard dim P). Admission, budget
+    escalation and epoch swaps change only data, never a shape. An
+    EMPTY slot is ``done=True`` with ``budget=0`` and a -1/INF frontier:
+    it latches at once and expands nothing."""
+    C_d: torch.Tensor      # [S, CAP] sorted candidate frontier dists
+    C_i: torch.Tensor      # [S, CAP] candidate ids (-1 pad)
+    F_d: torch.Tensor      # [S, EF] sorted result dists
+    F_i: torch.Tensor      # [S, EF] result ids (-1 pad)
+    V: torch.Tensor        # [S, ceil(N/32)] visited bitmap words
+    Cp: torch.Tensor       # [S, k] C_pca threshold heap
+    done: torch.Tensor     # [S] bool, latched per slot
+    nsteps: torch.Tensor   # [S] int32 expansion steps so far
+    dhe: torch.Tensor      # [S] int32 Dist.H evaluations so far
+    q_high: torch.Tensor   # [S, D] the resident queries
+    qprep: torch.Tensor    # [S, ...] per-query filter prep
+    ef_eff: torch.Tensor   # [S] int32 per-slot effective ef (<= EF)
+    budget: torch.Tensor   # [S] int32 per-slot expansion-step budget
+
+    def fields(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f) for f in _SLOT_FIELDS)
+
+    def map(self, fn) -> "SlotState":
+        """A state of ``fn(field)`` for every field."""
+        return SlotState(*(fn(t) for t in self.fields()))
+
+
+def _slot_zip(fn, *states: SlotState) -> SlotState:
+    """A state of ``fn(a_field, b_field, ...)`` field by field."""
+    return SlotState(*(fn(*ts) for ts in zip(*(s.fields()
+                                                for s in states))))
+
+
+def _slot_geometry(db, ef: int, deferred: bool = False
+                   ) -> Tuple[int, int, int]:
+    """(k, W, CAP) of the slotted layer-0 program, derived as
+    ``search_layer_batched`` derives them. ``deferred`` selects the same
+    effective layer-0 k the synchronous default does. ``db`` is a
+    PackedDB or a ShardedDB."""
+    cfg = db.cfg
+    k = cfg.k_schedule_for(db.filter_kind, deferred)[0]
+    W = cfg.expand_width
+    M = (db.layers[0].adj if hasattr(db, "layers") else db.adj[0]).shape[-1]
+    kk = W * M if db.filter_kind == "none" else W * k
+    return k, W, max(ef + kk, 8)
+
+
+def make_slot_state(db, n_slots: int, qprep_example, *, ef: int,
+                    n_shards: Optional[int] = None,
+                    deferred: bool = False) -> SlotState:
+    """An all-empty slot bank on the db's device. ``ef`` is the compiled
+    result width (a slot's ``ef_eff`` can only narrow it).
+    ``qprep_example`` is any [b, ...] filter-prep array, read only for
+    its trailing shape. ``n_shards`` prepends the shard dim to every
+    field (``db`` is then a ShardedDB). ``deferred`` must match the mode
+    the slots will step in: it sizes the Cp heap to the same effective k
+    the synchronous program keeps."""
+    k, _, CAP = _slot_geometry(db, ef, deferred)
+    N, D = db.high.shape[-2], db.high.shape[-1]
+    nw = -(-N // 32)
+    lead = () if n_shards is None else (n_shards,)
+    shp = lambda *t: lead + (n_slots,) + t
+    dev = db.high.device
+    full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=dev)
+    qp_trail = tuple(np.shape(qprep_example)[1:])
+    i32, f32 = torch.int32, torch.float32
+    return SlotState(
+        C_d=full(shp(CAP), INF, f32), C_i=full(shp(CAP), -1, i32),
+        F_d=full(shp(ef), INF, f32), F_i=full(shp(ef), -1, i32),
+        V=full(shp(nw), 0, i32), Cp=full(shp(k), INF, f32),
+        done=full(shp(), True, torch.bool), nsteps=full(shp(), 0, i32),
+        dhe=full(shp(), 0, i32), q_high=full(shp(D), 0, f32),
+        qprep=full(shp(*qp_trail), 0, f32),
+        ef_eff=full(shp(), ef, i32), budget=full(shp(), 0, i32))
+
+
+# the slotted programs, in ``slot_cache_sizes``' order
+_SLOT_PROGRAMS = ("step", "admit", "step_sharded", "admit_sharded",
+                  "step_prefix", "step_prefix_sharded", "admit_step",
+                  "admit_step_sharded", "retire_rerank", "retire_promote")
+_slot_keys = {name: set() for name in _SLOT_PROGRAMS}
+
+
+def _shape_key(x):
+    if x is None:
+        return None
+    if isinstance(x, SlotState):
+        return tuple(_shape_key(t) for t in x.fields())
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), str(x.dtype))
+    if isinstance(x, PackedDB):
+        return (x.filter_kind, _shape_key(x.high), _shape_key(x.low),
+                tuple(_shape_key(l.adj) + _shape_key(l.packed_low)
+                      for l in x.layers),
+                _shape_key(x.deleted), _shape_key(x.low2))
+    # a ShardedDB
+    return (x.filter_kind, _shape_key(x.high), _shape_key(x.low),
+            tuple(map(_shape_key, x.adj)), tuple(map(_shape_key,
+                                                    x.packed_low)),
+            _shape_key(x.deleted), _shape_key(x.low2))
+
+
+def _note(program: str, *args, **static) -> None:
+    """Record one call of a slotted program under its key."""
+    _slot_keys[program].add((tuple(map(_shape_key, args)),
+                             tuple(sorted(static.items()))))
+
+
+def slot_cache_sizes() -> Tuple[int, ...]:
+    """(step, admit, step_sharded, admit_sharded, step_prefix,
+    step_prefix_sharded, admit_step, admit_step_sharded, retire_rerank,
+    retire_promote): the distinct keys (static arguments and shapes)
+    each slotted program has been called with — the scheduler's
+    no-new-programs-under-churn assertions read these."""
+    return tuple(len(_slot_keys[name]) for name in _SLOT_PROGRAMS)
+
+
+def _scatter_rows(dst, ids, rows):
+    """``dst`` with rows ``ids`` set to ``rows``; ids outside [0, S) are
+    dropped (they land in a spare row S that is cut off)."""
+    S = dst.shape[0]
+    out = torch.cat([dst, dst[:1]])
+    out[ids] = rows.to(dst.dtype)
+    return out[:S]
+
+
+def _slot_admit_impl(db: PackedDB, state: SlotState, q_new, qprep_new,
+                     slot_ids, ef_eff_new, budget_new, *,
+                     deferred: bool = False) -> SlotState:
+    """Descend the admission batch through the routing layers (the same
+    per-layer programs as ``_search_batched_impl``; in filter space when
+    ``deferred``) and write the fresh layer-0 state into the chosen
+    slots. The admission width is fixed: pad rows carry a slot id >= S
+    and are dropped."""
+    ef = state.F_d.shape[-1]
+    k, _, CAP = _slot_geometry(db, ef, deferred)
+    ks = db.cfg.k_schedule_for(db.filter_kind, deferred)
+    deferred = deferred and db.filter_kind != "none"
+    ep_d, ep, dhe, _ = _descend(db, q_new, qprep_new, ks, deferred)
+    C_d, C_i, F_d, F_i, V, Cp = _layer_init(
+        db, ep_d, ep, ef=ef, k=k, CAP=CAP,
+        filter_deleted=db.deleted is not None)
+    S = state.done.shape[0]
+    ids = slot_ids.long()
+    ids = torch.where((ids >= 0) & (ids < S), ids, S)
+    A = q_new.shape[0]
+    dev = q_new.device
+    new = SlotState(C_d, C_i, F_d, F_i, V, Cp,
+                    torch.zeros((A,), dtype=torch.bool, device=dev),
+                    torch.zeros((A,), dtype=torch.int32, device=dev), dhe,
+                    q_new, qprep_new, ef_eff_new, budget_new)
+    return _slot_zip(lambda d, r: _scatter_rows(d, ids, r), state, new)
+
+
+def _slot_step_impl(db: PackedDB, state: SlotState, *, quantum: int,
+                    expand_width: int, deferred: bool = False) -> SlotState:
+    """Advance every live slot by up to ``quantum`` trips of the layer-0
+    body with the per-slot ``ef_eff`` / ``budget`` gates on. The loop
+    ends early once no slot can progress (all done or budget-frozen),
+    tested on the host every ``DONE_CHECK_EVERY`` trips; the trips in
+    between are exact no-ops (see ``_layer_body``). ``deferred``
+    traverses on filter distances: F then holds filter-space candidates
+    and the scheduler re-ranks at retirement."""
+    ef = state.F_d.shape[-1]
+    k = state.Cp.shape[-1]
+    body = _layer_body(db, 0, state.q_high, state.qprep, ef=ef, k=k,
+                       W=expand_width, steps=0,
+                       filter_deleted=db.deleted is not None,
+                       deferred=deferred and db.filter_kind != "none",
+                       ef_eff=state.ef_eff, budget=state.budget)
+    st = (state.C_d, state.C_i, state.F_d, state.F_i, state.V.clone(),
+          state.Cp, state.done, state.nsteps, state.dhe)
+    for t in range(quantum):
+        if t % DONE_CHECK_EVERY == 0 and \
+                not bool((~st[6] & (st[7] < state.budget)).any()):
+            break
+        st = body(st)
+    return dataclasses.replace(state, **dict(zip(_SLOT_FIELDS[:9], st)))
+
+
+def _slot_step_prefix_impl(db: PackedDB, state: SlotState, *, width: int,
+                           quantum: int, expand_width: int,
+                           deferred: bool = False) -> SlotState:
+    """Step only the first ``width`` slots of the bank (the width
+    ladder: slots are allocated low-first, so the scheduler steps the
+    smallest prefix covering the highest live slot)."""
+    part = _slot_step_impl(db, state.map(lambda t: t[:width]),
+                           quantum=quantum, expand_width=expand_width,
+                           deferred=deferred)
+    return _slot_zip(lambda f, p: torch.cat([p, f[width:]]), state, part)
+
+
+def _slot_admit_step_impl(db: PackedDB, state: SlotState, q_new, qprep_new,
+                          slot_ids, ef_eff_new, budget_new, *, width: int,
+                          quantum: int, expand_width: int,
+                          deferred: bool = False) -> SlotState:
+    """One tick's program: the admission, then the prefix step."""
+    state = _slot_admit_impl(db, state, q_new, qprep_new, slot_ids,
+                             ef_eff_new, budget_new, deferred=deferred)
+    return _slot_step_prefix_impl(db, state, width=width, quantum=quantum,
+                                  expand_width=expand_width,
+                                  deferred=deferred)
+
+
+def _per_shard(sdb, state: SlotState, fn) -> SlotState:
+    """``fn(shard_db(p), state[p])`` for every shard p, restacked."""
+    outs = [fn(sdb.shard_db(p), state.map(lambda t: t[p]))
+            for p in range(sdb.n_shards)]
+    return _slot_zip(lambda *ts: torch.stack(ts), *outs)
+
+
+def _slot_admit(db, state, q_new, qprep_new, slot_ids, ef_eff_new,
+                budget_new, deferred=False):
+    _note("admit", db, state, q_new, qprep_new, slot_ids, deferred=deferred)
+    return _slot_admit_impl(db, state, q_new, qprep_new, slot_ids,
+                            ef_eff_new, budget_new, deferred=deferred)
+
+
+def _slot_step(db, state, quantum, expand_width, deferred=False):
+    _note("step", db, state, quantum=quantum, W=expand_width,
+          deferred=deferred)
+    return _slot_step_impl(db, state, quantum=quantum,
+                           expand_width=expand_width, deferred=deferred)
+
+
+def _slot_admit_sharded(sdb, state, q_new, qprep_new, slot_ids, ef_eff_new,
+                        budget_new, deferred=False):
+    """Admission over a ShardedDB: each shard descends its own graph for
+    the SAME queries into the SAME slots."""
+    _note("admit_sharded", sdb, state, q_new, qprep_new, slot_ids,
+          deferred=deferred)
+    return _per_shard(sdb, state, lambda d, s: _slot_admit_impl(
+        d, s, q_new, qprep_new, slot_ids, ef_eff_new, budget_new,
+        deferred=deferred))
+
+
+def _slot_step_sharded(sdb, state, quantum, expand_width, deferred=False):
+    _note("step_sharded", sdb, state, quantum=quantum, W=expand_width,
+          deferred=deferred)
+    return _per_shard(sdb, state, lambda d, s: _slot_step_impl(
+        d, s, quantum=quantum, expand_width=expand_width,
+        deferred=deferred))
+
+
+def _slot_step_prefix(db, state, width, quantum, expand_width,
+                      deferred=False):
+    _note("step_prefix", db, state, width=width, quantum=quantum,
+          W=expand_width, deferred=deferred)
+    return _slot_step_prefix_impl(db, state, width=width, quantum=quantum,
+                                  expand_width=expand_width,
+                                  deferred=deferred)
+
+
+def _slot_step_prefix_sharded(sdb, state, width, quantum, expand_width,
+                              deferred=False):
+    _note("step_prefix_sharded", sdb, state, width=width, quantum=quantum,
+          W=expand_width, deferred=deferred)
+    return _per_shard(sdb, state, lambda d, s: _slot_step_prefix_impl(
+        d, s, width=width, quantum=quantum, expand_width=expand_width,
+        deferred=deferred))
+
+
+def _slot_admit_step(db, state, q_new, qprep_new, slot_ids, ef_eff_new,
+                     budget_new, width, quantum, expand_width,
+                     deferred=False):
+    _note("admit_step", db, state, q_new, qprep_new, slot_ids, width=width,
+          quantum=quantum, W=expand_width, deferred=deferred)
+    return _slot_admit_step_impl(db, state, q_new, qprep_new, slot_ids,
+                                 ef_eff_new, budget_new, width=width,
+                                 quantum=quantum, expand_width=expand_width,
+                                 deferred=deferred)
+
+
+def _slot_admit_step_sharded(sdb, state, q_new, qprep_new, slot_ids,
+                             ef_eff_new, budget_new, width, quantum,
+                             expand_width, deferred=False):
+    _note("admit_step_sharded", sdb, state, q_new, qprep_new, slot_ids,
+          width=width, quantum=quantum, W=expand_width, deferred=deferred)
+    return _per_shard(sdb, state, lambda d, s: _slot_admit_step_impl(
+        d, s, q_new, qprep_new, slot_ids, ef_eff_new, budget_new,
+        width=width, quantum=quantum, expand_width=expand_width,
+        deferred=deferred))
+
+
+def _retire_rerank(db: PackedDB, queries, fi):
+    """The scheduler's deferred Dist.H pass at retirement: the final
+    block of the synchronous deferred program (``_rerank``) over a
+    fixed-width batch of slots, non-retiring rows carrying ``fi = -1``.
+    Returns (dists, ids, Dist.H count per row)."""
+    _note("retire_rerank", db, queries, fi)
+    return _rerank(db, queries, fi)
+
+
+def _retire_promote(db: PackedDB, qprep, fi, n_keep):
+    """The scheduler's cascade promote pass at retirement: PCA-score the
+    side-car rows of the slots' PQ-space lists and keep each slot's best
+    ``n_keep`` [S] (INF/-1 past them)."""
+    _note("retire_promote", db, qprep, fi)
+    pd, pi = _promote(db, qprep, fi)
+    keep = torch.arange(pd.shape[1], device=pd.device)[None, :] \
+        < n_keep[:, None]
+    return torch.where(keep, pd, INF), torch.where(keep, pi, -1)

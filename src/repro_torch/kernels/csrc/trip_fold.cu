@@ -7,7 +7,9 @@
 // into F, C and the C_pca heap; each merge is
 // repro/kernels/merge_sorted.py: merge_sorted_pallas). Per query row:
 //
-//   1. accept = dh < F_d[ef - 1] (F's bound before the trip);
+//   1. accept = dh < F_d[ef - 1] (F's bound before the trip), or, with
+//      the per-row `ef_eff` (the slotted search's effective ef, in
+//      [1, ef]), dh < F_d[ef_eff - 1];
 //   2. the feeds: the C row (where(accept, dh, INF), where(accept, cand,
 //      -1)); the F row, the C row with tombstoned ids masked out too when
 //      `deleted` is given, else the C row itself; the heap row
@@ -18,14 +20,17 @@
 //      of merge_sorted.cu: frontier element i lands at i + #{feed < a_i},
 //      feed element s at rank_s + #{a <= f_s} (ties to the frontier, then
 //      the lower slot). C's frontier is C[W:] followed by W (INF, -1)
-//      pads (the trip's pop); the heap keeps only dists;
+//      pads (the trip's pop), or C as it is on a row whose `pop` byte is
+//      0 (a slot that is done or frozen at its step budget keeps its
+//      frontier); the heap keeps only dists;
 //   5. new F, C and heap tensors: the state is read by all three merges,
 //      so it is never written in place.
 //
 // The fold compares and moves; it does no arithmetic, so it equals its
 // plain version (kernels/ref.py: trip_fold_ref) bit for bit on any data
 // whose frontiers are ascending, -0.0 beside 0.0 (equal, resolved by
-// slot), INF pads and -1 ids included.
+// slot), INF pads and -1 ids included. With `ef_eff` and `pop` null it
+// runs the synchronous search's fold unchanged.
 //
 // Bound on the card: the launch. A row moves ~1-3 KB and makes a few
 // hundred compares, so the kernel costs about one launch, against the
@@ -61,6 +66,8 @@ struct Args {
   const int32_t* cand;
   const float* kv;       // null: the heap is fed the C row's dists
   const int32_t* deleted;  // null: no tombstone masking of the F feed
+  const int32_t* ef_eff;   // null: the bound is F_d[ef - 1]
+  const uint8_t* pop;      // null: every row pops W
   float* oFd;
   int32_t* oFi;
   float* oCd;
@@ -140,6 +147,11 @@ __device__ __forceinline__ void fold_row(const Args& a, int row, int t,
   float* sF = reinterpret_cast<float*>(feed + 6 * kk);
   float* sP = reinterpret_cast<float*>(feed + 7 * kk);
   const size_t r = row;
+  // the trip's pop (slotted: only where the row's pop byte is set) and
+  // the bound's slot (slotted: the row's effective ef)
+  const int shift = (a.pop == nullptr || a.pop[r] != 0) ? W : 0;
+  const int bslot =
+      a.ef_eff == nullptr ? ef - 1 : min(max(a.ef_eff[r], 1), ef) - 1;
 
   // -- one round trip: every word of the row, then the barrier --
   for (int i = t; i < ef; i += G) {
@@ -147,9 +159,9 @@ __device__ __forceinline__ void fold_row(const Args& a, int row, int t,
     copy_word(sl + ef + i, a.Fi + r * ef + i, async);
   }
   for (int i = t; i < cap; i += G) {
-    if (i + W < cap) {   // the pop: C[W:], then W (INF, -1) pads
-      copy_word(sl + 2 * ef + i, a.Cd + r * cap + i + W, async);
-      copy_word(sl + 2 * ef + cap + i, a.Ci + r * cap + i + W, async);
+    if (i + shift < cap) {   // the pop: C[W:], then W (INF, -1) pads
+      copy_word(sl + 2 * ef + i, a.Cd + r * cap + i + shift, async);
+      copy_word(sl + 2 * ef + cap + i, a.Ci + r * cap + i + shift, async);
     } else {
       Cd[i] = kInf;
       Ci[i] = -1;
@@ -168,7 +180,7 @@ __device__ __forceinline__ void fold_row(const Args& a, int row, int t,
   sync();
 
   // -- the feeds, each slot by its own thread --
-  const float bnd = Fd[ef - 1];
+  const float bnd = Fd[bslot];
   for (int s = t; s < kk; s += G) {
     const float v = cv[s];
     const int32_t id = ci[s];
@@ -272,7 +284,8 @@ extern "C" int trip_fold_launch(const void* Fd, const void* Fi,
                                 const void* Cd, const void* Ci,
                                 const void* Cp, const void* dh,
                                 const void* cand, const void* kv,
-                                const void* deleted, void* oFd, void* oFi,
+                                const void* deleted, const void* ef_eff,
+                                const void* pop, void* oFd, void* oFi,
                                 void* oCd, void* oCi, void* oCp, int B,
                                 int ef, int cap, int k, int kk, int W,
                                 int threads, void* scratch, void* stream) {
@@ -285,6 +298,8 @@ extern "C" int trip_fold_launch(const void* Fd, const void* Fi,
                static_cast<const int32_t*>(cand),
                static_cast<const float*>(kv),
                static_cast<const int32_t*>(deleted),
+               static_cast<const int32_t*>(ef_eff),
+               static_cast<const uint8_t*>(pop),
                static_cast<float*>(oFd), static_cast<int32_t*>(oFi),
                static_cast<float*>(oCd), static_cast<int32_t*>(oCi),
                static_cast<float*>(oCp), static_cast<float*>(scratch),

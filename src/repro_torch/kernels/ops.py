@@ -11,7 +11,9 @@ Same op names, signatures and sentinels as the reference. A CPU tensor
 takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
 launches the hand-written kernel, and a kernel that fails to build or
 launch raises — there is no switch and no fallback. Each CUDA wrapper
-counts its launches in a plain integer (``launch_counts``). The Dist.L
+counts its launches in a plain integer (``launch_counts``);
+``trip_fold_gated`` counts the fold's launches gated per row (the
+slotted search), each also one of ``trip_fold``'s. The Dist.L
 ops (``dist_l``, ``fused_filter``, ``fused_expand``,
 ``fused_expand_rows``) take f32 or bf16 rows as they are, on either
 device: the kernels widen them in registers, as the TPU kernels do, and
@@ -37,7 +39,7 @@ from repro_torch.kernels.ksort_l import ksort_l_cuda
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
 from repro_torch.kernels.pq_adc import (lut_rows_ok, pq_adc_expand_cuda,
                                         pq_expand_rows_cuda)
-from repro_torch.kernels.trip_fold import trip_fold_cuda
+from repro_torch.kernels.trip_fold import trip_fold_cuda, trip_fold_gated
 
 _KERNELS = {"fused_expand": fused_expand_cuda,
             "merge_sorted": merge_sorted_cuda,
@@ -49,6 +51,7 @@ _KERNELS = {"fused_expand": fused_expand_cuda,
             "flash_attention": flash_attention_cuda,
             "decode_attention": decode_attention_cuda,
             "trip_fold": trip_fold_cuda,
+            "trip_fold_gated": trip_fold_gated,
             "fused_expand_rows": fused_expand_rows_cuda,
             "pq_expand_rows": pq_expand_rows_cuda}
 
@@ -212,26 +215,30 @@ def pq_expand_rows(adj, codes, c_w, exp, lut, th, k: int):
 
 
 def trip_fold(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
-              deleted=None):
+              deleted=None, ef_eff=None, pop=None):
     """One traversal trip's frontier update in one op: pop W slots off
     the sorted candidate frontier C [B, cap], accept ``dh < F_d[:, -1]``,
     feed the accepted candidates (with ``deleted`` words, tombstoned ids
     masked out of F's feed) into F [B, ef] and C, and their filter dists
     (``kv``, or the C feed's dists when None) into the C_pca heap Cp
     [B, k] (None for the filter bypass), each a k-bounded sorted merge
-    with ties to the frontier, then the lower slot. Returns new (F_d, F_i,
-    C_d, C_i, Cp); the inputs are not modified."""
-    ts = [t for t in (F_d, F_i, C_d, C_i, Cp, dh, cand, kv, deleted)
-          if t is not None]
+    with ties to the frontier, then the lower slot. The slotted search
+    gates it per row: ``ef_eff`` [B] int32 in [1, ef] bounds the accept
+    test by ``F_d[i, ef_eff[i] - 1]``, and a row whose ``pop`` [B] (bool)
+    is False keeps C unpopped. Returns new (F_d, F_i, C_d, C_i, Cp); the
+    inputs are not modified."""
+    ts = [t for t in (F_d, F_i, C_d, C_i, Cp, dh, cand, kv, deleted,
+                      ef_eff, pop) if t is not None]
     if _on_cuda(*ts):
         f32 = lambda t: None if t is None else \
             t.to(torch.float32).contiguous()
         i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
         return trip_fold_cuda(f32(F_d), i32(F_i), f32(C_d), i32(C_i), W,
                               f32(Cp), f32(dh), i32(cand), f32(kv),
-                              i32(deleted))
+                              i32(deleted), i32(ef_eff),
+                              None if pop is None else pop.contiguous())
     return ref.trip_fold_ref(F_d, F_i, C_d, C_i, W, Cp, dh, cand, kv,
-                             deleted)
+                             deleted, ef_eff=ef_eff, pop=pop)
 
 
 def pq_adc(codes, lut):

@@ -174,20 +174,31 @@ def tombstone_bit(deleted, ids):
 
 
 def trip_fold_ref(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
-                  deleted=None):
+                  deleted=None, ef_eff=None, pop=None):
     """One traversal trip's frontier update, the lines of
     ``repro/core/search_jax.py:_layer_body`` after Dist.H: pop W slots
     off C, accept ``dh < F_d[:, -1]``, one stacked stable sort of the
     feeds (an F row with tombstones masked when ``deleted`` is given; a
     separate heap row from ``kv`` when given, else the C row feeds the
     heap), then the three sorted merges into F, C and the C_pca heap
-    ``Cp`` (None for the filter bypass). Returns new (F_d, F_i, C_d, C_i,
-    Cp)."""
+    ``Cp`` (None for the filter bypass). The slotted body's two per-row
+    gates: ``ef_eff`` [B] (in [1, ef]) bounds the accept test by
+    ``F_d[i, ef_eff[i] - 1]`` instead of ``F_d[i, -1]``, and a row whose
+    ``pop`` [B] is False (done, or frozen at its step budget) keeps C
+    unpopped. Returns new (F_d, F_i, C_d, C_i, Cp)."""
     B, kk = dh.shape
     ef = F_d.shape[1]
-    bnd = F_d[:, -1:]
-    C_d = torch.cat([C_d[:, W:], C_d.new_full((B, W), INF)], 1)
-    C_i = torch.cat([C_i[:, W:], C_i.new_full((B, W), -1)], 1)
+    if ef_eff is None:
+        bnd = F_d[:, -1:]
+    else:
+        bnd = torch.gather(F_d, 1, (ef_eff.clamp(1, ef) - 1).long()[:, None])
+    sh_d = torch.cat([C_d[:, W:], C_d.new_full((B, W), INF)], 1)
+    sh_i = torch.cat([C_i[:, W:], C_i.new_full((B, W), -1)], 1)
+    if pop is None:
+        C_d, C_i = sh_d, sh_i
+    else:
+        keep = ~pop.bool()[:, None]
+        C_d, C_i = torch.where(keep, C_d, sh_d), torch.where(keep, C_i, sh_i)
     accept = dh < bnd
     rows_d = [torch.where(accept, dh, INF)]
     rows_i = [torch.where(accept, cand, -1)]

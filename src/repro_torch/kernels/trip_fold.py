@@ -12,7 +12,10 @@ warp per query row with the row in its slice of shared memory; long
 rows a block per row, in shared or global memory (``fold_plan``). It
 only compares and moves, so it equals the plain version
 ``ref.trip_fold_ref`` bit for bit; ``ops.trip_fold`` picks between them
-by tensor device."""
+by tensor device. The slotted search gates it per row: ``ef_eff`` picks
+the slot of F that bounds the accept test, and ``pop`` keeps C unshifted
+on a row that is done or frozen at its step budget; without them the
+kernel runs the synchronous search's fold."""
 from __future__ import annotations
 
 import ctypes
@@ -24,7 +27,7 @@ from repro_torch.kernels._launch import (SMEM_DEFAULT, check_cuda, ptr,
                                          scratch_rows, smem_optin, stream_of,
                                          warps_for)
 
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p] * 2
 WARPS_PER_BLOCK = 4            # csrc/trip_fold.cu kWarpsPerBlock
 WARP_MAX_FEED = 64             # the warp tier's widest feed (W * k)
@@ -56,13 +59,16 @@ def fold_plan(ef: int, cap: int, k: int, kk: int, smem_optin: int) -> dict:
 
 
 def trip_fold_cuda(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
-                   deleted=None):
+                   deleted=None, ef_eff=None, pop=None):
     """F_d/F_i: [B, ef] f32/int32 and C_d/C_i: [B, cap], each row
     ascending (C as it was before the trip's pop of W); Cp: [B, k] f32
     ascending, or None (the filter bypass); dh/cand: [B, kk] f32/int32;
     kv: [B, kk] f32, or None (the heap is fed the C row's dists; needs
-    Cp); deleted: the tombstone words [nw] int32, or None. All contiguous
-    on one CUDA device. Returns new (F_d, F_i, C_d, C_i, Cp)."""
+    Cp); deleted: the tombstone words [nw] int32, or None; ef_eff: [B]
+    int32 in [1, ef], the slot of F that bounds each row's accept test,
+    or None (slot ef - 1); pop: [B] bool or uint8, 0 where the row keeps
+    C unpopped, or None (every row pops). All contiguous on one CUDA
+    device. Returns new (F_d, F_i, C_d, C_i, Cp)."""
     B, ef = F_d.shape
     cap, kk = C_d.shape[1], dh.shape[1]
     check_cuda(F_d, torch.float32, (B, ef), "F_d")
@@ -82,6 +88,10 @@ def trip_fold_cuda(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
     if deleted is not None:
         check_cuda(deleted, torch.int32, tuple(deleted.shape), "deleted",
                    like=F_d)
+    if ef_eff is not None:
+        check_cuda(ef_eff, torch.int32, (B,), "ef_eff", like=F_d)
+    if pop is not None:
+        check_cuda(pop, (torch.bool, torch.uint8), (B,), "pop", like=F_d)
     if ef < 1 or cap < 1 or kk < 1 or (Cp is not None and k < 1) \
             or W < 0:
         raise ValueError(f"trip_fold kernel needs ef, cap, kk, k >= 1 and "
@@ -101,12 +111,22 @@ def trip_fold_cuda(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
     with torch.cuda.device(dev):
         err = fn(F_d.data_ptr(), F_i.data_ptr(), C_d.data_ptr(),
                  C_i.data_ptr(), ptr(Cp), dh.data_ptr(), cand.data_ptr(),
-                 ptr(kv), ptr(deleted), oFd.data_ptr(), oFi.data_ptr(),
+                 ptr(kv), ptr(deleted), ptr(ef_eff), ptr(pop),
+                 oFd.data_ptr(), oFi.data_ptr(),
                  oCd.data_ptr(), oCi.data_ptr(), ptr(oCp), B, ef, cap, k,
                  kk, W, plan["threads"], ptr(scratch), stream_of(F_d))
     _build.check(lib, "trip_fold", err)
     trip_fold_cuda.launches += 1
+    if ef_eff is not None or pop is not None:
+        trip_fold_gated.launches += 1
     return oFd, oFi, oCd, oCi, oCp
 
 
+def trip_fold_gated():
+    """The launch count of ``trip_fold_cuda`` gated per row (``ef_eff``
+    or ``pop`` given: the slotted search); each is also one of
+    ``trip_fold_cuda.launches``."""
+
+
 trip_fold_cuda.launches = 0
+trip_fold_gated.launches = 0

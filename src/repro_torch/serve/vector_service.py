@@ -42,9 +42,12 @@ ordered events) -> ``merge`` (with coverage/degraded attrs) — and
 mutations trace ``serve.upsert`` / ``serve.delete`` -> ``epoch.swap``.
 Off by default: the disabled path allocates no span objects.
 
-The continuous-batching scheduler (``scheduler()``, ``run_stream(
-scheduler=True)``) is not ported yet (ROADMAP.md A7); ``run_stream``
-serves the synchronous batch path.
+**Streaming**: ``run_stream`` serves through the continuous-batching
+scheduler (``serve.scheduler.StreamScheduler``: queries retire one by
+one as they converge, no convoy and no pad lanes) wherever it is
+supported, else the synchronous batch path ``run_stream_sync``;
+``scheduler(**kw)`` gives the front-end itself (``submit`` / ``tick`` /
+``drain``, mixed k, deadlines and shedding).
 """
 from __future__ import annotations
 
@@ -71,11 +74,6 @@ from repro_torch.index import MutableIndex, ShardedMutableIndex
 from repro_torch.index.sharded import MESH_NOT_PORTED
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER, Tracer
-
-SCHEDULER_NOT_PORTED = ("the continuous-batching scheduler is not ported "
-                        "yet: ROADMAP.md A7; run_stream() serves the "
-                        "synchronous batch path")
-
 
 class ServiceStats:
     """Rolling serving statistics on the obs metrics plane.
@@ -546,10 +544,30 @@ class VectorSearchService:
                                     "latency_ms": dt}
         return fd[:n], fi[:n]
 
+    @property
+    def scheduler_supported(self) -> bool:
+        """Whether the continuous-batching scheduler can serve this
+        configuration: single-shard and sharded, single-shard deferred
+        re-ranking included (the promote and re-rank passes run batched
+        at retirement); the sharded deferred merge-then-rerank is not
+        slotted. (``mesh=`` is refused at construction.)"""
+        snap = self.sdb if self.sdb is not None else self.db
+        deferred = snap.cfg.deferred_rerank and snap.filter_kind != "none"
+        return not (deferred and self.sdb is not None)
+
     def scheduler(self, **kw):
-        """The continuous-batching front-end: not ported yet (ROADMAP.md
-        A7)."""
-        raise NotImplementedError(SCHEDULER_NOT_PORTED)
+        """The service's continuous-batching front-end
+        (``serve.scheduler.StreamScheduler``). With no arguments the one
+        default instance is cached and reused (its slot state and step
+        telemetry persist across ``run_stream`` calls); keyword
+        arguments build a fresh scheduler (e.g. ``ef=128`` for mixed-k
+        traffic, ``slo_ms=`` for deadline shedding)."""
+        from repro_torch.serve.scheduler import StreamScheduler
+        if kw:
+            return StreamScheduler(self, **kw)
+        if getattr(self, "_sched", None) is None:
+            self._sched = StreamScheduler(self)
+        return self._sched
 
     def _stream_stats(self, extra: Optional[dict] = None) -> dict:
         st = {
@@ -578,9 +596,26 @@ class VectorSearchService:
                    scheduler: Optional[bool] = None
                    ) -> Tuple[np.ndarray, dict]:
         """Serve a stream of queries; returns (all indices [n, ef0],
-        stats). The synchronous batch path serves it; ``scheduler=True``
-        asks for the continuous-batching scheduler, which is not ported
-        yet (ROADMAP.md A7) and raises."""
-        if scheduler:
-            raise NotImplementedError(SCHEDULER_NOT_PORTED)
-        return self.run_stream_sync(queries)
+        stats). By default the continuous-batching scheduler serves any
+        supported configuration and the synchronous batch path serves
+        the rest; force either with ``scheduler=``. Results come back in
+        SUBMISSION order whatever the retirement order, exactly once per
+        query."""
+        if scheduler is None:
+            scheduler = self.scheduler_supported
+        if not scheduler:
+            return self.run_stream_sync(queries)
+        q = self._validate_vectors(queries, "queries")
+        sched = self.scheduler()
+        k = min(self.ef0, sched.EF)
+        n = len(q)
+        out = np.full((n, k), -1, np.int64)
+        i = got = 0
+        while got < n:
+            while i < n and sched.has_capacity():
+                sched.submit(q[i], k=k, rid=i)
+                i += 1
+            for c in sched.tick():
+                out[c.rid] = c.ids
+                got += 1
+        return out, self._stream_stats({"path": "scheduler"})

@@ -1197,3 +1197,124 @@ def test_record_search_stats_on_card_batch(cuda):
         assert reg.histogram("phnsw_search_steps").count == 32
         assert st["steps_total"].device.type == d
     assert outs["cuda"] == outs["cpu"]
+
+
+# the fold gated per row (the slotted search), in each tier: the pca
+# scheduler's bank of 64 slots (ef 10, the mutable index's tombstones),
+# the pca-deferred bank (ef 30, no kv row), the block tier (W = 8) and
+# the global tier (a frontier past shared memory)
+GATED_FOLD_SHAPES = [(64, 10, 16, 1, 16, True, True, True),
+                     (64, 30, 16, 1, 16, True, False, True),
+                     (64, 100, 0, 1, 32, False, False, False),
+                     (64, 10, 16, 8, 128, True, True, True),
+                     (2, 30000, 16, 1, 32, True, True, True)]
+
+
+@pytest.mark.parametrize("shape", GATED_FOLD_SHAPES)
+def test_trip_fold_gated_matches_plain(cuda, shape):
+    """The fold kernel with per-row ``ef_eff`` and ``pop`` against
+    ref.trip_fold_ref, bit for bit on integer and float data, in the
+    warp, block and global tiers (one launch, counted as gated); with
+    every row popped at the compiled bound it equals the ungated kernel,
+    and without gates it counts no gated launch."""
+    B, ef, k, W, kk, heap, kv_row, tombs = shape
+    cap = max(ef + kk, 8)
+    for integer in (True, False):
+        rng = np.random.default_rng(3 * ef + kk + integer)
+        F_d, F_i, C_d, C_i, Cp, dh, cand, kv, words = _t(
+            cuda, *_fold_case(rng, B, ef, cap, k, kk, integer))
+        args = (F_d, F_i, C_d, C_i, W, Cp if heap else None, dh, cand,
+                kv if kv_row else None, words if tombs else None)
+        ef_eff, pop = _t(cuda, rng.integers(1, ef + 1, B).astype(np.int32),
+                         rng.random(B) < 0.6)
+        ef_eff[0], pop[0] = ef, False
+        for gates in ({"ef_eff": ef_eff, "pop": pop}, {"pop": pop},
+                      {"ef_eff": ef_eff}, {"pop": pop.to(torch.uint8)}):
+            before = ops.launch_counts()
+            got = ops.trip_fold(*args, **gates)
+            want = ref.trip_fold_ref(*args, **gates)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            assert after["trip_fold"] == before["trip_fold"] + 1
+            assert after["trip_fold_gated"] == before["trip_fold_gated"] + 1
+            for g, w in zip(got, want):
+                if w is not None:
+                    assert torch.equal(_bits(g), _bits(w))
+        full = {"ef_eff": torch.full_like(ef_eff, ef),
+                "pop": torch.ones_like(pop)}
+        before = ops.launch_counts()["trip_fold_gated"]
+        plain = ops.trip_fold(*args)
+        assert ops.launch_counts()["trip_fold_gated"] == before
+        for g, w in zip(ops.trip_fold(*args, **full), plain):
+            if w is not None:
+                assert torch.equal(_bits(g), _bits(w))
+
+
+def test_trip_fold_gated_argument_checks(cuda):
+    """A gate of the wrong dtype, shape or device raises."""
+    rng = np.random.default_rng(1)
+    F_d, F_i, C_d, C_i, Cp, dh, cand, kv, _ = _t(
+        cuda, *_fold_case(rng, 8, 10, 26, 16, 16, True))
+    args = (F_d, F_i, C_d, C_i, 1, Cp, dh, cand, kv, None)
+    from repro_torch.kernels.trip_fold import trip_fold_cuda
+    with pytest.raises(TypeError):
+        trip_fold_cuda(*args, pop=torch.ones(8, dtype=torch.float32,
+                                             device=cuda))
+    with pytest.raises(ValueError):
+        trip_fold_cuda(*args, ef_eff=torch.ones(7, dtype=torch.int32,
+                                                device=cuda))
+    with pytest.raises(ValueError):
+        ops.trip_fold(*args, ef_eff=torch.ones(8, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["pca", "pca-deferred", "sharded"])
+def test_scheduler_card_equals_cpu(cuda, mode):
+    """The continuous-batching scheduler on the integer fixture: the
+    same submit/tick script on the card and on the CPU gives the same
+    completions tick by tick (rid, ids, dists, steps, forced) and the
+    same escalations; ``run_stream()`` is bit-equal to the card's
+    ``run_stream_sync()`` and to the CPU's; the sharded service (three
+    shards, shard 1 dead) degrades identically."""
+    import dataclasses
+    from repro_torch.core import distributed
+    from repro_torch.core.search_torch import build_packed
+    from repro_torch.serve.vector_service import VectorSearchService
+    cfg, graphs, filt = _int_mutable_setup(
+        900, 3 if mode == "sharded" else 1)
+    cfg = dataclasses.replace(cfg, deferred_rerank=mode == "pca-deferred")
+    x = np.concatenate([g.x for g in graphs])
+    rng = np.random.default_rng(21)
+    q = rng.integers(0, 8, (96, 16)).astype(np.float32)
+    ks = rng.choice([4, 10, 24], 96)
+    out = {}
+    for d in ("cuda", "cpu"):
+        if mode == "sharded":
+            db = distributed.build_sharded(x, cfg, filt, 3, graphs=graphs,
+                                           device=d)
+        else:
+            db = build_packed(dataclasses.replace(graphs[0], cfg=cfg),
+                              filt=filt, device=d)
+        svc = VectorSearchService(db, filt=filt, batch_size=32, device=d)
+        ids, st = svc.run_stream(q)
+        assert st["path"] == "scheduler"
+        assert np.array_equal(ids, svc.run_stream_sync(q)[0])
+        sched = svc.scheduler(ef=24, n_slots=32, quantum=8)
+        if mode == "sharded":
+            sched.set_live([True, False, True])
+        ticks = []
+        for i in range(96):
+            sched.submit(q[i], k=int(ks[i]), rid=i)
+            if i % 16 == 15:
+                ticks.append([(c.rid, c.ids.tolist(), c.dists.tolist(),
+                               c.steps, c.forced, c.coverage)
+                              for c in sched.tick()])
+        while sched.in_flight or sched.queue_depth:
+            ticks.append([(c.rid, c.ids.tolist(), c.dists.tolist(),
+                           c.steps, c.forced, c.coverage)
+                          for c in sched.tick()])
+        esc = svc.stats.registry.get("phnsw_sched_escalations_total").value
+        out[d] = (ids, ticks, esc)
+    assert np.array_equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][2] == out["cpu"][2]
+    assert sorted(c[0] for t in out["cuda"][1] for c in t) == list(range(96))

@@ -48,7 +48,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.index", "repro_torch.index.mutable",
               "repro_torch.index.sharded", "repro_torch.serve",
               "repro_torch.serve.vector_service",
-              "repro_torch.serve.replica", "repro_torch.core.search_ref",
+              "repro_torch.serve.replica",
+              "repro_torch.serve.scheduler", "repro_torch.bench.load",
+              "repro_torch.core.search_ref",
               "repro_torch.core.cost_model", "repro_torch.core.kselect",
               "repro_torch.obs.bridge", "repro_torch.bench.common",
               "repro_torch.bench.table3_qps",

@@ -16,8 +16,8 @@ live-mask search, the dead mark and recovery, the retry budget (counted,
 with its backoff sleeps recorded, never timed on the wall clock), input
 validation, ``nan_policy``, the constructor guards, bounded stats, the
 warm-up excluded from the stats, and the disabled tracer allocating no
-span. What is not ported raises: ``mesh=``, ``scheduler()`` and
-``run_stream(scheduler=True)``."""
+span. What is not ported raises: ``mesh=``. The scheduler's cases are
+in tests/test_torch_scheduler.py."""
 import dataclasses
 import types
 
@@ -453,14 +453,25 @@ def test_service_ctor_guards(shard_graphs, twin_services):
         VectorSearchService(db, batch_size=8, device="cpu")
 
 
-def test_scheduler_not_ported_and_sync_stream(twin_services):
-    _, svc, q = twin_services
-    with pytest.raises(NotImplementedError, match="A7"):
-        svc.scheduler()
-    with pytest.raises(NotImplementedError, match="A7"):
-        svc.run_stream(q, scheduler=True)
+def test_scheduler_supported_and_mesh_raises(shard_graphs, twin_services):
+    """``scheduler_supported`` as the reference decides it (the sharded
+    fault-tolerant service: yes; a sharded deferred one: no); ``mesh=``
+    still raises; ``run_stream(scheduler=False)`` serves the synchronous
+    path in service batches."""
+    rsvc, svc, q = twin_services
+    assert svc.scheduler_supported and rsvc.scheduler_supported
+    _, tfilt = _int_filters("pca")
+    db = build_packed(shard_graphs[3][0], filt=tfilt, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        VectorSearchService(db, filt=tfilt, batch_size=8, mesh=object(),
+                            device="cpu")
+    sdb = svc.sdb
+    deferred = dataclasses.replace(
+        sdb, cfg=dataclasses.replace(sdb.cfg, deferred_rerank=True))
+    assert not VectorSearchService(deferred, filt=tfilt, batch_size=8,
+                                   device="cpu").scheduler_supported
     qs = np.concatenate([q, q[:5]])
-    ids, st = svc.run_stream(qs)
+    ids, st = svc.run_stream(qs, scheduler=False)
     assert st["path"] == "sync" and ids.shape == (len(qs), svc.ef0)
     np.testing.assert_array_equal(ids[:B], svc.query(q)[1])
 
