@@ -230,11 +230,14 @@ non-zero:
                 and predicted us per query and their ratio;
  14b. stream  — (runs after 14) the continuous-batching scheduler:
                 shard 0's ``MutableIndex`` behind a service of 64 (the
-                bank's S = 64 slots): ``--stream-queries`` (10k) queries
-                through ``run_stream()`` (the scheduler) and
+                bank's S = 64 slots): 10k queries through
+                ``run_stream()`` (the scheduler) and
                 ``run_stream_sync()``, bit-equal, with QPS, p50 and p99
-                of each and the escalations; 2,000 mixed-k submits (k
-                10, 50, 100) at ``scheduler(ef=100)``: each rid exactly
+                of each and the escalations (a 1k-query pilot of the
+                scheduler first, and the count cut, with a ``reduced``
+                line, if the two passes would pass 60 s); 2,000
+                mixed-k submits (k 10, 50, 100) at
+                ``scheduler(ef=100)``: each rid exactly
                 once with k ids, recall@10 >= 0.80; a pca-deferred
                 service's scheduler bit-equal to its sync path; the P=4
                 service over all points behind a ``FaultPolicy``:
@@ -2271,6 +2274,9 @@ STREAM_KS, STREAM_K_SHARES = (10, 50, 100), (0.45, 0.45, 0.10)
 STREAM_DEFERRED, STREAM_SHARDED = 2_000, 1_000
 STREAM_LOAD_FRACS, STREAM_LOAD_REQ, STREAM_LOAD_SECONDS = (0.5, 0.9), 16, 3.0
 STREAM_LOAD_QUERIES = 256
+# the pilot's queries, and the time the two run_stream passes may take
+# (past it their query count is cut)
+STREAM_PILOT, STREAM_RUN_BUDGET_S = 1_000, 60.0
 # the kernels the scheduler's parts must launch (the gated fold on every
 # slotted trip; dist_l scores the deferred admissions' entry points)
 STREAM_KERNELS = ("trip_fold", "trip_fold_gated", "fused_expand_rows",
@@ -2302,12 +2308,14 @@ def _drain_all(sched, q, ks) -> list:
 
 
 def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
-                     device: str = "cuda", n_queries: int = STREAM_QUERIES,
-                     load: bool = True) -> dict:
+                     device: str = "cuda", n_queries: int = STREAM_QUERIES
+                     ) -> dict:
     """The continuous-batching scheduler on the card: ``MutableIndex``
     over shard 0's graph ``g`` behind a ``STREAM_SLOTS`` service. The
     first ``n_queries`` of ``q`` through ``run_stream()`` (the scheduler)
-    and ``run_stream_sync()``: bit-equal ids, QPS and p50/p99 of each;
+    and ``run_stream_sync()``: bit-equal ids, QPS and p50/p99 of each
+    (a ``STREAM_PILOT``-query pilot of the scheduler first, and the count
+    cut if the two passes would pass ``STREAM_RUN_BUDGET_S``);
     ``STREAM_MIXED`` mixed-k submits at ``scheduler(ef=100)``: each rid
     exactly once, k ids each, recall@10 >= 0.80 against ``gt``; a
     pca-deferred service's scheduler bit-equal to its sync path; the
@@ -2343,10 +2351,23 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
     out["warmup_seconds"] = time.perf_counter() - t0
     out["rungs"] = sched.rungs
     warm = slot_cache_sizes()
+    pilot = min(STREAM_PILOT, n)
+    secs_p = _stream(svc, q[:pilot], scheduler=None)[2]
+    out["pilot"] = {"queries": pilot, "seconds": secs_p}
+    projected = 2 * secs_p * n / pilot
+    if projected > STREAM_RUN_BUDGET_S:
+        n_cut = max(pilot, int(n * STREAM_RUN_BUDGET_S / projected))
+        emit({"reduced": {"stream_queries": n_cut, "of": n, "why": (
+            f"the scheduler and sync passes would take {projected:.1f} s, "
+            f"over the {STREAM_RUN_BUDGET_S} s the smoke gives them")}})
+        n = out["queries"] = n_cut
 
     ops.reset_launch_counts()
     ids_s, st_s, secs_s = _stream(svc, q[:n], scheduler=None)
     launches["scheduler"] = ops.launch_counts()
+    new_keys = [a - b for a, b in zip(slot_cache_sizes(), warm)]
+    need(slot_cache_sizes() == warm, "stream: run_stream() added "
+         f"slotted-program keys {new_keys}")
     esc = _sched_counters(svc)
     ops.reset_launch_counts()
     ids_y, st_y, secs_y = _stream(svc, q[:n], scheduler=False)
@@ -2356,7 +2377,7 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
                         "qps": n / secs_s, "p50_ms": st_s["p50_ms"],
                         "p99_ms": st_s["p99_ms"],
                         "recall_at_10": recall_at_10(ids_s, gt[:n]),
-                        **esc}
+                        "new_keys": new_keys, **esc}
     out["sync"] = {"path": st_y["path"], "seconds": secs_y,
                    "qps": n / secs_y, "p50_ms": st_y["p50_ms"],
                    "p99_ms": st_y["p99_ms"]}
@@ -2485,19 +2506,17 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
              "added slotted-program keys")
         del ssvc, sdb
 
-    if load:
-        t0 = time.perf_counter()
-        svc.stats.reset()
-        nl = STREAM_LOAD_QUERIES
-        res = run_load(svc, q[:nl], gt[:nl], req_size=STREAM_LOAD_REQ,
-                       offered_fracs=STREAM_LOAD_FRACS, calib_reps=2,
-                       seed=seed, mixed_k=False,
-                       point_seconds=STREAM_LOAD_SECONDS)
-        out["load"] = {"seconds": time.perf_counter() - t0,
-                       **res["entry"],
-                       "rows": [list(r) for r in res["rows"]]}
-        need(sum(res["entry"]["new_keys"]) == 0,
-             "stream: the load bench added slotted-program keys")
+    t0 = time.perf_counter()
+    svc.stats.reset()
+    nl = STREAM_LOAD_QUERIES
+    res = run_load(svc, q[:nl], gt[:nl], req_size=STREAM_LOAD_REQ,
+                   offered_fracs=STREAM_LOAD_FRACS, calib_reps=2,
+                   seed=seed, mixed_k=False,
+                   point_seconds=STREAM_LOAD_SECONDS)
+    out["load"] = {"seconds": time.perf_counter() - t0, **res["entry"],
+                   "rows": [list(r) for r in res["rows"]]}
+    need(sum(res["entry"]["new_keys"]) == 0,
+         "stream: the load bench added slotted-program keys")
     out["launches"] = launches
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
         if device == "cuda" else None
@@ -3391,8 +3410,6 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--stream-queries", type=int, default=STREAM_QUERIES,
-                    help="queries of the stream phase's run_stream parts")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3544,7 +3561,7 @@ def main(argv=None) -> int:
     for name in TABLE3_KERNELS:
         need(t3["launches"][name] > 0, f"table3: never launched {name}")
     stream = run_stream_phase(torch, np, g0, graphs, x, filts["pca"], q, gt0,
-                              args.seed, n_queries=args.stream_queries)
+                              args.seed)
     emit(stream)
     for part, names in (("scheduler", STREAM_KERNELS),
                         ("mixed_k", STREAM_KERNELS),
@@ -3552,9 +3569,6 @@ def main(argv=None) -> int:
         for name in names:
             need(stream["launches"][part][name] > 0,
                  f"stream: the {part} part never launched {name}")
-    if args.stream_queries < STREAM_QUERIES:
-        emit({"reduced": {"stream_queries": args.stream_queries,
-                          "of": STREAM_QUERIES, "why": "--stream-queries"}})
     stream_launches = [c for part, c in stream["launches"].items()
                        if part != "sync"]
     del x, graphs, g0

@@ -2,27 +2,27 @@
 continuous-batching scheduler (port of ``benchmarks/bench_load.py``).
 
     python -m repro_torch.bench.load [--device cuda|cpu] [--n N]
-        [--queries Q] [--req-size R] [--svc-batch B] [--requests K]
-        [--fracs 0.5,0.9] [--seed S] [--out FILE]
+        [--requests K] [--out FILE]
 
 A closed loop (the next request starts when the previous one ends)
 measures capacity but hides queueing; a service is OPEN-loop: requests
 arrive on their own clock, and the latency an operator sees includes the
 wait in the queue. The protocol:
 
-1. **Capacity** in a closed loop of ``--req-size`` requests through the
-   service (``--svc-batch`` rows a batch, underfull batches padded), and
+1. **Capacity** in a closed loop of ``req_size`` (16) query requests
+   through the service (64 rows a batch, underfull batches padded), and
    tracing on against off, interleaved rep by rep on the same service.
 2. **Offered-load points**: for each fraction of capacity, seeded
-   Poisson arrivals at that request rate; each request is served at its
+   Poisson arrivals at that request rate (``--requests`` of them, 0.5
+   and 0.9 of capacity); each request is served at its
    scheduled arrival (or as soon as the server frees up) and its latency
    runs from the scheduled arrival, queue wait included. Both arms serve
    at the same fixed width: the synchronous arm pads each request's dead
-   lanes up to ``--svc-batch``, the scheduler arm (``--svc-batch``
+   lanes up to the service's width, the scheduler arm (as many
    slots) packs queries of different requests into one bank. The
    ``sync_tight`` row is a service whose width is the request size (no
    padding), at 0.8 of its own capacity. ``mixed_k`` is ragged traffic
-   (1 to ``--req-size`` queries a request, k drawn from {1, 10, 100})
+   (1 to ``req_size`` queries a request, k drawn from {1, 10, 100})
    through one ``ef=100`` scheduler.
 3. **Exact sample percentiles** (``numpy.percentile`` of the raw
    latencies); the samples also land in the obs histograms.
@@ -350,28 +350,23 @@ def run_load(svc, q, gt, *, req_size: int = 16,
     return {"rows": rows, "entry": entry}
 
 
-def main(n_points: int = 8_000, n_queries: int = 64, *, device="cuda",
-         seed: int = 0, req_size: int = 16, svc_batch: int = 64,
-         offered_fracs: Sequence[float] = (0.5, 0.9),
-         n_requests: int = 120, calib_reps: int = 6,
+def main(n_points: int = 8_000, *, device="cuda", n_requests: int = 120,
          out: Optional[str] = None):
     """The bench over the cached SIFT-like fixture
-    (``bench.common.load_bench_db``) served by a pca service of
-    ``svc_batch`` on ``device``."""
+    (``bench.common.load_bench_db``, its first 64 queries) served by a
+    pca service of 64 on ``device``, at ``run_load``'s defaults."""
     from repro_torch.bench.common import emit, load_bench_db
     from repro_torch.core.filters import PCAFilter
     from repro_torch.core.search_torch import build_packed
     from repro_torch.serve.vector_service import VectorSearchService
 
-    cfg, _, g, pca, x_low, q, gt = load_bench_db(n_points, n_queries,
+    cfg, _, g, pca, x_low, q, gt = load_bench_db(n_points, 64,
                                                  device=device)
     filt = PCAFilter(pca, low_dtype=cfg.low_dtype)
     db = build_packed(g, x_low, filt=filt, device=device)
-    svc = VectorSearchService(db, filt=filt, batch_size=svc_batch,
+    svc = VectorSearchService(db, filt=filt, batch_size=64,
                               device=device)
-    res = run_load(svc, q, gt, req_size=req_size,
-                   offered_fracs=offered_fracs, n_requests=n_requests,
-                   calib_reps=calib_reps, seed=seed)
+    res = run_load(svc, q, gt, n_requests=n_requests)
     emit(res["rows"])
     if out:
         with open(out, "w") as f:
@@ -384,15 +379,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int, default=8_000)
-    ap.add_argument("--queries", type=int, default=64)
-    ap.add_argument("--req-size", type=int, default=16)
-    ap.add_argument("--svc-batch", type=int, default=64)
     ap.add_argument("--requests", type=int, default=120)
-    ap.add_argument("--fracs", default="0.5,0.9")
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write rows and points as JSON")
     a = ap.parse_args()
-    main(a.n, a.queries, device=a.device, seed=a.seed,
-         req_size=a.req_size, svc_batch=a.svc_batch,
-         offered_fracs=tuple(float(f) for f in a.fracs.split(",")),
-         n_requests=a.requests, out=a.out)
+    main(a.n, device=a.device, n_requests=a.requests, out=a.out)
