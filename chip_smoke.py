@@ -129,6 +129,17 @@ non-zero:
                 ranks on PQ distances), launches (``ksort_l`` and the
                 arm's kernels must launch), the stacked db's bytes, peak
                 device memory and one profiled batch;
+  7b. mesh    — the collective path (``distributed_search``) on the same
+                P-shard dbs over a (1, P) mesh of the first P cards, or
+                of cuda:0 P times on a machine with fewer (the line names
+                the devices, and the card's name and power limit): in
+                the pca, pca-deferred, pq and cascade-deferred arms the
+                ``--queries`` queries bit-equal to ``shard_search_host``
+                with each kernel launched as often (``ksort_l`` once a
+                batch), QPS of both (the host path first); on the first
+                4 batches the pca arm over a (2, P) mesh bit-equal to the
+                host path on the same two blocks of each batch, and with
+                shard 0 dead bit-equal in ids, dists and coverage;
   8. degraded — the first 4 batches, the pca arm with shard 0 dead:
                 coverage equals ``shard_live_counts`` exactly, no id of
                 shard 0 comes back, and ids and dists are bit-identical to
@@ -167,7 +178,10 @@ non-zero:
                 quarantined; 4,096 round-robin upserts found by the next
                 queries (self-recall >= 0.95), the stacked db of the
                 epoch before them unchanged; a deferred search of the
-                index; the one-npz snapshot round-trips bit-equal; peak
+                index; the one-npz snapshot round-trips bit-equal; the
+                index's ``search(mesh=)`` (plain and deferred) and a
+                service over the mesh bit-equal to the host path, the
+                mesh service's ``scheduler()`` refused; peak
                 device memory (every publish stacks a copy of the shards);
                 ``ksort_l`` and ``dist_l`` must launch besides the
                 search's and the probe's kernels;
@@ -182,7 +196,10 @@ non-zero:
                 data with and without tombstones, the same recall and id
                 bars on float data; with layout (3) in bf16, pca and
                 pca-deferred bit-identical on integer data, single-shard
-                and at P=4 (with and without tombstones); ``run_stream()``
+                and at P=4 (with and without tombstones); the mesh
+                search (``mesh``) at P=4 with tombstones in every mode
+                on 64 queries, over a (1, 4) mesh and a (2, 4) one with
+                shard 0 dead; ``run_stream()``
                 through the scheduler (``stream``), single-shard and at
                 P=4, bit-identical card against CPU and equal to the
                 card's ``run_stream_sync()``; and the pca arm at
@@ -251,15 +268,17 @@ non-zero:
                 bridge); the scheduler parts must launch the gated fold,
                 the sync part never;
  15. the ``{"kernels": [...]}`` line (each kernel's ``launches`` sums
-     every main-path run, ``launches_replica``, ``launches_table3`` and
-     ``launches_stream`` included), the ``nvidia-smi`` line, and last
+     every main-path run, ``launches_replica``, ``launches_table3``,
+     ``launches_stream`` and ``launches_mesh`` included), the
+     ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main-path run (the footprint
-bench, the build, each single-shard arm, each sharded arm, each part
-of the serve, replica and stream phases and the table3 batched rows)
-and read just after. The degraded and resilient phases need P >= 2 and are
-skipped at ``--shards 1``, which otherwise gives the single-shard smoke
+bench, the build, each single-shard arm, each sharded arm, each mesh run,
+each part of the serve, replica and stream phases and the table3 batched
+rows) and read just after. The degraded, resilient and mesh phases need
+P >= 2 and are skipped at ``--shards 1``, which otherwise gives the
+single-shard smoke
 over all ``--n`` points. It needs no network and one card, and exits
 non-zero without CUDA or without the ``src/repro_torch`` package beside
 it.
@@ -1731,15 +1750,18 @@ def build_sharded_dbs(torch, np, x, graphs, filts, codes, device,
     return sdbs, secs
 
 
-def _sharded_all(torch, sdb, filt, q, batch, device, **kw):
-    """``shard_search_host`` over all of ``q`` in batches: (dists, ids)
-    on the host and the last batch's stats."""
-    from repro_torch.core.distributed import shard_search_host
+def _sharded_all(torch, sdb, filt, q, batch, device, mesh=None, **kw):
+    """``shard_search_host`` (or with ``mesh`` ``distributed_search``)
+    over all of ``q`` in batches: (dists, ids) on the host and the last
+    batch's stats."""
+    from functools import partial
+    from repro_torch.core import distributed
+    search = partial(distributed.shard_search_host, device=device) \
+        if mesh is None else partial(distributed.distributed_search, mesh)
     fds, fis, st = [], [], None
     for i in range(0, len(q), batch):
-        fd, fi, st = shard_search_host(sdb, q[i:i + batch], filt=filt,
-                                       return_stats=True, device=device,
-                                       **kw)
+        fd, fi, st = search(sdb, q[i:i + batch], filt=filt,
+                            return_stats=True, **kw)
         fds.append(fd)
         fis.append(fi)
     return torch.cat(fds).cpu(), torch.cat(fis).cpu(), st
@@ -1795,6 +1817,111 @@ def run_sharded(torch, np, sdbs, filts, q, gt, batch: int, device: str,
             "max_memory_allocated": peak, "launches": counts,
             "casts_one_batch": casts, "profile_one_batch": prof})
     return outs
+
+
+# the mesh phase's arms (the sharded phase's f32 arms) and the mesh's
+# devices: the first P cards where the machine has them, else cuda:0 for
+# every shard
+MESH_ARMS = ("pca", "pca-deferred", "pq", "cascade-deferred")
+
+
+def mesh_devices(torch, P: int, device: str = "cuda") -> list:
+    """P devices for a (1, P) mesh: the first P cards when there are as
+    many, else the first card P times (on the CPU, "cpu" P times)."""
+    if device != "cuda":
+        return [device] * P
+    return [f"cuda:{i if torch.cuda.device_count() >= P else 0}"
+            for i in range(P)]
+
+
+def run_mesh(torch, np, sdbs, filts, q, batch: int, device: str = "cuda",
+             smi: str = "") -> dict:
+    """The collective path (``distributed_search``) on the sharded
+    phase's P-shard dbs over a (1, P) mesh (``mesh_devices``): in each of
+    ``MESH_ARMS`` the ``--queries`` queries bit-equal to
+    ``shard_search_host``, each kernel launched as often (``ksort_l`` once
+    a batch), QPS of both on the host's clock, timed in turns over the
+    queries' two halves (host, mesh on the first; mesh, host on the
+    second); then, on the first 4 batches, the pca arm on a (2, P) mesh
+    bit-equal to the host path on the same two blocks of each batch, and
+    with shard 0 dead bit-equal in ids, dists and coverage. Launch counts
+    are reset just before each mesh run and read just after."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.kernels import ops
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    P = sdbs["pca"].n_shards
+    devs = mesh_devices(torch, P, device)
+    mesh = make_mesh((1, P), ("data", "model"), devices=devs)
+    out = {"phase": "mesh", "shards": P, "devices": devs,
+           "one_card_for_every_shard": len(set(devs)) == 1 and P > 1,
+           "gpu": smi, "queries": len(q), "batch": batch, "arms": {}}
+    same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))
+    for name, kind, deferred, rm, _, low_dtype in ARMS:
+        if name not in MESH_ARMS:
+            continue
+        sdb, filt = sdbs[kind], filts[kind]
+        kw = _arm_kwargs(sdb.cfg, kind, deferred, rm)
+        _sharded_all(torch, sdb, filt, q[:batch], batch, device, mesh, **kw)
+        sync()
+        half = batch * -(-len(q) // (2 * batch))
+        runs = {"host": [], "mesh": []}
+        for part, order in ((q[:half], (None, mesh)),
+                            (q[half:], (mesh, None))):
+            for m in order:
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = _sharded_all(torch, sdb, filt, part, batch, device, m,
+                                   **kw)
+                sync()
+                runs["host" if m is None else "mesh"].append(
+                    (time.perf_counter() - t0, ops.launch_counts(), res))
+        secs = {k: [r[0] for r in v] for k, v in runs.items()}
+        counts, host_counts = ({n: sum(r[1][n] for r in runs[k])
+                                for n in runs[k][0][1]}
+                               for k in ("mesh", "host"))
+        arm = {"qps_mesh": len(q) / sum(secs["mesh"]),
+               "qps_host": len(q) / sum(secs["host"]),
+               "seconds_mesh_halves": secs["mesh"],
+               "seconds_host_halves": secs["host"],
+               "bit_equal": all(same(a[2][:2], b[2][:2]) for a, b in
+                                zip(runs["mesh"], runs["host"])),
+               "launches": counts, "launches_host": host_counts,
+               "batches": -(-half // batch) + -(-(len(q) - half) // batch)}
+        out["arms"][name] = arm
+        need(arm["bit_equal"], f"mesh {name}: differs from "
+             "shard_search_host")
+    qs, sdb, filt = q[:4 * batch], sdbs["pca"], filts["pca"]
+    split = make_mesh((2, P), ("data", "model"), devices=devs * 2)
+    ops.reset_launch_counts()
+    got = _sharded_all(torch, sdb, filt, qs, batch, device, split)
+    sync()
+    out["split_launches"] = ops.launch_counts()
+    blocks = []
+    for i in range(0, len(qs), batch):
+        b = qs[i:i + batch]
+        blocks += [b[:len(b) // 2], b[len(b) // 2:]]
+    parts = [_sharded_all(torch, sdb, filt, blk, len(blk), device)
+             for blk in blocks]
+    want = (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+    out["split_bit_equal"] = same(got[:2], want)
+    need(out["split_bit_equal"], "mesh (2, P) pca: differs from the host "
+         "path on the same blocks")
+    live = np.arange(P) != 0
+    ops.reset_launch_counts()
+    got = _sharded_all(torch, sdb, filt, qs, batch, device, mesh,
+                       live=live)
+    sync()
+    out["dead_launches"] = ops.launch_counts()
+    want = _sharded_all(torch, sdb, filt, qs, batch, device, live=live)
+    out["dead_shard"] = {"dead": [0], "coverage": got[2]["coverage"],
+                         "bit_equal": same(got[:2], want[:2]) and
+                         got[2]["coverage"] == want[2]["coverage"]}
+    need(out["dead_shard"]["bit_equal"], "mesh pca with shard 0 dead: "
+         "differs from the host path")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def run_degraded(torch, np, sdb, filt, q, batch: int, device: str) -> dict:
@@ -2239,6 +2366,7 @@ def run_serve_sharded(torch, np, graphs, filt, q, gt, batch: int,
     fd_d, fi_d = sidx.search(qb, deferred=True, rerank_mult=3)
     sync()
     launches = ops.launch_counts()
+    out["mesh"] = run_serve_mesh(torch, np, sidx, qb, batch, device)
 
     snap = ROOT / "build" / "serve_sharded_snapshot.npz"
     t1 = time.perf_counter()
@@ -2260,6 +2388,50 @@ def run_serve_sharded(torch, np, graphs, filt, q, gt, batch: int,
     out["epoch"] = sidx.epoch
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_serve_mesh(torch, np, sidx, qb, batch: int, device: str) -> dict:
+    """The sharded index searched over a (1, P) mesh (``mesh_devices``),
+    plain and deferred, and a service over the mesh: each bit-equal to
+    the index's host path; the service's ``scheduler()`` refused. Launch
+    counts are reset just before and read just after."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import SchedulerUnsupported
+    from repro_torch.serve.vector_service import VectorSearchService
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    devs = mesh_devices(torch, sidx.n_shards, device)
+    mesh = make_mesh((1, sidx.n_shards), ("data", "model"), devices=devs)
+    same = lambda a, b: all(torch.equal(u.cpu(), v.cpu())
+                            for u, v in zip(a, b))
+    kws = ({}, {"deferred": True, "rerank_mult": 3})
+    ops.reset_launch_counts()
+    got = [sidx.search(qb, mesh=mesh, **kw) for kw in kws]
+    msvc = VectorSearchService(sidx, batch_size=batch, mesh=mesh,
+                               device=device)
+    fd, fi = msvc.query(qb)
+    sync()
+    launches = ops.launch_counts()
+    index_eq = all(same(g, sidx.search(qb, **kw))
+                   for g, kw in zip(got, kws))
+    hd, hi = sidx.search(qb)
+    svc_eq = np.array_equal(fi, hi.cpu().numpy()) and \
+        np.array_equal(fd, hd.cpu().numpy())
+    try:
+        msvc.scheduler()
+        refused = False
+    except SchedulerUnsupported:
+        refused = True
+    out = {"devices": devs, "index_bit_equal": index_eq,
+           "service_bit_equal": bool(svc_eq),
+           "scheduler_refused": refused, "launches": launches}
+    need(index_eq, "serve_sharded: search(mesh=) differs from the host "
+         "path")
+    need(svc_eq, "serve_sharded: the mesh service differs from the host "
+         "path")
+    need(refused and not msvc.scheduler_supported,
+         "serve_sharded: the mesh service's scheduler was not refused")
     return out
 
 
@@ -3244,6 +3416,39 @@ SHARD_PARITY_MODES = {"pca": ("pca", False, None), **PARITY_MODES,
                       "none": ("none", False, None)}
 
 
+def _mesh_parity(torch, np, cfg, xi, qi, igraphs, ifilts, deleted,
+                 device: str) -> dict:
+    """``distributed_search`` on the integer fixture's first 64 queries
+    with tombstones, in every mode of ``SHARD_PARITY_MODES``, on the card
+    (``mesh_devices``) and on the CPU: over a (1, P) mesh with every
+    shard live and a (2, P) mesh with shard 0 dead, ids, dists and
+    coverage bit-identical."""
+    from repro_torch.core.distributed import (build_sharded,
+                                              distributed_search, make_mesh)
+    P = len(igraphs)
+    out = {}
+    for mode, (kind, deferred, rm) in SHARD_PARITY_MODES.items():
+        kw = _arm_kwargs(cfg, kind, deferred, rm)
+        got = {}
+        for dev in (device, "cpu"):
+            sdb = build_sharded(xi, cfg, ifilts[kind], P, graphs=igraphs,
+                                deleted=deleted, device=dev)
+            devs = mesh_devices(torch, P, dev)
+            got[dev] = []
+            for R, live in ((1, None), (2, np.arange(P) != 0)):
+                mesh = make_mesh((R, P), ("data", "model"),
+                                 devices=devs * R)
+                fd, fi, st = distributed_search(
+                    mesh, sdb, qi[:64], filt=ifilts[kind], live=live,
+                    return_stats=True, **kw)
+                got[dev] += [fd.cpu(), fi.cpu(), st["coverage"]]
+        ok = all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                 else a == b for a, b in zip(got[device], got["cpu"]))
+        out[mode] = ok
+        need(ok, f"8k mesh {mode} integer parity: card and CPU differ")
+    return out
+
+
 def _sharded_parity(torch, np, cfg, x, q, gt, filts, ifilts, seed: int,
                     device: str, shards: int = 4) -> dict:
     """The 8k fixture over ``shards`` shard graphs (built on ``device``,
@@ -3341,6 +3546,8 @@ def _sharded_parity(torch, np, cfg, x, q, gt, filts, ifilts, seed: int,
     out["stream"] = _stream_parity(np, lambda dev: build_sharded(
         xi, cfg, ifilts["pca"], shards, graphs=igraphs, device=dev),
         ifilts["pca"], qi, device)
+    out["mesh"] = _mesh_parity(torch, np, cfg, xi, qi, igraphs, ifilts,
+                               deleted, device)
     out["mutable"] = _sharded_mutable_parity(torch, np, cfg, igraphs,
                                              ifilts["pca"], qi, device,
                                              seed)
@@ -3504,6 +3711,23 @@ def main(argv=None) -> int:
              f"sharded arm {arm}: recall@10 {sout['recall_at_10']} < "
              f"{sout['recall_floor']}")
     check_bf16_arms(shouts, "sharded")
+    mesh_launches = []
+    if P > 1:
+        mout = run_mesh(torch, np, sdbs, filts, q, args.batch, "cuda", smi)
+        emit(mout)
+        for arm, res in mout["arms"].items():
+            counts = res["launches"]
+            need(counts == res["launches_host"], f"mesh {arm}: launches "
+                 f"{counts} against the host path's {res['launches_host']}")
+            need(counts["ksort_l"] == res["batches"], f"mesh {arm}: "
+                 f"ksort_l {counts['ksort_l']} times for {res['batches']} "
+                 "batches")
+            for name in SHARD_ARM_KERNELS[arm]:
+                need(counts[name] > 0, f"mesh {arm} never launched {name}")
+        mesh_launches = [a["launches"] for a in mout["arms"].values()] \
+            + [mout["split_launches"], mout["dead_launches"]]
+    else:
+        emit({"phase": "mesh", "skipped": "needs --shards >= 2"})
     # the degraded and tombstone phases check properties, not rates: the
     # first four batches are enough
     nq = 4 * args.batch
@@ -3546,6 +3770,7 @@ def main(argv=None) -> int:
             need(sserve["launches"][name] > 0,
                  f"serve_sharded: never launched {name}")
         serve_launches.append(sserve["launches"])
+        mesh_launches.append(sserve["mesh"]["launches"])
     else:
         emit({"phase": "serve_sharded", "skipped": "needs --shards >= 2"})
     rep = run_replica(torch, np, g0, filts["pca"], q, args.batch, args.seed,
@@ -3586,12 +3811,13 @@ def main(argv=None) -> int:
         n_replica = sum(c[name] for c in rep["launches"].values())
         n_table3 = t3["launches"][name]
         n_stream = sum(c[name] for c in stream_launches)
+        n_mesh = sum(c[name] for c in mesh_launches)
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "shape": list(shape),
                      "launches": bout["launches"][name]
                      + sum(per_arm.values()) + sum(per_sharded.values())
                      + fout["launches"][name] + n_serve + n_replica
-                     + n_table3 + n_stream,
+                     + n_table3 + n_stream + n_mesh,
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
                      "launches_sharded": per_sharded,
@@ -3600,6 +3826,7 @@ def main(argv=None) -> int:
                      "launches_replica": n_replica,
                      "launches_table3": n_table3,
                      "launches_stream": n_stream,
+                     "launches_mesh": n_mesh,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

@@ -31,14 +31,28 @@ shards one at a time (``probe_shard``, fault-injectable through
 ``repro_torch.distributed.faults``), checks each answer
 (``check_shard_result``) and merges whatever answered
 (``merge_surviving``); ``index/sharded.py`` publishes its mutable
-shards as a ``ShardedDB`` and searches it through this path. The
-collective path over several devices (``distributed_search``) is not
-ported yet (ROADMAP.md A8).
+shards as a ``ShardedDB`` and searches it through this path.
+
+``distributed_search`` is the collective path over a device ``Mesh``
+(``make_mesh``), with the reference's single-controller API: one
+process calls it and gets the global answer. Shard s of the batch's
+row r runs on mesh device (r, s); the reference's ``all_gather``
+becomes a copy of each shard's lists to the row's first device, and
+its ``psum`` of the owned Dist.H / mid-stage rows a sum in shard order
+on that device (exactly one shard owns each slot, so the sum has the
+reference's bits in any order). The shards' searches run in lockstep
+(``search_torch._lockstep``): each issues its trips before any of them
+reads its ``done`` flags on the host, so the cards compute at once.
+``torch.distributed`` (one process per rank, NCCL collectives) would
+need every rank to make the call, a different API from the reference's;
+the copies here are a few KB per batch ([B, E] lists and [B, E]
+partial rows), so nothing needs the collectives.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -51,11 +65,11 @@ from repro_torch.core.graph import build_hnsw
 from repro_torch.core.pca import PCA
 from repro_torch.core.search_torch import (PackedDB, PackedLayer,
                                            _cascade_qpca, _check_device,
-                                           _gather_rows,
+                                           _drain, _gather_rows, _key,
+                                           _lockstep,
                                            _rank_sort_with_payload,
-                                           _search_batched_impl,
-                                           build_packed, pack_bitmap,
-                                           tensor_from_numpy)
+                                           _search_gen, build_packed,
+                                           pack_bitmap, tensor_from_numpy)
 from repro_torch.kernels import ops
 
 
@@ -242,7 +256,16 @@ def _shard_lists(db: PackedDB, offset: int, queries, qprep, *, ef0, ks,
     [B, E] GLOBAL ids). High-dim dists normally; the WIDE
     (rerank_mult * ef0, promote_mult * ef0 for the cascade) filter-space
     list when deferred."""
-    fd, fi, _, _ = _search_batched_impl(
+    return _drain(_shard_lists_gen(db, offset, queries, qprep, ef0=ef0,
+                                   ks=ks, deferred=deferred,
+                                   rerank_mult=rerank_mult,
+                                   promote_mult=promote_mult))
+
+
+def _shard_lists_gen(db: PackedDB, offset: int, queries, qprep, *, ef0,
+                     ks, deferred, rerank_mult, promote_mult=1):
+    """``_shard_lists`` as a generator (``search_torch._search_gen``)."""
+    fd, fi, _, _ = yield from _search_gen(
         db, queries, qprep, ef0=ef0, k_schedule=ks, deferred=deferred,
         rerank_mult=rerank_mult, promote_mult=promote_mult,
         final_rerank=False)
@@ -324,26 +347,48 @@ def _normalize(sdb: ShardedDB, ef0, k_schedule, deferred, rerank_mult,
     return ef0, ks, bool(deferred), int(rerank_mult), int(promote_mult)
 
 
-def _merge_and_rerank(sdb: ShardedDB, fds, gis, live, queries, qprep, *,
-                      ef0: int, deferred: bool, rerank_mult: int):
+@dataclass
+class _Owner:
+    """One live shard's side of the global promote and re-rank: its rows,
+    its ownership span and the batch's queries (and, for the cascade,
+    their PCA projection), all on the shard's device."""
+    high: torch.Tensor
+    low2: Optional[torch.Tensor]
+    offset: int
+    count: int
+    queries: torch.Tensor
+    qpca: Optional[torch.Tensor]
+
+
+def _owners(sdb: ShardedDB, live, queries, qprep, cascade: bool) -> list:
+    """The ``_Owner`` of every live shard of ``sdb``, on the db's device."""
+    qpca = _cascade_qpca(qprep, sdb.low.shape[-1]) if cascade else None
+    return [_Owner(sdb.high[s], None if sdb.low2 is None else sdb.low2[s],
+                   int(sdb.offsets[s]), int(sdb.counts[s]), queries, qpca)
+            for s in np.nonzero(live)[0]]
+
+
+def _merge_and_rerank(fds, gis, owners, *, ef0: int, deferred: bool,
+                      cascade: bool, rerank_mult: int):
     """The merge, the global promote (deferred cascade) and the global
-    re-rank (deferred) over per-shard lists whose dead shards are
-    already (INF, -1); the owned contributions of the live shards are
-    summed in shard order."""
+    re-rank (deferred) over per-shard lists on one device whose dead
+    shards are already (INF, -1). The merged ids go to each live
+    shard's device (``owners``), and its owned contributions come back
+    and are summed in shard order."""
     md, mi = _merge_lists(torch.stack(fds), torch.stack(gis),
                           fds[0].shape[1])
-    if deferred and sdb.filter_kind == "cascade":
-        qpca = _cascade_qpca(qprep, sdb.low.shape[-1])
+    dev = md.device
+    if cascade:
         dm = torch.zeros_like(md)
-        for s in np.nonzero(live)[0]:
-            dm = dm + _owned_dist_mid(sdb.low2[s], int(sdb.offsets[s]),
-                                      int(sdb.counts[s]), mi, qpca)
+        for o in owners:
+            dm = dm + _owned_dist_mid(o.low2, o.offset, o.count,
+                                      mi.to(o.high.device), o.qpca).to(dev)
         md, mi = _global_promote(mi, dm, ef0 * rerank_mult)
     if deferred:
         dh = torch.zeros_like(md)
-        for s in np.nonzero(live)[0]:
-            dh = dh + _owned_dist_h(sdb.high[s], int(sdb.offsets[s]),
-                                    int(sdb.counts[s]), mi, queries)
+        for o in owners:
+            dh = dh + _owned_dist_h(o.high, o.offset, o.count,
+                                    mi.to(o.high.device), o.queries).to(dev)
         return _global_rerank(md, mi, dh, ef0)
     return md, mi
 
@@ -441,6 +486,8 @@ def shard_search_host(sdb: ShardedDB, queries, q_low=None, *, filt=None,
                                            deferred, rerank_mult,
                                            promote_mult)
     lv = _norm_live(sdb, live)
+    _search_keys["host"].add(_key((sdb, queries, qprep), dict(
+        ef0=ef0, ks=ks, deferred=deferred, rm=rm, pm=pm)))
     B = queries.shape[0]
     E = _list_width(sdb, ef0, deferred, rm, pm)
     fds, gis = [], []
@@ -458,11 +505,221 @@ def shard_search_host(sdb: ShardedDB, queries, q_low=None, *, filt=None,
                             device=sdb.device)
         fds.append(fd)
         gis.append(gi)
-    fd, fi = _merge_and_rerank(sdb, fds, gis, lv, queries, qprep, ef0=ef0,
-                               deferred=deferred, rerank_mult=rm)
+    cascade = deferred and sdb.filter_kind == "cascade"
+    fd, fi = _merge_and_rerank(fds, gis,
+                               _owners(sdb, lv, queries, qprep, cascade),
+                               ef0=ef0, deferred=deferred, cascade=cascade,
+                               rerank_mult=rm)
     if return_stats:
         return fd, fi, coverage_stats(sdb, lv)
     return fd, fi
+
+
+# ---------------------------------------------------------------------------
+# the collective path over a device mesh
+# ---------------------------------------------------------------------------
+
+# the mesh's axes: the batch axes (row-major in this order), then the
+# shard axis, as the reference's ``b_ax`` and ``"model"``
+MESH_AXES = ("pod", "data", "model")
+
+
+def _as_device(d) -> torch.device:
+    """``d`` as a torch.device with its index (a bare "cuda" is the
+    current card), so that it compares equal to a tensor's device."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _placed_db(sdb: ShardedDB, s: int, dev: torch.device) -> PackedDB:
+    """Shard ``s`` of ``sdb`` on ``dev``: views into the stacks where
+    ``dev`` is the db's own device, copies elsewhere."""
+    db = sdb.shard_db(s)
+    if dev == sdb.device:
+        return db
+    mv = lambda t: None if t is None else t.to(dev)
+    return dataclasses.replace(
+        db, layers=[PackedLayer(adj=mv(l.adj), packed_low=mv(l.packed_low))
+                    for l in db.layers],
+        low=mv(db.low), high=mv(db.high), deleted=mv(db.deleted),
+        low2=mv(db.low2))
+
+
+@dataclass(eq=False)
+class Mesh:
+    """A grid of ``torch.device``s with named axes (the port's
+    ``jax.sharding.Mesh``; build one with ``make_mesh``). ``devices`` is
+    an object array with one axis per name in ``axis_names``. A device
+    may appear more than once: several shards then share it."""
+    devices: np.ndarray
+    axis_names: Tuple[str, ...]
+    _placed: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def key(self) -> tuple:
+        """The mesh as plain data (axes, shape, devices)."""
+        return (self.axis_names, self.devices.shape,
+                tuple(str(d) for d in self.devices.flat))
+
+    def grid(self) -> np.ndarray:
+        """The devices as [R, P]: one row per batch block (the "pod" and
+        "data" axes, row-major), one column per shard ("model")."""
+        order = [self.axis_names.index(a) for a in MESH_AXES
+                 if a in self.axis_names]
+        return self.devices.transpose(order).reshape(
+            -1, self.shape["model"])
+
+    def placement(self, sdb: ShardedDB) -> list:
+        """[R][P] ``PackedDB``s: shard s of ``sdb`` on grid device (r,
+        s), each (shard, device) placed once. Cached per db object (a
+        new epoch is a new object) until that object is collected."""
+        hit = self._placed.get(id(sdb))
+        if hit is not None and hit[0]() is sdb:
+            return hit[1]
+        grid = self.grid()
+        by_dev = {}
+        for (r, s), dev in np.ndenumerate(grid):
+            if (s, dev) not in by_dev:
+                by_dev[(s, dev)] = _placed_db(sdb, s, dev)
+        placed = [[by_dev[(s, grid[r, s])] for s in range(grid.shape[1])]
+                  for r in range(grid.shape[0])]
+        self._placed[id(sdb)] = (weakref.ref(sdb), placed)
+        weakref.finalize(sdb, self._placed.pop, id(sdb), None)
+        return placed
+
+
+def make_mesh(axis_shapes, axis_names, *, devices=None) -> Mesh:
+    """A ``Mesh`` of ``prod(axis_shapes)`` devices laid out row-major
+    over ``axis_names`` (as ``jax.make_mesh``); the names come from
+    ``MESH_AXES`` and include "model", the shard axis. By default the
+    first cards of ``torch.cuda.device_count()``: too few raise, the CPU
+    never stands in for a missing card. ``devices`` names them
+    explicitly and may repeat one (four shards on one card, or on
+    "cpu")."""
+    shape = tuple(int(n) for n in axis_shapes)
+    names = tuple(axis_names)
+    if len(shape) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"mesh shape {shape} and axis names {names} do "
+                         f"not pair up")
+    if "model" not in names or not set(names) <= set(MESH_AXES):
+        raise ValueError(f"mesh axes {names}: expected names from "
+                         f"{MESH_AXES}, including 'model'")
+    if min(shape) < 1:
+        raise ValueError(f"mesh shape {shape} has an empty axis")
+    n = int(np.prod(shape))
+    if devices is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if have < n:
+            raise ValueError(f"a mesh of shape {shape} needs {n} cards, "
+                             f"{have} found; pass devices= to put several "
+                             f"shards on one device")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devs = [_as_device(d) for d in devices]
+    if len(devs) != n:
+        raise ValueError(f"{len(devs)} devices for a mesh of shape "
+                         f"{shape}")
+    grid = np.empty(n, dtype=object)
+    for i, d in enumerate(devs):
+        grid[i] = d
+    return Mesh(grid.reshape(shape), names)
+
+
+def distributed_search(mesh: Mesh, sdb: ShardedDB, queries, q_low=None,
+                       *, filt=None, ef0: int = 0, k_schedule=None,
+                       deferred: Optional[bool] = None,
+                       rerank_mult: Optional[int] = None,
+                       promote_mult: Optional[int] = None,
+                       live=None, return_stats: bool = False):
+    """Sharded batched search over ``mesh``. queries: [B, D] global (numpy
+    or tensor), cut into contiguous blocks over the mesh's batch axes (B
+    must divide); ``q_low`` is the filter's per-query prep (or pass
+    ``filt``; the identity filter needs neither). Shard s of block r
+    runs on grid device (r, s) (``Mesh.grid``), the searches of every
+    block and live shard in lockstep; each block's lists are merged, and
+    promoted and re-ranked when deferred, on the block's first device.
+    Returns (dists [B, ef0], GLOBAL idx [B, ef0]) on the mesh's first
+    device, bit-equal to ``shard_search_host`` on each block. ``live``
+    ([P] bool) serves DEGRADED from the surviving shards (a dead shard is
+    not searched); ``return_stats`` adds the ``coverage_stats`` dict.
+    The mesh's "model" axis must have one device per shard."""
+    grid = mesh.grid()
+    R, Pm = grid.shape
+    if Pm != sdb.n_shards:
+        raise ValueError(f"the mesh's 'model' axis has {Pm} devices, the "
+                         f"db {sdb.n_shards} shards")
+    queries = torch.as_tensor(queries, dtype=torch.float32,
+                              device=sdb.device)
+    B = queries.shape[0]
+    if B % R:
+        raise ValueError(f"{B} queries do not split into the mesh's {R} "
+                         f"batch blocks")
+    qprep = _prepare_qprep(sdb, queries, q_low, filt)
+    ef0, ks, deferred, rm, pm = _normalize(sdb, ef0, k_schedule,
+                                           deferred, rerank_mult,
+                                           promote_mult)
+    lv = _norm_live(sdb, live)
+    _search_keys["mesh"].add(_key((sdb, queries, qprep), dict(
+        mesh=mesh.key, ef0=ef0, ks=ks, deferred=deferred, rm=rm, pm=pm)))
+    cascade = deferred and sdb.filter_kind == "cascade"
+    placed = mesh.placement(sdb)
+    b = B // R
+    E = _list_width(sdb, ef0, deferred, rm, pm)
+    alive = np.nonzero(lv)[0]
+    tasks = [(r, s) for r in range(R) for s in alive]
+    # block r's queries and prep on the device of each of its live shards
+    blk = {(r, s): (queries[r * b:(r + 1) * b].to(grid[r, s]),
+                    qprep[r * b:(r + 1) * b].to(grid[r, s]))
+           for r, s in tasks}
+    lists = dict(zip(tasks, _lockstep([
+        _shard_lists_gen(placed[r][s], int(sdb.offsets[s]), *blk[r, s],
+                         ef0=ef0, ks=ks, deferred=deferred,
+                         rerank_mult=rm, promote_mult=pm)
+        for r, s in tasks])))
+    fds, fis = [], []
+    for r in range(R):
+        dev = grid[r, 0]
+        fd_r = [torch.full((b, E), INF, dtype=torch.float32, device=dev)
+                for _ in range(Pm)]
+        gi_r = [torch.full((b, E), -1, dtype=torch.int32, device=dev)
+                for _ in range(Pm)]
+        owners = []
+        for s in alive:
+            fd_r[s], gi_r[s] = (t.to(dev) for t in lists[r, s])
+            q, qp = blk[r, s]
+            owners.append(_Owner(
+                placed[r][s].high, placed[r][s].low2, int(sdb.offsets[s]),
+                int(sdb.counts[s]), q,
+                _cascade_qpca(qp, sdb.low.shape[-1]) if cascade else None))
+        fd, fi = _merge_and_rerank(fd_r, gi_r, owners, ef0=ef0,
+                                   deferred=deferred, cascade=cascade,
+                                   rerank_mult=rm)
+        fds.append(fd.to(grid[0, 0]))
+        fis.append(fi.to(grid[0, 0]))
+    fd, fi = torch.cat(fds), torch.cat(fis)
+    if return_stats:
+        return fd, fi, coverage_stats(sdb, lv)
+    return fd, fi
+
+
+# the distinct (static arguments, shapes) keys each search program has
+# been called with: the counterpart of the reference's compiled-program
+# caches, which kill / recover cycles and epoch swaps must not grow
+_search_keys = {name: set() for name in ("mesh", "host", "probe",
+                                         "merge")}
+
+
+def search_cache_sizes() -> Tuple[int, int]:
+    """(mesh, host): the distinct keys ``distributed_search`` and
+    ``shard_search_host`` have been called with."""
+    return len(_search_keys["mesh"]), len(_search_keys["host"])
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +745,8 @@ def probe_shard(sdb: ShardedDB, s: int, queries, qprep, *, ef0: int = 0,
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=sdb.device)
     qprep = torch.as_tensor(qprep, dtype=torch.float32, device=sdb.device)
+    _search_keys["probe"].add(_key((sdb, queries, qprep), dict(
+        ef0=ef0, ks=ks, deferred=deferred, rm=rm, pm=pm)))
     plan = _faults.active()
     # the wall clock starts BEFORE the fault hook: an injected stall is
     # latency the coordinator observed
@@ -554,6 +813,16 @@ def merge_surviving(sdb: ShardedDB, fd_all, gi_all, live, queries, *,
     queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     if qprep is not None:
         qprep = torch.as_tensor(qprep, dtype=torch.float32, device=dev)
-    return _merge_and_rerank(sdb, list(fd_all), list(gi_all), lv, queries,
-                             qprep, ef0=ef0, deferred=deferred,
+    cascade = deferred and sdb.filter_kind == "cascade"
+    _search_keys["merge"].add(_key((fd_all, queries), dict(
+        ef0=ef0, deferred=deferred, cascade=cascade, rerank_mult=rm)))
+    return _merge_and_rerank(list(fd_all), list(gi_all),
+                             _owners(sdb, lv, queries, qprep, cascade),
+                             ef0=ef0, deferred=deferred, cascade=cascade,
                              rerank_mult=rm)
+
+
+def resilient_cache_sizes() -> Tuple[int, int]:
+    """(probe, merge): the distinct keys ``probe_shard`` and
+    ``merge_surviving`` have been called with."""
+    return len(_search_keys["probe"]), len(_search_keys["merge"])

@@ -20,7 +20,12 @@ B queries run Algorithm 1 together, as in the reference:
     expands nothing, so its F, ``nsteps`` and ``dhe`` stop changing: the
     loop runs at most ``ceil(steps / W)`` trips and tests ``done.all()``
     on the host only every ``DONE_CHECK_EVERY`` trips, with results
-    bit-identical to an exit at the first all-done trip.
+    bit-identical to an exit at the first all-done trip;
+  * the search is a generator (``_search_gen``) that yields just before
+    each of those host reads. ``_drain`` runs one search to its end; the
+    mesh path (``core/distributed.py``) runs the searches of every shard
+    in lockstep (``_lockstep``), so each issues its trips before any
+    waits on a device.
 
 The filter kinds are those of ``core/filters.py``: "pca" (Dist.L on
 float32 or bfloat16 rows, the fused expand kernel), "pq" (uint8 ADC codes, the PQ
@@ -427,13 +432,46 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
     return body
 
 
+def _all_done(done) -> bool:
+    """The host read of a layer loop's ``done`` flags (a device->host
+    sync on the card)."""
+    return bool(done.all())
+
+
+def _lockstep(gens) -> list:
+    """Run several search generators together: each round resumes every
+    unfinished one (its pending host read, then its trips up to the next
+    read), so every search issues its first trips before any search
+    reads a flag, and a search on one device never waits behind another
+    device's read. Returns their values in order."""
+    out = [None] * len(gens)
+    pending = list(range(len(gens)))
+    while pending:
+        still = []
+        for i in pending:
+            try:
+                next(gens[i])
+                still.append(i)
+            except StopIteration as stop:
+                out[i] = stop.value
+        pending = still
+    return out
+
+
+def _drain(gen):
+    """Run one search generator to its end (each host read right after
+    its yield); returns its value."""
+    return _lockstep([gen])[0]
+
+
 def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
                          start_d, start_i, *, ef: int, k: int,
                          max_steps: Optional[int] = None,
                          expand_width: Optional[int] = None,
                          filter_deleted: bool = False,
                          deferred: bool = False):
-    """One layer of Algorithm 1 for a batch of queries.
+    """One layer of Algorithm 1 for a batch of queries (``_layer_gen``
+    run to its end).
 
     ``qprep`` is the filter's per-query data (the PCA-projected query
     [B, dl] for "pca", ADC tables [B, S, 256] for "pq", the flat row
@@ -449,6 +487,19 @@ def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
 
     Returns (F_dist [B, ef], F_idx [B, ef] ascending, steps [B] int32,
     dist_h [B] int32 = per-query Dist.H evaluations in this layer)."""
+    return _drain(_layer_gen(db, layer, q_high, qprep, start_d, start_i,
+                             ef=ef, k=k, max_steps=max_steps,
+                             expand_width=expand_width,
+                             filter_deleted=filter_deleted,
+                             deferred=deferred))
+
+
+def _layer_gen(db: PackedDB, layer: int, q_high, qprep, start_d, start_i,
+               *, ef: int, k: int, max_steps: Optional[int] = None,
+               expand_width: Optional[int] = None,
+               filter_deleted: bool = False, deferred: bool = False):
+    """``search_layer_batched`` as a generator: it yields just before
+    each host read of ``done`` and returns the layer's result."""
     B = q_high.shape[0]
     M = db.layers[layer].adj.shape[1]
     W = expand_width or db.cfg.expand_width
@@ -471,8 +522,10 @@ def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
                        steps=steps, filter_deleted=filter_deleted,
                        deferred=deferred)
     for t in range(iters):
-        if t and t % DONE_CHECK_EVERY == 0 and bool(state[6].all()):
-            break
+        if t and t % DONE_CHECK_EVERY == 0:
+            yield
+            if _all_done(state[6]):
+                break
         state = body(state)
     _, _, F_d, F_i, _, _, _, nsteps, dhe = state
     return F_d, F_i, nsteps, dhe
@@ -618,6 +671,12 @@ def _descend(db: PackedDB, queries, qprep, k_schedule: Tuple[int, ...],
     each routing layer above 0 (which never filter tombstones: a deleted
     node is a fine waypoint). Returns (ep_d, ep) [B, ef] ascending, the
     Dist.H count [B] and the per-layer steps, top layer first."""
+    return _drain(_descend_gen(db, queries, qprep, k_schedule, deferred))
+
+
+def _descend_gen(db: PackedDB, queries, qprep,
+                 k_schedule: Tuple[int, ...], deferred: bool):
+    """``_descend`` as a generator (see ``_layer_gen``)."""
     cfg = db.cfg
     B = queries.shape[0]
     k_of = lambda l: k_schedule[min(l, len(k_schedule) - 1)]
@@ -637,7 +696,7 @@ def _descend(db: PackedDB, queries, qprep, k_schedule: Tuple[int, ...],
         dhe = torch.ones((B,), dtype=torch.int32, device=db.device)
     steps = []
     for layer in range(len(db.layers) - 1, 0, -1):
-        ep_d, ep, st, de = search_layer_batched(
+        ep_d, ep, st, de = yield from _layer_gen(
             db, layer, queries, qprep, ep_d, ep,
             ef=cfg.ef_for_layer(layer), k=k_of(layer), deferred=deferred)
         steps.append(st)
@@ -664,14 +723,28 @@ def _search_batched_impl(db: PackedDB, queries, qprep, *, ef0: int,
     (deferred only) skips the promote stage and the re-rank and returns
     the WIDE filter-space list: the sharded path merges the shards'
     lists first and runs both once, globally."""
+    return _drain(_search_gen(db, queries, qprep, ef0=ef0,
+                              k_schedule=k_schedule, deferred=deferred,
+                              rerank_mult=rerank_mult,
+                              promote_mult=promote_mult,
+                              final_rerank=final_rerank))
+
+
+def _search_gen(db: PackedDB, queries, qprep, *, ef0: int,
+                k_schedule: Tuple[int, ...], deferred: bool,
+                rerank_mult: int, promote_mult: int,
+                final_rerank: bool = True):
+    """``_search_batched_impl`` as a generator: it yields just before
+    each host read of a layer loop's ``done`` flags and returns the
+    search's result."""
     k_of = lambda l: k_schedule[min(l, len(k_schedule) - 1)]
     deferred = deferred and db.filter_kind != "none"
     cascade = deferred and db.filter_kind == "cascade"
-    ep_d, ep, dhe, steps = _descend(db, queries, qprep, k_schedule,
-                                    deferred)
+    ep_d, ep, dhe, steps = yield from _descend_gen(db, queries, qprep,
+                                                   k_schedule, deferred)
     wide_mult = promote_mult if cascade else rerank_mult
     ef_run = ef0 * wide_mult if deferred else ef0
-    fd, fi, st, de = search_layer_batched(
+    fd, fi, st, de = yield from _layer_gen(
         db, 0, queries, qprep, ep_d, ep, ef=ef_run, k=k_of(0),
         filter_deleted=db.deleted is not None, deferred=deferred)
     steps.append(st)
@@ -849,10 +922,15 @@ def _shape_key(x):
             _shape_key(x.deleted), _shape_key(x.low2))
 
 
+def _key(args, static: dict) -> tuple:
+    """The key of one program call: its arguments' shapes and its
+    static arguments."""
+    return (tuple(map(_shape_key, args)), tuple(sorted(static.items())))
+
+
 def _note(program: str, *args, **static) -> None:
     """Record one call of a slotted program under its key."""
-    _slot_keys[program].add((tuple(map(_shape_key, args)),
-                             tuple(sorted(static.items()))))
+    _slot_keys[program].add(_key(args, static))
 
 
 def slot_cache_sizes() -> Tuple[int, ...]:

@@ -19,8 +19,8 @@ one mutable, globally-addressed front (port of
   ``delete`` always runs shard-local ``auto_compact=False``.
 
 Search runs ``core/distributed.shard_search_host`` on the index's
-device. The collective path over a device mesh (the reference's
-``mesh=``) is not ported yet (ROADMAP.md A8).
+device, or ``distributed_search`` over a device mesh when ``mesh=`` is
+given.
 """
 from __future__ import annotations
 
@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import PHNSWConfig
-from repro_torch.core.distributed import (ShardedDB, shard_bounds,
-                                          shard_search_host)
+from repro_torch.core.distributed import (ShardedDB, distributed_search,
+                                          shard_bounds, shard_search_host)
 from repro_torch.core.filters import FilterSpec, make_filter
 from repro_torch.core.graph import build_hnsw
 from repro_torch.data.vectors import brute_force_topk
@@ -39,10 +39,6 @@ from repro_torch.distributed import faults as _faults
 from repro_torch.index.mutable import (MutableIndex, read_snapshot,
                                        write_snapshot)
 from repro_torch.obs.trace import NULL_SPAN
-
-MESH_NOT_PORTED = ("mesh= (the collective search over a device mesh) is "
-                   "not ported yet: ROADMAP.md A8")
-
 
 class ShardedMutableIndex:
     """P shard-local mutable indexes + one stacked device snapshot."""
@@ -310,9 +306,12 @@ class ShardedMutableIndex:
     # ------------------------------------------------------------------
 
     def search(self, queries: np.ndarray, *, mesh=None, **kw):
-        """Batched sharded search over the current epoch on the index's
-        device. Returns ([B, ef0] dists, [B, ef0] GLOBAL ids) tensors."""
+        """Batched sharded search over the current epoch: the collective
+        path over ``mesh`` (a ``core.distributed.Mesh``) when given, the
+        bit-equal shard loop on the index's device otherwise. Returns
+        ([B, ef0] dists, [B, ef0] GLOBAL ids) tensors."""
         if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+            return distributed_search(mesh, self._sdb, queries,
+                                      filt=self.filt, **kw)
         return shard_search_host(self._sdb, queries, filt=self.filt,
                                  device=self.device, **kw)

@@ -112,8 +112,8 @@ class ReplicaSet:
     def _service_from_snapshot(self, path, *, like: VectorSearchService,
                                seed: int = 0) -> VectorSearchService:
         """Load a snapshot onto ``like``'s device and wrap it in a service
-        with the SAME serving knobs as ``like`` (the same batch shape,
-        so a re-seed serves exactly the donor's batches). The new
+        with the SAME serving knobs as ``like`` (the same batch shape
+        and mesh, so a re-seed serves exactly the donor's batches). The new
         service runs its one warm-up batch."""
         from repro_torch.index import MutableIndex, ShardedMutableIndex
         cfg = like._mut.cfg
@@ -123,7 +123,8 @@ class ReplicaSet:
         return VectorSearchService(
             idx, batch_size=like.batch, ef0=like.ef0,
             nan_policy=like.nan_policy,
-            fault_policy=like.fault_policy, device=like.device)
+            fault_policy=like.fault_policy, mesh=like.mesh,
+            device=like.device)
 
     # ------------------------------------------------------------------
     # health / routing

@@ -57,8 +57,9 @@ from repro_torch.core import search_torch as st
 
 
 class SchedulerUnsupported(RuntimeError):
-    """The service's configuration has no slotted program (sharded
-    deferred re-ranking): callers serve via ``run_stream_sync``."""
+    """The service's configuration has no slotted program (mesh
+    collectives, sharded deferred re-ranking): callers serve via
+    ``run_stream_sync``."""
 
 
 @dataclass
@@ -106,6 +107,10 @@ class StreamScheduler:
                  ef: Optional[int] = None,
                  ef_policy: Optional[int] = None,
                  adaptive_budget: bool = True):
+        if svc.mesh is not None:
+            raise SchedulerUnsupported(
+                "the mesh collective path has no slotted program; "
+                "serve via the host path or run_stream_sync")
         snap = svc.sdb if svc.sdb is not None else svc.db
         self.sharded = svc.sdb is not None
         # DEFERRED re-ranking (single shard): slots traverse in filter

@@ -13,9 +13,9 @@ Backed by any of four snapshots behind one API:
     ``MutableIndex`` (live single-shard serving);
   * a frozen ``ShardedDB`` (read-only SHARDED serving) or a
     ``ShardedMutableIndex`` (live sharded serving) — results carry
-    GLOBAL ids, served by the shard loop ``shard_search_host``. The
-    collective path over a device mesh (``mesh=``) is not ported yet
-    (ROADMAP.md A8).
+    GLOBAL ids, served by the shard loop ``shard_search_host``, or with
+    ``mesh=`` by the collective path over a device mesh
+    (``distributed_search``, bit-equal).
 
 ``upsert`` / ``delete`` (mutable backends) mutate the index and swap
 the published epoch's device snapshot under the running service. The
@@ -59,6 +59,7 @@ import torch
 
 from repro_torch.core.distributed import (ShardedDB, _normalize,
                                           check_shard_result,
+                                          distributed_search,
                                           merge_surviving, probe_shard,
                                           shard_live_counts,
                                           shard_search_host)
@@ -71,7 +72,6 @@ from repro_torch.distributed.faults import (AllShardsDeadError,
                                             FaultPolicy, ShardCorruptError,
                                             ShardFaultError, ShardHealth)
 from repro_torch.index import MutableIndex, ShardedMutableIndex
-from repro_torch.index.sharded import MESH_NOT_PORTED
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER, Tracer
 
@@ -173,7 +173,9 @@ class VectorSearchService:
         frozen identity-filter db needs neither. Sharded backends
         (``ShardedDB`` / ``ShardedMutableIndex``) serve GLOBAL ids.
         ``device`` is where the backend lives; a backend elsewhere is
-        refused. ``mesh`` is not ported (ROADMAP.md A8) and raises.
+        refused. ``mesh`` (a ``core.distributed.Mesh``) serves a sharded
+        backend through the collective path (the shard loop otherwise;
+        bit-equal); the results come back from the mesh's first device.
 
         ``nan_policy``: what to do with NaN/Inf entries in queries and
         upserts — ``"raise"`` (default, a clear ValueError at the API
@@ -187,13 +189,12 @@ class VectorSearchService:
         span trees (default: disabled). ``registry``: the metrics
         registry ``ServiceStats`` records into (default: a private one
         per service)."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.index: Optional[MutableIndex] = None
         self.sindex: Optional[ShardedMutableIndex] = None
         self.sdb: Optional[ShardedDB] = None
         self.db: Optional[PackedDB] = None
         self.device = torch.device(device)
+        self.mesh = mesh
         self.tracer = tracer if tracer is not None else NULL_TRACER
         if nan_policy not in ("raise", "sanitize"):
             raise ValueError(f"nan_policy must be 'raise' or 'sanitize', "
@@ -237,6 +238,10 @@ class VectorSearchService:
                                  "(ShardedDB / ShardedMutableIndex) — "
                                  "single-shard redundancy is the "
                                  "ReplicaSet's job")
+            if mesh is not None:
+                raise ValueError("fault_policy drives the per-shard "
+                                 "host path; it cannot be combined "
+                                 "with mesh=")
             self.health = ShardHealth(self.sdb.n_shards, fault_policy)
         self.last_stats = {"coverage": 1.0, "degraded": False}
         self._refresh_pad_row()
@@ -386,7 +391,11 @@ class VectorSearchService:
         if self.health is not None:
             return self._run_resilient(q, span=span)
         qprep = self.filt.prepare(q)
-        if self.sdb is not None:
+        if self.sdb is not None and self.mesh is not None:
+            with span.child("search", path="mesh"):
+                fd, fi = distributed_search(self.mesh, self.sdb, q, qprep,
+                                            ef0=self.ef0)
+        elif self.sdb is not None:
             with span.child("search", path="host-sharded"):
                 fd, fi = shard_search_host(self.sdb, q, qprep,
                                            ef0=self.ef0,
@@ -549,11 +558,12 @@ class VectorSearchService:
         """Whether the continuous-batching scheduler can serve this
         configuration: single-shard and sharded, single-shard deferred
         re-ranking included (the promote and re-rank passes run batched
-        at retirement); the sharded deferred merge-then-rerank is not
-        slotted. (``mesh=`` is refused at construction.)"""
+        at retirement); neither the mesh's collective path nor the
+        sharded deferred merge-then-rerank is slotted."""
         snap = self.sdb if self.sdb is not None else self.db
         deferred = snap.cfg.deferred_rerank and snap.filter_kind != "none"
-        return not (deferred and self.sdb is not None)
+        return self.mesh is None and not (deferred
+                                          and self.sdb is not None)
 
     def scheduler(self, **kw):
         """The service's continuous-batching front-end

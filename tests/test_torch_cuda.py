@@ -260,6 +260,60 @@ def test_sharded_search_card_equals_cpu(cuda, kind, deferred, rm, tombs):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
+@pytest.mark.parametrize("kind,deferred,rm,tombs", [
+    ("pca", False, None, True), ("pq", False, None, False),
+    ("cascade", True, 2, True), ("pca", True, 3, False)])
+def test_mesh_search_on_card_equals_shard_search_host(cuda, kind, deferred,
+                                                      rm, tombs):
+    """On integer data ``distributed_search`` over meshes (1, 4) and
+    (2, 4) of the first four cards (of cuda:0 four times on a machine
+    with fewer) gives ``shard_search_host``'s ids, dists and coverage on
+    cuda:0, with every shard live and with shard 0 dead, and launches
+    each kernel as often."""
+    from repro_torch.configs.base import PHNSWConfig
+    from repro_torch.core import distributed, filters
+    from repro_torch.core.graph import build_hnsw
+    rng = np.random.default_rng(6)
+    x = rng.integers(0, 8, (1501, 16)).astype(np.float32)
+    q = rng.integers(0, 8, (64, 16)).astype(np.float32)
+    cfg = PHNSWConfig(name="int1501", n_points=1501, dim=16, d_low=4, M=8,
+                      M0=16, ef_construction=32, wave_size=256)
+    graphs = [build_hnsw(x[a:b], cfg, seed=2 + s, device="cpu")
+              for s, (a, b) in enumerate(distributed.shard_bounds(1501, 4))]
+    filt = filters.from_reference(kind, {
+        "centroids": rng.integers(0, 8, (4, 256, 4)).astype(np.float32),
+        "mean": np.zeros(16, np.float32),
+        "components": np.eye(16, 4, dtype=np.float32),
+        "explained": np.full(4, 0.25, np.float32)})
+    deleted = rng.random(1501) < 0.05 if tombs else None
+    sdb = distributed.build_sharded(x, cfg, filt, 4, graphs=graphs,
+                                    deleted=deleted, device="cuda")
+    kw = dict(filt=filt, deferred=deferred, rerank_mult=rm,
+              return_stats=True)
+    cards = [f"cuda:{i if torch.cuda.device_count() >= 4 else 0}"
+             for i in range(4)]
+    for live in (None, [False, True, True, True]):
+        for R in (1, 2):
+            mesh = distributed.make_mesh((R, 4), ("data", "model"),
+                                         devices=cards * R)
+            ops.reset_launch_counts()
+            md, mi, ms = distributed.distributed_search(mesh, sdb, q,
+                                                        live=live, **kw)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            ops.reset_launch_counts()
+            b = len(q) // R
+            want = [distributed.shard_search_host(
+                sdb, q[r * b:(r + 1) * b], live=live, device="cuda", **kw)
+                for r in range(R)]
+            torch.cuda.synchronize()
+            assert got == ops.launch_counts()
+            assert torch.equal(mi, torch.cat([w[1] for w in want]))
+            assert torch.equal(md, torch.cat([w[0] for w in want]))
+            assert ms["coverage"] == want[0][2]["coverage"]
+            assert md.device == torch.device("cuda", 0)
+
+
 @pytest.mark.parametrize("B,M,dl,k", [(64, 32, 15, 16), (1024, 32, 15, 16),
                                       (64, 32, 15, 32), (8, 100, 4, 1),
                                       (1, 33, 15, 33)])

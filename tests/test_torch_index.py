@@ -10,7 +10,8 @@ port's ``MutableIndex`` is bit-equal to the reference's: host adjacency,
 levels, entry, ``n``, ``cap``, epoch, tombstones, ``last_remap``, the
 published device snapshot and the search's ids and dists.
 ``ShardedMutableIndex`` gives the reference's global ids for P in {1, 3},
-through a growth that renumbers them. Snapshots written by either
+through a growth that renumbers them, and its search over a device mesh
+(``mesh=``) the reference's answers. Snapshots written by either
 package load in the other with equal checksums; a damaged file raises
 ``SnapshotCorruptError``. On a 2,000-point float fixture the port
 passes the reference's behavioural cases (tests/test_index.py) at their
@@ -29,7 +30,7 @@ from repro.index import MutableIndex as RefIndex
 from repro.index import ShardedMutableIndex as RefSharded
 from repro.index import mutable as rmutable
 from repro_torch.configs.base import PHNSWConfig
-from repro_torch.core.distributed import shard_bounds
+from repro_torch.core.distributed import make_mesh, shard_bounds
 from repro_torch.core.graph import build_hnsw
 from repro_torch.core.pca import fit_pca
 from repro_torch.data.vectors import make_queries, make_sift_like
@@ -266,13 +267,39 @@ def test_sharded_global_ids_bit_equal(P, tmp_path):
 
 
 def test_sharded_mesh_not_ported():
+    """``ShardedMutableIndex.search(mesh=)`` (once refused, now the
+    collective path) after upserts, a replace-upsert and deletes: on
+    meshes (1, 2) and (2, 2) of "cpu" devices, bit-equal to the
+    reference index's search, deferred too."""
     rng = np.random.default_rng(3)
     x = _int_rows(rng, 200)
-    cfg = _int_cfg(200, min_capacity=32)
-    _, tfilt = _int_filters("pca")
-    idx = ShardedMutableIndex.build(x, cfg, 2, filt=tfilt, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        idx.search(QUERIES, mesh=object())
+    # three layers keep the reference's programs quick to compile
+    cfg = _int_cfg(200, min_capacity=32, n_layers=3)
+    graphs = [build_hnsw(x[a:b], cfg, seed=1 + s, device="cpu")
+              for s, (a, b) in enumerate(shard_bounds(200, 2))]
+    rfilt, tfilt = _int_filters("pca")
+    ref = RefSharded([RefIndex.from_graph(_ref_graph(g), rfilt,
+                                          seed=10 + s)
+                      for s, g in enumerate(graphs)], rfilt,
+                     RefConfig(**dataclasses.asdict(cfg)))
+    port = ShardedMutableIndex(
+        [MutableIndex.from_graph(g, tfilt, seed=10 + s, device="cpu")
+         for s, g in enumerate(graphs)], tfilt, cfg)
+    xs = _int_rows(rng, 24)
+    g_r, g_t = ref.upsert(xs), port.upsert(xs)
+    np.testing.assert_array_equal(g_t, g_r)
+    r_r, r_t = ref.upsert(xs[:3], ids=g_r[:3]), port.upsert(xs[:3],
+                                                           ids=g_t[:3])
+    np.testing.assert_array_equal(r_t, r_r)
+    assert ref.delete(g_r[3:9]) == port.delete(g_t[3:9]) == 6
+    for kw in ({}, {"deferred": True, "rerank_mult": 3}):
+        rd, ri = ref.search(jnp.asarray(QUERIES), **kw)
+        for R in (1, 2):
+            mesh = make_mesh((R, 2), ("data", "model"),
+                             devices=["cpu"] * (2 * R))
+            td, ti = port.search(QUERIES, mesh=mesh, **kw)
+            np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+            np.testing.assert_array_equal(td.numpy(), np.asarray(rd))
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,7 @@ kills and recoveries, behind a P=2 ``ShardedMutableIndex`` and behind a
 the span trees' names are equal across the packages. Then a checkpoint
 written by each package re-seeds a replica in the other, and the
 recovered replicas serve equal answers and converge with their
-survivors."""
+survivors. Replicas of a service over a device mesh carry its mesh."""
 import dataclasses
 import types
 
@@ -30,7 +30,7 @@ from repro.serve.replica import ReplicaSet as RefReplicaSet
 from repro.serve.replica import _live_vectors as ref_live_vectors
 from repro.serve.vector_service import VectorSearchService as RefService
 from repro_torch.configs.base import PHNSWConfig
-from repro_torch.core.distributed import shard_bounds
+from repro_torch.core.distributed import make_mesh, shard_bounds
 from repro_torch.core.graph import build_hnsw
 from repro_torch.distributed import faults
 from repro_torch.index import MutableIndex, ShardedMutableIndex
@@ -275,3 +275,33 @@ def test_checkpoints_cross_packages(twins):
     assert n_port == n_ref == 1
     assert port_rs.assert_converged() == ref_rs.assert_converged()
     _same_answers(_answers(port_rs, q), _answers(ref_rs, q))
+
+
+def test_replicas_carry_the_mesh(data, tmp_path):
+    """``ReplicaSet.replicate`` of a service over a device mesh: every
+    replica, and a replica re-seeded by ``recover``, serves through the
+    donor's mesh (span path "mesh"), bit-equal to a host-sharded service
+    over equal state, through a replicated upsert and a failover."""
+    cfg, _, q, new, graphs, _ = data
+    _, tfilt = _int_filters("pca")
+    index = lambda: ShardedMutableIndex(
+        [MutableIndex.from_graph(g, tfilt, seed=10 + s, device="cpu")
+         for s, g in enumerate(graphs)], tfilt, cfg)
+    mesh = make_mesh((2, P), ("data", "model"), devices=["cpu"] * (2 * P))
+    host = VectorSearchService(index(), batch_size=B, device="cpu")
+    rs = ReplicaSet.replicate(
+        VectorSearchService(index(), batch_size=B, mesh=mesh,
+                            device="cpu"), 3, snapshot_dir=tmp_path)
+    rs.tracer = Tracer()
+    assert all(r.svc.mesh is mesh for r in rs.replicas)
+    _same_answers(_answers(rs, q), [host.query(q)] * 3)
+    _same_answers([tuple(rs.query(q))], [host.query(q)])
+    search = rs.tracer.last("replica.query").find("search")
+    assert search.attrs["path"] == "mesh"
+    np.testing.assert_array_equal(rs.upsert(new[:3]), host.upsert(new[:3]))
+    with faults.inject(faults.FaultPlan()) as plan:
+        plan.add("kill_replica", 0)
+        _same_answers([tuple(rs.query(q))], [host.query(q)])
+    rs.recover(0)
+    assert rs.replicas[0].svc.mesh is mesh
+    _same_answers(_answers(rs, q), [host.query(q)] * 3)

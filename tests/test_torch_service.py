@@ -16,8 +16,10 @@ live-mask search, the dead mark and recovery, the retry budget (counted,
 with its backoff sleeps recorded, never timed on the wall clock), input
 validation, ``nan_policy``, the constructor guards, bounded stats, the
 warm-up excluded from the stats, and the disabled tracer allocating no
-span. What is not ported raises: ``mesh=``. The scheduler's cases are
-in tests/test_torch_scheduler.py."""
+span. A service over a device mesh (``mesh=``) answers as the
+host-sharded one, on span path "mesh", and refuses the scheduler and a
+fault policy as the reference's does. The scheduler's cases are in
+tests/test_torch_scheduler.py."""
 import dataclasses
 import types
 
@@ -33,7 +35,7 @@ from repro.index import ShardedMutableIndex as RefSharded
 from repro.obs.trace import Tracer as RefTracer
 from repro.serve.vector_service import VectorSearchService as RefService
 from repro_torch.configs.base import PHNSWConfig
-from repro_torch.core.distributed import shard_bounds
+from repro_torch.core.distributed import make_mesh, shard_bounds
 from repro_torch.core.graph import build_hnsw
 from repro_torch.core.search_torch import build_packed
 from repro_torch.distributed import faults
@@ -43,6 +45,7 @@ from repro_torch.distributed.faults import (FaultPlan, FaultPolicy,
 from repro_torch.index import MutableIndex, ShardedMutableIndex
 from repro_torch.obs import NULL_TRACER, Span, Tracer
 from repro_torch.serve import vector_service
+from repro_torch.serve.scheduler import SchedulerUnsupported
 from repro_torch.serve.vector_service import (ServiceStats,
                                               VectorSearchService)
 from test_torch_search import _int_filters
@@ -65,6 +68,10 @@ def _cfg():
                        M0=16, ef_construction=16, wave_size=128,
                        ef_construction_k=8, insert_batch=32,
                        min_capacity=32)
+
+
+def _cpu_mesh(R, Pn):
+    return make_mesh((R, Pn), ("data", "model"), devices=["cpu"] * (R * Pn))
 
 
 def _ref_graph(g):
@@ -444,9 +451,10 @@ def test_service_ctor_guards(shard_graphs, twin_services):
     with pytest.raises(ValueError, match="sharded backend"):
         VectorSearchService(db, filt=tfilt, batch_size=8,
                             fault_policy=FaultPolicy(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        VectorSearchService(db, filt=tfilt, batch_size=8, mesh=object(),
-                            device="cpu")
+    with pytest.raises(ValueError, match="cannot be combined with mesh"):
+        VectorSearchService(svc.sindex, batch_size=B,
+                            fault_policy=FaultPolicy(),
+                            mesh=_cpu_mesh(1, P), device="cpu")
     with pytest.raises(ValueError, match="lives on"):
         VectorSearchService(db, filt=tfilt, batch_size=8, device="cuda")
     with pytest.raises(ValueError, match="filt"):
@@ -455,16 +463,39 @@ def test_service_ctor_guards(shard_graphs, twin_services):
 
 def test_scheduler_supported_and_mesh_raises(shard_graphs, twin_services):
     """``scheduler_supported`` as the reference decides it (the sharded
-    fault-tolerant service: yes; a sharded deferred one: no); ``mesh=``
-    still raises; ``run_stream(scheduler=False)`` serves the synchronous
-    path in service batches."""
+    fault-tolerant service: yes; a sharded deferred one: no; a mesh one:
+    no, and its ``scheduler()`` raises ``SchedulerUnsupported``). The
+    mesh service answers bit-equal to the host-sharded service on span
+    path "mesh", serves the epoch a mutation through it swaps in, and
+    its ``run_stream()`` takes the synchronous path;
+    ``run_stream(scheduler=False)`` serves in service batches."""
     rsvc, svc, q = twin_services
     assert svc.scheduler_supported and rsvc.scheduler_supported
+    cfg, _, _, graphs = shard_graphs
     _, tfilt = _int_filters("pca")
-    db = build_packed(shard_graphs[3][0], filt=tfilt, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        VectorSearchService(db, filt=tfilt, batch_size=8, mesh=object(),
-                            device="cpu")
+    port = ShardedMutableIndex(
+        [MutableIndex.from_graph(g, tfilt, seed=10 + s, device="cpu")
+         for s, g in enumerate(graphs)], tfilt, cfg)
+    host = VectorSearchService(port, batch_size=B, device="cpu")
+    msvc = VectorSearchService(port, batch_size=B, mesh=_cpu_mesh(2, P),
+                               tracer=Tracer(), device="cpu")
+    assert not msvc.scheduler_supported
+    with pytest.raises(SchedulerUnsupported, match="mesh"):
+        msvc.scheduler()
+    for a, b in zip(msvc.query(q), host.query(q)):
+        np.testing.assert_array_equal(a, b)
+    root = msvc.tracer.last("serve.query")
+    assert [c.attrs["path"] for c in root.find_all("search")] == ["mesh"]
+    gids = msvc.upsert(q[:3] + 0.5)
+    assert msvc.sdb is port.sdb and msvc.epoch == port.epoch
+    fd, fi = msvc.query(q)
+    hd, hi = port.search(q)
+    np.testing.assert_array_equal(fi, hi.numpy())
+    np.testing.assert_array_equal(fd, hd.numpy())
+    np.testing.assert_array_equal(fi[:3, 0], gids)
+    ids, st = msvc.run_stream(q)
+    assert st["path"] == "sync"
+    np.testing.assert_array_equal(ids, fi)
     sdb = svc.sdb
     deferred = dataclasses.replace(
         sdb, cfg=dataclasses.replace(sdb.cfg, deferred_rerank=True))
