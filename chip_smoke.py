@@ -99,6 +99,27 @@ non-zero:
                 first held against its plain version on the tensors the
                 bench times; each of the six
                 kernels must launch;
+  3c. lm      — LM serving (``run_lm``): ``GenerationEngine`` over
+                starcoder2-3b at full width (30 layers, d_model 3072, 24
+                heads over 2 kv heads, bf16, seeded random weights drawn
+                on the card): (a) ``launch.serve.serve_lm`` at the
+                launcher's defaults (batch 4, prompt 32, 16 new): tokens
+                in the vocabulary, finite logits, ``flash_attention``
+                exactly 30 launches (one a layer at prefill) and
+                ``decode_attention`` exactly 30 x 16, nothing else; (b)
+                a timed generate, B=8, prompt 1,024, 32 greedy tokens
+                (prefill seconds, decode tokens/s, peak memory); (c) a
+                prefill of S tokens against a prefill of S-1 and one
+                decode step, last logits within ``LM_BF16_TOL`` of their
+                RMS; (d) a 2-layer cut at full width in f32, on the card
+                with the kernels and on this machine's CPU with the
+                plain versions: equal greedy tokens, logits within
+                ``LM_F32_TOL``, and (c) there at that tolerance; (e)
+                retrieval decode at the cut with full coverage against
+                dense decode (``LM_F32_TOL``), then timed at full width
+                with the long-context settings (d_low 16, topk 2048,
+                block 128, 16 partitions; B=1, prompt 8,192, 16 new)
+                beside dense decode at the same prompt;
   4. build    — the wave builder at the paper's SIFT1M configuration:
                 ``--shards`` graphs over ``shard_bounds(--n, P)``, shard s
                 with seed ``seed + s``; ``graph_invariants`` must hold for
@@ -134,7 +155,8 @@ non-zero:
                 of cuda:0 P times on a machine with fewer (the line names
                 the devices, and the card's name and power limit): in
                 the pca, pca-deferred, pq and cascade-deferred arms the
-                ``--queries`` queries bit-equal to ``shard_search_host``
+                first ``MESH_QUERIES`` (4,096) queries (a ``reduced``
+                line says why) bit-equal to ``shard_search_host``
                 with each kernel launched as often (``ksort_l`` once a
                 batch), QPS of both (the host path first); on the first
                 4 batches the pca arm over a (2, P) mesh bit-equal to the
@@ -269,12 +291,14 @@ non-zero:
                 the sync part never;
  15. the ``{"kernels": [...]}`` line (each kernel's ``launches`` sums
      every main-path run, ``launches_replica``, ``launches_table3``,
-     ``launches_stream`` and ``launches_mesh`` included), the
+     ``launches_stream``, ``launches_mesh`` and ``launches_lm``
+     included), the
      ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main-path run (the footprint
-bench, the build, each single-shard arm, each sharded arm, each mesh run,
+bench, the lm phase, the build, each single-shard arm, each sharded arm,
+each mesh run,
 each part of the serve, replica and stream phases and the table3 batched
 rows) and read just after. The degraded, resilient and mesh phases need
 P >= 2 and are skipped at ``--shards 1``, which otherwise gives the
@@ -1246,53 +1270,67 @@ def check_fused_filter(torch, np, rng, T) -> dict:
     return out
 
 
-# flash_attention rows: (label, B, H, S, T, d, dtype, causal, window,
-# timed, plain head by head). Model widths from src/repro/configs:
-# starcoder2-3b (24 heads after GQA expansion, d=128), mixtral-8x7b
-# (32 heads, d=128, sliding window 4096) and recurrentgemma-9b's local
-# attention (16 heads, MQA expanded, d=256, window 2048). Edge rows
-# check, not timed.
+# flash_attention rows: (label, B, H, KV, S, T, d, dtype, causal, window,
+# timed, plain head by head); KV < H is grouped-query attention (query
+# head h reads kv head h // (H // KV)). Model widths from
+# src/repro/configs: starcoder2-3b (24 heads, expanded to 24 kv heads,
+# d=128; and at the LM phase's prefill, B=8, S=1024, over its 2 kv
+# heads), mixtral-8x7b (32 heads, d=128, sliding window 4096) and
+# recurrentgemma-9b's local attention (16 heads, MQA expanded, d=256,
+# window 2048). Edge rows check, not timed.
 FLASH_CASES = [
-    ("bench", 1, 4, 512, 512, 64, "bf16", True, 0, True, False),
-    ("starcoder2-3b prefill", 1, 24, 4096, 4096, 128, "bf16", True, 0, True,
-     False),
-    ("starcoder2-3b chunked prefill", 1, 24, 512, 4096, 128, "bf16", True, 0,
+    ("bench", 1, 4, 4, 512, 512, 64, "bf16", True, 0, True, False),
+    ("starcoder2-3b prefill", 1, 24, 24, 4096, 4096, 128, "bf16", True, 0,
      True, False),
-    ("mixtral-8x7b window", 1, 32, 8192, 8192, 128, "bf16", True, 4096, True,
-     True),
-    ("recurrentgemma-9b local", 1, 16, 8192, 8192, 256, "bf16", True, 2048,
+    ("starcoder2-3b chunked prefill", 1, 24, 24, 512, 4096, 128, "bf16",
+     True, 0, True, False),
+    ("starcoder2-3b lm prefill gqa", 8, 24, 2, 1024, 1024, 128, "bf16", True,
+     0, True, False),
+    ("mixtral-8x7b window", 1, 32, 32, 8192, 8192, 128, "bf16", True, 4096,
      True, True),
-    ("f32 window", 2, 2, 256, 256, 64, "f32", True, 64, False, False),
-    ("S=1", 2, 3, 1, 300, 64, "bf16", True, 0, False, False),
-    ("S>T", 1, 2, 200, 100, 64, "f32", True, 0, False, False),
-    ("S>T bf16", 1, 2, 130, 70, 128, "bf16", True, 0, False, False),
-    ("ragged", 1, 2, 77, 77, 128, "f32", True, 0, False, False),
-    ("ragged chunk", 1, 2, 100, 1000, 64, "bf16", True, 0, False, False),
-    ("window >= T", 1, 2, 300, 300, 64, "f32", True, 5000, False, False),
-    ("non-causal", 1, 2, 128, 200, 64, "f32", False, 0, False, False),
-    ("non-causal window", 1, 2, 130, 130, 64, "bf16", False, 30, False,
+    ("recurrentgemma-9b local", 1, 16, 16, 8192, 8192, 256, "bf16", True,
+     2048, True, True),
+    ("f32 window", 2, 2, 2, 256, 256, 64, "f32", True, 64, False, False),
+    ("S=1", 2, 3, 3, 1, 300, 64, "bf16", True, 0, False, False),
+    ("S>T", 1, 2, 2, 200, 100, 64, "f32", True, 0, False, False),
+    ("S>T bf16", 1, 2, 2, 130, 70, 128, "bf16", True, 0, False, False),
+    ("ragged", 1, 2, 2, 77, 77, 128, "f32", True, 0, False, False),
+    ("ragged chunk", 1, 2, 2, 100, 1000, 64, "bf16", True, 0, False, False),
+    ("window >= T", 1, 2, 2, 300, 300, 64, "f32", True, 5000, False, False),
+    ("non-causal", 1, 2, 2, 128, 200, 64, "f32", False, 0, False, False),
+    ("non-causal window", 1, 2, 2, 130, 130, 64, "bf16", False, 30, False,
      False),
-    ("d=40", 1, 2, 96, 96, 40, "bf16", True, 0, False, False),
-    ("d=30", 1, 2, 70, 90, 30, "f32", True, 0, False, False),
-    ("d=256", 1, 2, 128, 128, 256, "f32", True, 0, False, False),
-    ("d=256 window mid-tile", 1, 2, 300, 300, 256, "bf16", True, 100, False,
+    ("d=40", 1, 2, 2, 96, 96, 40, "bf16", True, 0, False, False),
+    ("d=30", 1, 2, 2, 70, 90, 30, "f32", True, 0, False, False),
+    ("d=256", 1, 2, 2, 128, 128, 256, "f32", True, 0, False, False),
+    ("d=256 window mid-tile", 1, 2, 2, 300, 300, 256, "bf16", True, 100,
+     False, False),
+    ("d=96", 1, 2, 2, 128, 200, 96, "bf16", True, 0, False, False),
+    ("d=30 bf16", 1, 2, 2, 70, 90, 30, "bf16", True, 0, False, False),
+    ("split ragged", 1, 4, 4, 100, 1000, 128, "bf16", True, 0, False, False),
+    ("gqa G=4 f32", 2, 8, 2, 130, 130, 64, "f32", True, 0, False, False),
+    ("gqa G=12 split", 1, 24, 2, 300, 300, 128, "bf16", True, 0, False,
      False),
-    ("d=96", 1, 2, 128, 200, 96, "bf16", True, 0, False, False),
-    ("d=30 bf16", 1, 2, 70, 90, 30, "bf16", True, 0, False, False),
-    ("split ragged", 1, 4, 100, 1000, 128, "bf16", True, 0, False, False),
+    ("gqa G=4 S>T window", 1, 8, 2, 150, 100, 128, "bf16", True, 40, False,
+     False),
 ]
-# decode_attention rows: (label, B, H, T, d, dtype, lengths, timed);
-# starcoder2-3b at its widths with empty, short, ragged, full and
-# past-the-end lengths
+# decode_attention rows: (label, B, H, KV, T, d, dtype, lengths, timed);
+# starcoder2-3b at its widths (24 kv heads, expanded) with empty, short,
+# ragged, full and past-the-end lengths, and at the LM phase's last
+# decode step (B=8, T=1,056 over its 2 kv heads)
 DECODE_CASES = [
-    ("bench", 1, 4, 4096, 64, "bf16", [4096], True),
-    ("starcoder2-3b", 8, 24, 16384, 128, "bf16",
+    ("bench", 1, 4, 4, 4096, 64, "bf16", [4096], True),
+    ("starcoder2-3b", 8, 24, 24, 16384, 128, "bf16",
      [0, 1, 1000, 8191, 16384, 16384 + 7, 5, 12345], True),
-    ("f32", 3, 4, 300, 64, "f32", [0, 150, 300], False),
-    ("ragged", 2, 3, 1000, 128, "bf16", [999, 129], False),
-    ("d=40", 2, 2, 257, 40, "f32", [257, 1], False),
-    ("d=256", 2, 2, 600, 256, "bf16", [600, 300], False),
-    ("d=30", 2, 2, 100, 30, "bf16", [100, 64], False),
+    ("starcoder2-3b lm decode gqa", 8, 24, 2, 1056, 128, "bf16", [1056] * 8,
+     True),
+    ("f32", 3, 4, 4, 300, 64, "f32", [0, 150, 300], False),
+    ("ragged", 2, 3, 3, 1000, 128, "bf16", [999, 129], False),
+    ("d=40", 2, 2, 2, 257, 40, "f32", [257, 1], False),
+    ("d=256", 2, 2, 2, 600, 256, "bf16", [600, 300], False),
+    ("d=30", 2, 2, 2, 100, 30, "bf16", [100, 64], False),
+    ("gqa G=4 f32", 3, 8, 2, 300, 64, "f32", [0, 150, 300], False),
+    ("gqa G=12", 2, 24, 2, 2000, 128, "bf16", [0, 1999], False),
 ]
 # the JAX suite's attention tolerances (tests/test_kernels.py): the PV
 # products round at other places in the kernel and the plain version.
@@ -1312,7 +1350,8 @@ def check_attention(torch, np, rng) -> dict:
     aligns to the end); the port never calls it. Inputs are standard
     normal, drawn on the card from a seed. Where the bf16 kernel splits a
     row's kv range (``split_plan`` > 1), the unsplit launch is checked and
-    timed beside it (``unsplit_ms``)."""
+    timed beside it (``unsplit_ms``). Grouped-query rows (KV < H) hand
+    the library its kv heads expanded, outside the timed call."""
     import torch.nn.functional as F
     from repro_torch.bench.kernel_footprint import (
         PEAK_BF16_OPS_PER_S, PEAK_F32_OPS_PER_S, attention_excess, bound_ms,
@@ -1331,10 +1370,11 @@ def check_attention(torch, np, rng) -> dict:
     randn = lambda shape, dt: torch.randn(shape, generator=gen, device=dev,
                                           dtype=torch.float32).to(dts[dt])
     out, excess = {}, {}
-    for (label, B, H, S, T, d, dt, causal, window, timed,
+    for (label, B, H, KV, S, T, d, dt, causal, window, timed,
          by_head) in FLASH_CASES:
-        q, k, v = (randn((B, H, n, d), dt) for n in (S, T, T))
-        if by_head:     # bounds the plain version's [S, T] logits
+        q = randn((B, H, S, d), dt)
+        k, v = randn((B, KV, T, d), dt), randn((B, KV, T, d), dt)
+        if by_head:     # bounds the plain version's [S, T] logits (KV == H)
             plain = lambda: torch.cat([ref.flash_attention_ref(
                 q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1], causal=causal,
                 window=window) for h in range(H)], 1)
@@ -1346,7 +1386,7 @@ def check_attention(torch, np, rng) -> dict:
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         tol = ATTN_TOL[dt]
-        shape = (B, H, S, T, d, dt, causal, window)
+        shape = (B, H, KV, S, T, d, dt, causal, window)
         need(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
              f"flash_attention {label} {shape}: max abs err {err}")
         ex = excess["flash " + label] = attention_excess(got, want)
@@ -1362,14 +1402,15 @@ def check_attention(torch, np, rng) -> dict:
         small = B * H * S * T <= 1 << 22
         reps = {} if small else {"reps": 2, "replays": 3}
         cost = flash_cost(B, H, S, T, d, 2 if dt == "bf16" else 4, causal,
-                          window)
+                          window, kv_heads=KV)
+        ke, ve = (t.repeat_interleave(H // KV, 1) for t in (k, v))
         r = out[("flash_attention", shape)] = dict(
             label=label, max_abs_err=err, excess=ex,
             ms=graph_ms(lambda: ops.flash_attention(
                 q, k, v, causal=causal, window=window), **reps),
             plain_ms=graph_ms(plain, **reps),
             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask), **reps),
+                q, ke, ve, attn_mask=mask), **reps),
             bound=bound_ms(cost["bytes"], cost["ops"], peak[dt]),
             flops=cost["ops"])
         r["tflops"] = cost["ops"] / r["ms"] / 1e9
@@ -1386,18 +1427,18 @@ def check_attention(torch, np, rng) -> dict:
             need(ex1 <= 1, f"flash_attention {label} {shape} unsplit: error "
                  f"{ex1} times the row-scaled tolerance")
             r["unsplit_ms"] = graph_ms(one, **reps)
-        del q, k, v, mask
+        del q, k, v, ke, ve, mask
         torch.cuda.empty_cache()
-    for label, B, H, T, d, dt, lengths, timed in DECODE_CASES:
-        q, k, v = randn((B, H, d), dt), randn((B, H, T, d), dt), \
-            randn((B, H, T, d), dt)
+    for label, B, H, KV, T, d, dt, lengths, timed in DECODE_CASES:
+        q, k, v = randn((B, H, d), dt), randn((B, KV, T, d), dt), \
+            randn((B, KV, T, d), dt)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         got = ops.decode_attention(q, k, v, ln)
         want = ref.decode_attention_ref(q, k, v, ln)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         tol = ATTN_TOL[dt]
-        shape = (B, H, T, d, dt)
+        shape = (B, H, KV, T, d, dt)
         need(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
              f"decode_attention {label} {shape}: max abs err {err}")
         ex = excess["decode " + label] = attention_excess(got, want)
@@ -1408,7 +1449,9 @@ def check_attention(torch, np, rng) -> dict:
         if not timed:
             continue
         mask = (torch.arange(T, device=dev)[None, :] < ln[:, None])
-        cost = decode_cost(H, d, 2 if dt == "bf16" else 4, lengths, T)
+        cost = decode_cost(H, d, 2 if dt == "bf16" else 4, lengths, T,
+                           kv_heads=KV)
+        ke, ve = (t.repeat_interleave(H // KV, 1) for t in (k, v))
         kernels = device_kernels(lambda: ops.decode_attention(q, k, v, ln))
         need(kernels == 1, f"decode_attention {label}: one call ran "
              f"{kernels} device operations, not one kernel")
@@ -1420,9 +1463,9 @@ def check_attention(torch, np, rng) -> dict:
             ms=graph_ms(lambda: ops.decode_attention(q, k, v, ln)),
             plain_ms=graph_ms(lambda: ref.decode_attention_ref(q, k, v, ln)),
             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], k, v, attn_mask=mask[:, None, None])),
+                q[:, :, None], ke, ve, attn_mask=mask[:, None, None])),
             bound=bound_ms(cost["bytes"], cost["ops"], peak[dt]))
-        del q, k, v
+        del q, k, v, ke, ve
         torch.cuda.empty_cache()
     emit({"phase": "attention_check", "excess_max": max(excess.values()),
           "excess": excess})
@@ -1823,6 +1866,8 @@ def run_sharded(torch, np, sdbs, filts, q, gt, batch: int, device: str,
 # devices: the first P cards where the machine has them, else cuda:0 for
 # every shard
 MESH_ARMS = ("pca", "pca-deferred", "pq", "cascade-deferred")
+# the mesh phase's queries: its checks are bit-equality and launch counts
+MESH_QUERIES = 4_096
 
 
 def mesh_devices(torch, P: int, device: str = "cuda") -> list:
@@ -3555,6 +3600,238 @@ def _sharded_parity(torch, np, cfg, x, q, gt, filts, ifilts, seed: int,
     return out
 
 
+# ---------------------------------- lm --------------------------------------
+
+LM_ARCH = "starcoder2-3b"
+LM_TIMED = (8, 1024, 32)            # (b): batch, prompt, new tokens
+LM_PARITY = (2, 64, 4)              # (c), (d): batch, prompt, new tokens
+LM_CUT_LAYERS = 2                   # (d), (e): the full-width cut, f32
+LM_RETRIEVAL_STEPS = 8              # (e): decode steps held to dense
+LM_RETRIEVAL_TIMED = (1, 8192, 16)  # (e): batch, prompt, new tokens
+# (e)'s timed retrieval settings: launch/dryrun.py's long-context ones
+LM_RETRIEVAL = dict(enabled=True, d_low=16, topk=2048, block=128,
+                    partitions=16)
+# (c) bf16 over 30 layers: both runs round to bf16 (8 significant bits,
+# 2^-9 relative) at every residual add, sublayer output and product,
+# in other orders (a GEMM of B*S rows against one of B rows, the flash
+# kernel against the decode kernel); ~120 roundings a token add up as a
+# random walk to ~2% of the hidden state, which the final norm and head
+# carry to the logits (RMS ~1 at this init): a few hundredths, the max
+# over 2 x 49,152 logits ~0.1. The H100 run read 0.0547 at an RMS of
+# 0.999 (seeded, the same each run); the limit is about 3x that, in
+# units of the logits' RMS. The phase plants a fault (every query head
+# reading kv head 0) and needs it to break the limit.
+LM_BF16_TOL = 0.16
+# (d), (e) f32: the reference's own decode-against-prefill tolerance
+# (tests/test_models.py:76); matrix products in full f32 (no TF32).
+LM_F32_TOL = 2e-3
+
+
+def _lm_batch(torch, np, cfg, seed, B, S, dev):
+    from repro_torch.data.tokens import synthetic_batch
+    toks = synthetic_batch(seed, 1, B, S, cfg.vocab)["tokens"]
+    return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
+def _timed_generate(torch, cfg, model, batch, new, dev) -> dict:
+    """A warm-up generate of 2 tokens, then ``new`` greedy tokens with the
+    peak memory and the launch counts reset just before (on the card);
+    ``launches`` are the timed generate's own."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import GenerationEngine
+    GenerationEngine(cfg, model, max_new=2, device=dev).generate(batch)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = GenerationEngine(cfg, model, max_new=new, device=dev) \
+        .generate(batch)
+    B = batch["tokens"].shape[0]
+    return {"batch": B, "prompt": batch["tokens"].shape[1], "new": new,
+            "layers": cfg.n_layers,
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "decode_tokens_per_s": res.tokens_per_s,
+            "ms_per_step": res.decode_s / new * 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()
+            if cuda else None,
+            "launches": {k: v for k, v in ops.launch_counts().items() if v}}
+
+
+def run_lm(torch, np, smi: str, seed: int = 0, device: str = "cuda") -> dict:
+    """LM serving on the card (``GenerationEngine`` over starcoder2-3b at
+    full width, seeded random weights drawn on the card):
+    (a) ``launch.serve.serve_lm`` at the launcher's defaults (batch 4,
+        prompt 32, 16 new, bf16): tokens in the vocabulary, finite
+        logits, B8 launched once a layer and B9 once a layer a step;
+    (b) a timed generate, B=8, prompt 1,024, 32 greedy tokens, and one
+        more decode step there under the profiler (``profile_batch``);
+    (c) the last logits of a prefill of S tokens against a prefill of
+        S-1 and one decode step, bf16 (``LM_BF16_TOL``);
+    (d) a 2-layer cut at full width in f32 on the card (kernels) and on
+        this machine's CPU (plain versions), the same parameters: equal
+        greedy tokens, logits within ``LM_F32_TOL``; (c) in f32 there;
+    (e) retrieval decode at the cut with full coverage (d_low = Hd,
+        every block kept) against dense decode, ``LM_F32_TOL``; then
+        timed at full width with ``LM_RETRIEVAL``: B=1, prompt 8,192, 16
+        new, retrieval and dense.
+    The launch counts are reset just before (a) and just before (b)'s
+    timed generate and read just after each (``launcher["launches"]``,
+    ``timed["launches"]``; the checks on them live in ``main``: the CPU
+    counts none); the check runs of (c)-(e) count nowhere.
+    ``device="cpu"`` rehearses the phase with the plain versions (both
+    sides of (d) on the CPU)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RetrievalConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import parser, serve_lm
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import (GenerationEngine, low_keys,
+                                          cache_len)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = get_config(LM_ARCH)
+    L = cfg.n_layers
+    out = {"phase": "lm", "arch": LM_ARCH, "gpu": smi,
+           "n_params": cfg.n_params(), "dtype": cfg.dtype}
+    # (a)
+    t0 = time.perf_counter()
+    args = parser().parse_args(["--arch", LM_ARCH, "--seed", str(seed),
+                                "--device", device])
+    ops.reset_launch_counts()
+    res = serve_lm(args)
+    out["launcher"] = {
+        "batch": args.batch, "prompt": args.prompt_len, "new": res.steps,
+        "layers": L, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+        "decode_tokens_per_s": res.tokens_per_s,
+        "seconds": time.perf_counter() - t0,
+        "launches": {k: v for k, v in ops.launch_counts().items() if v}}
+    need(res.tokens.shape == (args.batch, args.max_new) and bool(
+        ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+        f"lm (a): tokens {res.tokens.shape} outside the vocabulary")
+    need(bool(np.isfinite(res.last_logits).all()), "lm (a): logits not "
+         "finite")
+    # (b), (c) and (e)'s timed lines on one full-width model
+    ret_cfg = cfg.replace(retrieval=RetrievalConfig(**LM_RETRIEVAL))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = get_model(ret_cfg).init(gen, dev)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    B, S, new = LM_TIMED
+    batch = _lm_batch(torch, np, cfg, seed, B, S, dev)
+    out["timed"] = _timed_generate(torch, cfg, model, batch, new, dev)
+    api = get_model(cfg)
+    if dev.type == "cuda":     # where a decode step's time goes
+        lg, cache = api.prefill(model, batch, S + 1)
+        tok = lg.argmax(-1, keepdim=True)
+        out["timed"]["profiled_step"] = profile_batch(
+            torch, lambda: api.decode_step(model, cache, tok, S))
+    B, S, _ = LM_PARITY
+    toks = _lm_batch(torch, np, cfg, seed + 1, B, S, dev)["tokens"]
+    full, _ = api.prefill(model, {"tokens": toks})
+    _, cache = api.prefill(model, {"tokens": toks[:, :-1]}, S)
+    step, _ = api.decode_step(model, cache, toks[:, -1:], S - 1)
+    rms = float(full.pow(2).mean().sqrt())
+    err = float((step - full).abs().max())
+    # the planted fault: the cache's other kv heads overwritten by head 0,
+    # so every query head reads kv head 0, as a wrong group index would
+    _, bad = api.prefill(model, {"tokens": toks[:, :-1]}, S)
+    bad["k"][:, :, 1:] = bad["k"][:, :, :1]
+    bad["v"][:, :, 1:] = bad["v"][:, :, :1]
+    wrong, _ = api.decode_step(model, bad, toks[:, -1:], S - 1)
+    err_fault = float((wrong - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    out["decode_vs_prefill_bf16"] = {
+        "batch": B, "S": S, "max_abs": err, "logits_rms": rms,
+        "tol": LM_BF16_TOL, "planted_fault_max_abs": err_fault,
+        "argmax_equal": bool(torch.equal(step.argmax(-1), full.argmax(-1))),
+        "top2_gap_min": float((top2[:, 0] - top2[:, 1]).min())}
+    need(bool(torch.isfinite(full).all()) and err <= LM_BF16_TOL * rms,
+         f"lm (c): decode against prefill max abs {err}, logits RMS {rms}")
+    need(out["decode_vs_prefill_bf16"]["argmax_equal"], "lm (c): decode "
+         "and prefill pick other tokens")
+    need(err_fault > LM_BF16_TOL * rms, f"lm (c): the planted fault (kv "
+         f"head 0 for every group) moved the logits only {err_fault}")
+    del cache, bad
+    B, S, new = LM_RETRIEVAL_TIMED
+    batch = _lm_batch(torch, np, cfg, seed + 2, B, S, dev)
+    out["retrieval_timed"] = {
+        "settings": LM_RETRIEVAL,
+        "cache_len": {"retrieval": cache_len(ret_cfg, S, new),
+                      "dense": cache_len(cfg, S, new)},
+        "retrieval": _timed_generate(torch, ret_cfg, model, batch, new, dev),
+        "dense": _timed_generate(torch, cfg, model, batch, new, dev)}
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (d) and (e) at the 2-layer cut, f32
+    cut = cfg.replace(n_layers=LM_CUT_LAYERS, dtype="float32")
+    B, S, new = LM_PARITY
+    # full coverage: the projection lossless (d_low = Hd) and topk past
+    # every cache position, so every block is kept
+    cut_r = cut.replace(retrieval=RetrievalConfig(
+        enabled=True, d_low=cut.resolved_head_dim, topk=1 << 16, block=8,
+        partitions=4))
+    T = cache_len(cut_r, S, LM_RETRIEVAL_STEPS)
+    card = get_model(cut_r).init(gen, dev)
+    host = get_model(cut_r).init(None, "cpu")
+    host.load_state_dict(card.state_dict())
+    batch = _lm_batch(torch, np, cfg, seed + 3, B, S, dev)
+    t0 = time.perf_counter()
+    got = GenerationEngine(cut, card, max_new=new, device=dev) \
+        .generate(batch)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = GenerationEngine(cut, host, max_new=new, device="cpu") \
+        .generate({"tokens": batch["tokens"].cpu()})
+    host_s = time.perf_counter() - t0
+    api = get_model(cut)
+    pre = [api.prefill(m, {"tokens": batch["tokens"].to(d)})[0].cpu()
+           for m, d in ((card, dev), (host, "cpu"))]
+    err = max(float((pre[0] - pre[1]).abs().max()),
+              float(np.abs(got.last_logits - want.last_logits).max()))
+    toks = batch["tokens"]
+    full, _ = api.prefill(card, {"tokens": toks})
+    _, cache = api.prefill(card, {"tokens": toks[:, :-1]}, S)
+    step, _ = api.decode_step(card, cache, toks[:, -1:], S - 1)
+    err_dp = float((step - full).abs().max())
+    out["card_vs_cpu_f32"] = {
+        "layers": LM_CUT_LAYERS, "batch": B, "prompt": S, "new": new,
+        "tokens_equal": bool(np.array_equal(got.tokens, want.tokens)),
+        "max_abs": err, "decode_vs_prefill_max_abs": err_dp,
+        "tol": LM_F32_TOL, "card_s": card_s, "cpu_s": host_s}
+    need(out["card_vs_cpu_f32"]["tokens_equal"], "lm (d): greedy tokens "
+         f"differ card {got.tokens.tolist()} cpu {want.tokens.tolist()}")
+    need(err <= LM_F32_TOL, f"lm (d): card against CPU max abs {err}")
+    need(err_dp <= LM_F32_TOL, f"lm (d): f32 decode against prefill max "
+         f"abs {err_dp}")
+    del host
+    api_r = get_model(cut_r)
+    lg, cd = api.prefill(card, batch, T)
+    _, cr = api_r.prefill(card, batch, T)
+    cr = low_keys(card, cr)
+    tok = lg.argmax(-1, keepdim=True)
+    errs = []
+    for i in range(LM_RETRIEVAL_STEPS):
+        lg_d, cd = api.decode_step(card, cd, tok, S + i)
+        lg_r, cr = api_r.decode_step(card, cr, tok, S + i)
+        errs.append(float((lg_d - lg_r).abs().max()))
+        tok = lg_d.argmax(-1, keepdim=True)
+    out["retrieval_full_coverage"] = {
+        "settings": dataclasses.asdict(cut_r.retrieval), "cache_len": T,
+        "steps": LM_RETRIEVAL_STEPS, "max_abs": max(errs), "tol": LM_F32_TOL}
+    need(max(errs) <= LM_F32_TOL, f"lm (e): full-coverage retrieval "
+         f"against dense decode max abs {max(errs)}")
+    del card, cd, cr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # --------------------------------- main ------------------------------------
 
 KERNEL_META = {
@@ -3577,11 +3854,11 @@ KERNEL_META = {
     "flash_attention": ("cuda",
                         "src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:77",
-                        (1, 4, 512, 512, 64, "bf16", True, 0)),
+                        (1, 4, 4, 512, 512, 64, "bf16", True, 0)),
     "decode_attention": ("cuda",
                          "src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:63",
-                         (1, 4, 4096, 64, "bf16")),
+                         (1, 4, 4, 4096, 64, "bf16")),
     # the search's fold of a trip's three merges (merge_sorted_pallas)
     # and the glue around them, at the pca arm's layer 0
     "trip_fold": ("cuda", "src/repro_torch/kernels/csrc/trip_fold.cu",
@@ -3646,6 +3923,14 @@ def main(argv=None) -> int:
     kres = phase_kernels(torch, np, args.seed)
     fout = run_footprint(torch)
     emit(fout)
+    lm = run_lm(torch, np, smi, args.seed)
+    emit(lm)
+    for part, tag in (("launcher", "(a)"), ("timed", "(b)")):
+        a = lm[part]
+        want = {"flash_attention": a["layers"],
+                "decode_attention": a["layers"] * a["new"]}
+        need(a["launches"] == want, f"lm {tag}: launches {a['launches']}, "
+             f"not exactly {want}")
 
     P = args.shards
     x, graphs, blines, bout = run_build(torch, np, args.n, P, args.seed,
@@ -3713,8 +3998,15 @@ def main(argv=None) -> int:
     check_bf16_arms(shouts, "sharded")
     mesh_launches = []
     if P > 1:
-        mout = run_mesh(torch, np, sdbs, filts, q, args.batch, "cuda", smi)
+        mout = run_mesh(torch, np, sdbs, filts, q[:MESH_QUERIES], args.batch,
+                        "cuda", smi)
         emit(mout)
+        if len(q) > MESH_QUERIES:
+            emit({"reduced": {"mesh_queries": MESH_QUERIES, "of": len(q),
+                              "why": (
+                "the mesh phase checks bit-equality and launch counts, "
+                "not rates; the lm phase needs its time within the "
+                f"{TIME_LIMIT_S} s smoke limit")}})
         for arm, res in mout["arms"].items():
             counts = res["launches"]
             need(counts == res["launches_host"], f"mesh {arm}: launches "
@@ -3812,12 +4104,14 @@ def main(argv=None) -> int:
         n_table3 = t3["launches"][name]
         n_stream = sum(c[name] for c in stream_launches)
         n_mesh = sum(c[name] for c in mesh_launches)
+        n_lm = sum(lm[part]["launches"].get(name, 0)
+                   for part in ("launcher", "timed"))
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "shape": list(shape),
                      "launches": bout["launches"][name]
                      + sum(per_arm.values()) + sum(per_sharded.values())
                      + fout["launches"][name] + n_serve + n_replica
-                     + n_table3 + n_stream + n_mesh,
+                     + n_table3 + n_stream + n_mesh + n_lm,
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
                      "launches_sharded": per_sharded,
@@ -3827,6 +4121,7 @@ def main(argv=None) -> int:
                      "launches_table3": n_table3,
                      "launches_stream": n_stream,
                      "launches_mesh": n_mesh,
+                     "launches_lm": n_lm,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

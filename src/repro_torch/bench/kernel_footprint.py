@@ -159,25 +159,29 @@ def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
 
 
 def flash_cost(B: int, H: int, S: int, T: int, d: int, itemsize: int,
-               causal: bool, window: int, same_qkv: bool = False
-               ) -> Dict[str, float]:
+               causal: bool, window: int, same_qkv: bool = False,
+               kv_heads: int = 0) -> Dict[str, float]:
     """q, k, v read once and the output written once (``same_qkv``: one
-    tensor is q, k and v, read once); 4*d operations (QK^T and PV
-    multiply-adds) per visible pair."""
-    reads = S if same_qkv else S + 2 * T
-    return {"bytes": B * H * (reads + S) * d * itemsize,
+    tensor is q, k and v, read once; ``kv_heads``: k and v have that many
+    heads, grouped-query, default H); 4*d operations (QK^T and PV
+    multiply-adds) per visible pair of each query head."""
+    kv = kv_heads or H
+    reads = B * H * S if same_qkv else B * (H * S + 2 * kv * T)
+    return {"bytes": (reads + B * H * S) * d * itemsize,
             "ops": 4 * d * B * H * attention_pairs(S, T, causal, window)}
 
 
 def decode_cost(H: int, d: int, itemsize: int, lengths, T: int,
-                same_kv: bool = False) -> Dict[str, float]:
-    """The valid K/V prefix of every (b, h) (``same_kv``: one cache is k
-    and v, read once), q, the output and ``length``; 4*d operations per
-    valid key."""
+                same_kv: bool = False, kv_heads: int = 0
+                ) -> Dict[str, float]:
+    """The valid K/V prefix of every (b, kv head) (``same_kv``: one cache
+    is k and v, read once; ``kv_heads``: grouped-query, default H), q,
+    the output and ``length``; 4*d operations per valid key of each
+    query head."""
     valid = int(np.clip(np.asarray(lengths), 0, T).sum())
     B = len(lengths)
     caches = 1 if same_kv else 2
-    return {"bytes": caches * H * valid * d * itemsize
+    return {"bytes": caches * (kv_heads or H) * valid * d * itemsize
             + 2 * B * H * d * itemsize
             + 4 * B, "ops": 4 * d * H * valid}
 

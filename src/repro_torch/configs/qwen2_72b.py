@@ -1,0 +1,19 @@
+"""qwen2-72b [dense]: 80L d_model=8192 64H (GQA kv=8) d_ff=29568
+vocab=152064 — GQA with QKV bias. [arXiv:2407.10671]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    kv_heads=8,
+    head_dim=128,
+    d_ff=29568,
+    vocab=152064,
+    mlp="swiglu",
+    norm="rmsnorm",
+    qkv_bias=True,
+    rope_theta=1e6,
+)

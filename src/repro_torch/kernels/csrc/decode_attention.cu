@@ -2,10 +2,13 @@
 // per-batch valid prefix `length`, in one launch, for sm_90a.
 //
 // Replaces repro/kernels/decode_attention.py: decode_attention_pallas.
-// q [B, H, d], k/v [B, H, T, d] (f32 or bf16), length [B] int32 ->
+// q [B, H, d], k/v [B, KV, T, d] (f32 or bf16), length [B] int32 ->
 // out [B, H, d] in q's type: softmax over the keys t < length of
-// (q . k_t) * d^-0.5 in f32, times v. A row that sees no key (length <= 0)
-// gives 0, as the TPU kernel does by skipping every block.
+// (q . k_t) * d^-0.5 in f32, times v. H = KV * group (grouped-query
+// attention): query row bh = b * H + h reads the cache of kv head
+// h / group, row bh / group of the [B*KV, T, d] caches. A row that sees
+// no key (length <= 0) gives 0, as the TPU kernel does by skipping every
+// block.
 //
 // Bound on the card: bytes. Each valid K/V element is read once and used
 // for one multiply-add, far below Hopper's operations-per-byte line, so
@@ -176,7 +179,8 @@ __device__ __forceinline__ void fold_warps(const float* state, int sf, int d,
 }
 
 // grid B*H*n_split, block kThreads. G lanes of E elements read one key's
-// row; a tile is kWarps * kSteps * (32 / G) keys. part: [B*H, n_split,
+// row; a tile is kWarps * kSteps * (32 / G) keys. group: query heads a
+// kv head. part: [B*H, n_split,
 // state_floats(d)] f32 scratch; counter: [B*H] int32, zero between calls.
 template <typename Raw, int E, int G>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -185,9 +189,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                             const Raw* __restrict__ v,
                             const int32_t* __restrict__ length,
                             Raw* __restrict__ out, float* __restrict__ part,
-                            int* __restrict__ counter, int H, int T, int d,
-                            int chunk, int n_split, int tile, int stages,
-                            float scale, int copy) {
+                            int* __restrict__ counter, int H, int group,
+                            int T, int d, int chunk, int n_split, int tile,
+                            int stages, float scale, int copy) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int bh = blockIdx.x / n_split;
   const int split = blockIdx.x % n_split;
@@ -224,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   if (warp == kWarps) {
     // the copying warp: every tile of the chunk, `stages` at a time
-    const size_t row0 = static_cast<size_t>(bh) * T + t0;
+    const size_t row0 = static_cast<size_t>(bh / group) * T + t0;
     const Raw* kg0 = k + row0 * d;
     const Raw* vg0 = v + row0 * d;
     for (int i = 0; i < ntiles; ++i) {
@@ -428,8 +432,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <typename Raw, int E, int G>
 int launch_typed(const void* q, const void* k, const void* v,
                  const int32_t* length, void* out, float* part, int* counter,
-                 int BH, int H, int T, int d, int chunk, int n_split,
-                 int tile, int stages, float scale, int copy,
+                 int BH, int H, int group, int T, int d, int chunk,
+                 int n_split, int tile, int stages, float scale, int copy,
                  cudaStream_t s) {
   if (tile != kWarps * kSteps * (32 / G))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -445,18 +449,19 @@ int launch_typed(const void* q, const void* k, const void* v,
   kern<<<BH * n_split, kThreads, smem, s>>>(
       static_cast<const Raw*>(q), static_cast<const Raw*>(k),
       static_cast<const Raw*>(v), length, static_cast<Raw*>(out), part,
-      counter, H, T, d, chunk, n_split, tile, stages, scale, copy);
+      counter, H, group, T, d, chunk, n_split, tile, stages, scale, copy);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the (E, G) of kernels/decode_attention.py: lanes
-#define DECODE_ARGS q, k, v, length, out, part, counter, BH, H, T, d, chunk, \
-                    n_split, tile, stages, scale, copy, s
+#define DECODE_ARGS q, k, v, length, out, part, counter, BH, H, group, T, d, \
+                    chunk, n_split, tile, stages, scale, copy, s
 
 int launch_f32(const void* q, const void* k, const void* v,
                const int32_t* length, void* out, float* part, int* counter,
-               int BH, int H, int T, int d, int chunk, int n_split, int tile,
-               int stages, float scale, int copy, cudaStream_t s) {
+               int BH, int H, int group, int T, int d, int chunk,
+               int n_split, int tile, int stages, float scale, int copy,
+               cudaStream_t s) {
   if (d <= 16) return launch_typed<float, 4, 4>(DECODE_ARGS);
   if (d <= 32) return launch_typed<float, 4, 8>(DECODE_ARGS);
   if (d <= 64) return launch_typed<float, 4, 16>(DECODE_ARGS);
@@ -466,8 +471,9 @@ int launch_f32(const void* q, const void* k, const void* v,
 
 int launch_bf16(const void* q, const void* k, const void* v,
                 const int32_t* length, void* out, float* part, int* counter,
-                int BH, int H, int T, int d, int chunk, int n_split, int tile,
-                int stages, float scale, int copy, cudaStream_t s) {
+                int BH, int H, int group, int T, int d, int chunk,
+                int n_split, int tile, int stages, float scale, int copy,
+                cudaStream_t s) {
   using R = unsigned short;
   if (d <= 32) return launch_typed<R, 8, 4>(DECODE_ARGS);
   if (d <= 64) return launch_typed<R, 8, 8>(DECODE_ARGS);
@@ -487,15 +493,17 @@ extern "C" int decode_attention_smem_bytes(int d, int dtype, int tile,
 
 // dtype: 0 = f32, 1 = bf16; copy: 0 bulk, 1 4-byte cp.async, 2 loads.
 // The plan (kernels/decode_attention.py: split_plan) gives chunk,
-// n_split, tile and stages. part: [B*H, n_split, state_floats(d)] f32
-// scratch (unused at n_split 1); counter: [B*H] int32, zero.
+// n_split, tile and stages. group: query heads a kv head (H a multiple
+// of it; k and v are [B, H / group, T, d]). part: [B*H, n_split,
+// state_floats(d)] f32 scratch (unused at n_split 1); counter: [B*H]
+// int32, zero.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* length,
                                        void* out, void* part, void* counter,
-                                       int B, int H, int T, int d, int chunk,
-                                       int n_split, int tile, int stages,
-                                       int copy, float scale, int dtype,
-                                       void* stream) {
+                                       int B, int H, int group, int T, int d,
+                                       int chunk, int n_split, int tile,
+                                       int stages, int copy, float scale,
+                                       int dtype, void* stream) {
   const int elem = dtype == 0 ? 4 : 2;
   const uintptr_t addr =
       reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
@@ -504,7 +512,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
       : copy == kCopyAsync4 ? (d * elem) % 4 == 0 && addr % 4 == 0
                             : copy == kCopyLd;
   if (d < 1 || d > 256 || chunk < 1 || tile < 1 || stages < 1 ||
-      n_split < 1 || n_split > kMaxSplit || (dtype != 0 && dtype != 1) ||
+      group < 1 || H % group != 0 || n_split < 1 || n_split > kMaxSplit ||
+      (dtype != 0 && dtype != 1) ||
       !ok_copy || static_cast<long long>(B) * H * n_split > 0x7fffffffLL ||
       static_cast<long long>(n_split) * chunk < T)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -513,10 +522,10 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   float* pt = static_cast<float*>(part);
   int* ct = static_cast<int*>(counter);
   if (dtype == 0)
-    return launch_f32(q, k, v, len, out, pt, ct, B * H, H, T, d, chunk,
-                      n_split, tile, stages, scale, copy, s);
-  return launch_bf16(q, k, v, len, out, pt, ct, B * H, H, T, d, chunk,
-                     n_split, tile, stages, scale, copy, s);
+    return launch_f32(q, k, v, len, out, pt, ct, B * H, H, group, T, d,
+                      chunk, n_split, tile, stages, scale, copy, s);
+  return launch_bf16(q, k, v, len, out, pt, ct, B * H, H, group, T, d,
+                     chunk, n_split, tile, stages, scale, copy, s);
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

@@ -1,11 +1,13 @@
 // flash_attention: tiled online-softmax attention for sm_90a.
 //
 // Replaces repro/kernels/flash_attention.py: flash_attention_pallas.
-// q [B*H, S, d], k/v [B*H, T, d] (f32 or bf16) -> out [B*H, S, d] in q's
-// type. Query row i sits at position i + T - S (aligned to the END of the
-// kv axis); it sees key t iff t <= pos when causal and pos - t < window
-// when window > 0. Logits (q . k) * d^-0.5 in f32, softmax in f32, the
-// accumulator in f32, out = acc / max(l, 1e-30). A row that sees no key
+// q [B*H, S, d], k/v [B*KV, T, d] (f32 or bf16) -> out [B*H, S, d] in q's
+// type, H = KV * group (grouped-query attention: query head h of batch b
+// reads kv head h / group, so q row block bh reads kv block bh / group;
+// group 1 is plain multi-head attention). Query row i sits at position
+// i + T - S (aligned to the END of the kv axis); it sees key t iff
+// t <= pos when causal and pos - t < window when window > 0. Logits
+// (q . k) * d^-0.5 in f32, softmax in f32, the accumulator in f32, out = acc / max(l, 1e-30). A row that sees no key
 // (a causal row of a chunk longer than the cache) gives 0, as the TPU
 // kernel does for a query block whose every kv block it skips.
 //
@@ -124,8 +126,8 @@ template <typename Raw, int DP>
 __global__ void __launch_bounds__(kThreads)
     fma_kernel(const Raw* __restrict__ q, const Raw* __restrict__ k,
                  const Raw* __restrict__ v, Raw* __restrict__ out, int S,
-                 int T, int d, int causal, int window, float scale,
-                 bool vec) {
+                 int T, int d, int group, int causal, int window,
+                 float scale, bool vec) {
   constexpr int CG = DP / 64;  // float4 output column groups per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -149,8 +151,8 @@ __global__ void __launch_bounds__(kThreads)
   if (causal) kv_end = min(T, pos_hi + 1);
 
   const Raw* qb = q + (size_t)bh * S * d;
-  const Raw* kb = k + (size_t)bh * T * d;
-  const Raw* vb = v + (size_t)bh * T * d;
+  const Raw* kb = k + (size_t)(bh / group) * T * d;
+  const Raw* vb = v + (size_t)(bh / group) * T * d;
 
   float m[4], l[4], acc[4][CG][4];
 #pragma unroll
@@ -273,8 +275,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP>
 int fma_launch(const void* q, const void* k, const void* v, void* out,
-               int BH, int S, int T, int d, int causal, int window,
-               float scale, bool aligned, cudaStream_t s) {
+               int BH, int S, int T, int d, int group, int causal,
+               int window, float scale, bool aligned, cudaStream_t s) {
   constexpr size_t kSmem = sizeof(float) * smem_floats<DP>();
   // above 48 KB only after opting in; not a stream operation, so it is
   // also legal while the stream is being captured into a graph
@@ -288,7 +290,7 @@ int fma_launch(const void* q, const void* k, const void* v, void* out,
   fma_kernel<float, DP><<<grid, kThreads, kSmem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, T, d,
-      causal, window, scale, aligned && d % 4 == 0);
+      group, causal, window, scale, aligned && d % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -474,8 +476,8 @@ __global__ void __launch_bounds__(Shape<DP>::kThreads,
                const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, uint16_t* __restrict__ out,
                float* __restrict__ part_ml, float* __restrict__ part_acc,
-               int S, int T, int d, int causal, int window, float scale,
-               int n_split, bool vec) {
+               int S, int T, int d, int group, int causal, int window,
+               float scale, int n_split, bool vec) {
   using Sh = Shape<DP>;
   constexpr int NT = Sh::kThreads;
   constexpr int kBQ = Sh::kBQ;
@@ -508,8 +510,8 @@ __global__ void __launch_bounds__(Shape<DP>::kThreads,
   const int w_lo = wr0 + off, w_hi = wr0 + 15 + off;  // its positions
 
   const uint16_t* qb = q + (size_t)bh * S * d;
-  const uint16_t* kb = k + (size_t)bh * T * d;
-  const uint16_t* vb = v + (size_t)bh * T * d;
+  const uint16_t* kb = k + (size_t)(bh / group) * T * d;
+  const uint16_t* vb = v + (size_t)(bh / group) * T * d;
 
   // ldmatrix row addresses of this lane; every row it addresses is
   // lane % 8 modulo 8, so its swizzle is chunk ^ (lane % 8)
@@ -783,8 +785,8 @@ __global__ void __launch_bounds__(128)
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* part_ml, float* part_acc, int BH, int S, int T, int d,
-           int causal, int window, float scale, int n_split, bool aligned,
-           cudaStream_t s) {
+           int group, int causal, int window, float scale, int n_split,
+           bool aligned, cudaStream_t s) {
   constexpr int kSmem = smem_bytes<DP>();
   cudaError_t e = cudaFuncSetAttribute(
       mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -794,8 +796,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
   uint16_t* o = static_cast<uint16_t*>(out);
   mma_kernel<DP><<<grid, Shape<DP>::kThreads, kSmem, s>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), o, part_ml, part_acc, S, T, d, causal,
-      window, scale, n_split, aligned && d % 8 == 0);
+      static_cast<const uint16_t*>(v), o, part_ml, part_acc, S, T, d, group,
+      causal, window, scale, n_split, aligned && d % 8 == 0);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return static_cast<int>(e);
   merge_kernel<<<(BH * S + 3) / 4, 128, 0, s>>>(part_ml, part_acc, o,
@@ -822,16 +824,18 @@ extern "C" int flash_attention_smem_bytes(int d, int dtype) {
                      : tc::smem_bytes<256>();
 }
 
-// dtype: 0 = f32, 1 = bf16. window <= 0: no window. n_split > 1 (bf16
-// only): part_ml [B*H*S*n_split*2] and part_acc [B*H*S*n_split*d] are f32
-// scratch allocated by the caller.
+// dtype: 0 = f32, 1 = bf16. window <= 0: no window. group: query heads
+// a kv head (BH a multiple of it). n_split > 1 (bf16 only): part_ml
+// [B*H*S*n_split*2] and part_acc [B*H*S*n_split*d] are f32 scratch
+// allocated by the caller.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out,
                                       void* part_ml, void* part_acc, int BH,
-                                      int S, int T, int d, int causal,
-                                      int window, float scale, int dtype,
-                                      int n_split, void* stream) {
+                                      int S, int T, int d, int group,
+                                      int causal, int window, float scale,
+                                      int dtype, int n_split, void* stream) {
   if (d < 1 || d > 256 || BH < 1 || S < 1 || T < 1 || n_split < 1 ||
+      group < 1 || BH % group != 0 ||
       (S + kBQ - 1) / kBQ > 65535 || (long long)BH * n_split > 0x7fffffff ||
       (long long)BH * S > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -844,13 +848,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0) {
     if (n_split != 1) return static_cast<int>(cudaErrorInvalidValue);
     if (dp == 64)
-      return fma_launch<64>(q, k, v, out, BH, S, T, d, causal, window, scale,
-                            aligned, s);
+      return fma_launch<64>(q, k, v, out, BH, S, T, d, group, causal, window,
+                            scale, aligned, s);
     if (dp == 128)
-      return fma_launch<128>(q, k, v, out, BH, S, T, d, causal, window,
-                             scale, aligned, s);
-    return fma_launch<256>(q, k, v, out, BH, S, T, d, causal, window, scale,
-                           aligned, s);
+      return fma_launch<128>(q, k, v, out, BH, S, T, d, group, causal,
+                             window, scale, aligned, s);
+    return fma_launch<256>(q, k, v, out, BH, S, T, d, group, causal, window,
+                           scale, aligned, s);
   }
   if (dtype != 1 ||
       (n_split > 1 && (part_ml == nullptr || part_acc == nullptr)))
@@ -858,13 +862,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   float* ml = static_cast<float*>(part_ml);
   float* pa = static_cast<float*>(part_acc);
   if (dp == 64)
-    return tc::launch<64>(q, k, v, out, ml, pa, BH, S, T, d, causal, window,
-                          scale, n_split, aligned, s);
+    return tc::launch<64>(q, k, v, out, ml, pa, BH, S, T, d, group, causal,
+                          window, scale, n_split, aligned, s);
   if (dp == 128)
-    return tc::launch<128>(q, k, v, out, ml, pa, BH, S, T, d, causal, window,
-                           scale, n_split, aligned, s);
-  return tc::launch<256>(q, k, v, out, ml, pa, BH, S, T, d, causal, window,
-                         scale, n_split, aligned, s);
+    return tc::launch<128>(q, k, v, out, ml, pa, BH, S, T, d, group, causal,
+                           window, scale, n_split, aligned, s);
+  return tc::launch<256>(q, k, v, out, ml, pa, BH, S, T, d, group, causal,
+                         window, scale, n_split, aligned, s);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

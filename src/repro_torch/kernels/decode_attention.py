@@ -1,7 +1,8 @@
 """CUDA wrapper of the decode attention kernel (``csrc/decode_attention.cu``).
 
 Replaces ``repro/kernels/decode_attention.py: decode_attention_pallas``:
-one query token per (b, h) against a [T, d] KV cache, masked by a
+one query token per (b, h) against a [T, d] KV cache (grouped-query
+attention: query head h reads kv head h // (H // KV)), masked by a
 per-batch valid prefix ``length`` read on the card. One launch: the cache
 axis is split into ``n_split`` chunks, one block each; each block copies
 its chunk's K and V tiles into shared memory before any arithmetic (a
@@ -20,7 +21,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check_cuda, stream_of
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                           ctypes.c_int,
                                                           ctypes.c_void_p]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -132,18 +133,22 @@ def _align(*ts) -> int:
 
 
 def decode_attention_cuda(q, k, v, length):
-    """q: [B, H, d]; k, v: [B, H, T, d], all one dtype (f32 or bf16);
-    length: [B] int32 — contiguous on one CUDA device; 1 <= d <= 256.
+    """q: [B, H, d]; k, v: [B, KV, T, d] with H a multiple of KV, all one
+    dtype (f32 or bf16); length: [B] int32 — contiguous on one CUDA
+    device; 1 <= d <= 256.
     Returns [B, H, d] in q's dtype. Calls on one device share its
     counters, so two calls must not run at once on two streams."""
     B, H, d = q.shape
-    T = k.shape[2]
+    KV, T = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
         raise TypeError(f"decode_attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"decode_attention kernel needs q heads a multiple "
+                         f"of kv heads, got {H} and {KV}")
     check_cuda(q, q.dtype, (B, H, d), "q")
-    check_cuda(k, q.dtype, (B, H, T, d), "k", like=q)
-    check_cuda(v, q.dtype, (B, H, T, d), "v", like=q)
+    check_cuda(k, q.dtype, (B, KV, T, d), "k", like=q)
+    check_cuda(v, q.dtype, (B, KV, T, d), "v", like=q)
     check_cuda(length, torch.int32, (B,), "length", like=q)
     if not 1 <= d <= 256:
         raise ValueError(f"decode_attention kernel needs 1 <= d <= 256, "
@@ -165,8 +170,8 @@ def decode_attention_cuda(q, k, v, length):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
                  out.data_ptr(), part.data_ptr(), counter.data_ptr(), B, H,
-                 T, d, plan["chunk"], plan["n_split"], plan["tile"],
-                 plan["stages"], COPIES[plan["copy"]], d ** -0.5,
+                 H // KV, T, d, plan["chunk"], plan["n_split"],
+                 plan["tile"], plan["stages"], COPIES[plan["copy"]], d ** -0.5,
                  DTYPES[q.dtype], stream_of(q))
     _build.check(lib, "decode_attention", err)
     decode_attention_cuda.launches += 1

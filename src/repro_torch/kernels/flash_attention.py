@@ -2,7 +2,9 @@
 
 Replaces ``repro/kernels/flash_attention.py: flash_attention_pallas``:
 tiled online-softmax attention, causal with an optional sliding window,
-q aligned to the end of the kv axis, logits in f32. Two kernels, any S,
+q aligned to the end of the kv axis, logits in f32, grouped-query
+attention (q heads a multiple of kv heads; query head h reads kv head
+h // (H // KV)). Two kernels, any S,
 T and d <= 256, ragged edges masked: bf16 runs on the tensor cores
 (``mma.sync``; one block per 128-row query tile, K and V in a ring of
 ``cp.async`` stages), and where the grid would not fill the card
@@ -20,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check_cuda, stream_of
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BQ_F32 = 64               # csrc/flash_attention.cu kBQ (f32 kernel)
@@ -102,19 +104,23 @@ def split_plan(B: int, H: int, S: int, T: int, d: int, causal: bool,
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int,
                          n_split: int | None = None):
-    """q: [B, H, S, d]; k, v: [B, H, T, d], all one dtype (f32 or bf16),
-    contiguous on one CUDA device; 1 <= d <= 256; window >= 0 (0: none).
+    """q: [B, H, S, d]; k, v: [B, KV, T, d] with H a multiple of KV, all
+    one dtype (f32 or bf16), contiguous on one CUDA device; 1 <= d <= 256;
+    window >= 0 (0: none).
     ``n_split`` forces the bf16 kernel's split count (default
     ``split_plan``'s); the f32 kernel takes only 1. Returns [B, H, S, d]
     in q's dtype."""
     B, H, S, d = q.shape
-    T = k.shape[2]
+    KV, T = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"flash_attention kernel needs q heads a multiple "
+                         f"of kv heads, got {H} and {KV}")
     check_cuda(q, q.dtype, (B, H, S, d), "q")
-    check_cuda(k, q.dtype, (B, H, T, d), "k", like=q)
-    check_cuda(v, q.dtype, (B, H, T, d), "v", like=q)
+    check_cuda(k, q.dtype, (B, KV, T, d), "k", like=q)
+    check_cuda(v, q.dtype, (B, KV, T, d), "v", like=q)
     if not 1 <= d <= 256 or window < 0 or -(-S // BQ_F32) > 65535:
         raise ValueError(f"flash_attention kernel needs 1 <= d <= 256, "
                          f"window >= 0 and S <= {65535 * BQ_F32}, got d={d}, "
@@ -147,7 +153,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if part_ml is None else part_ml.data_ptr(),
                  None if part_acc is None else part_acc.data_ptr(),
-                 B * H, S, T, d, int(bool(causal)), int(window), d ** -0.5,
+                 B * H, S, T, d, H // KV, int(bool(causal)), int(window),
+                 d ** -0.5,
                  DTYPES[q.dtype], n_split, stream_of(q))
     _build.check(lib, "flash_attention", err)
     flash_attention_cuda.launches += 1

@@ -276,9 +276,11 @@ def _same_attention_dtype(name, *ts):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     bq: int = 128, bk: int = 128):
-    """q: [B, H, S, d]; k, v: [B, H, T, d] -> [B, H, S, d] in q's dtype.
-    q aligned to the end of the kv axis; ``window`` > 0 adds a sliding
-    window. A row that sees no key gives 0, as the TPU kernel. ``bq`` and
+    """q: [B, H, S, d]; k, v: [B, KV, T, d] -> [B, H, S, d] in q's dtype,
+    H a multiple of KV (grouped-query attention: query head h reads kv
+    head h // (H // KV)). q aligned to the end of the kv axis; ``window``
+    > 0 adds a sliding window. A row that sees no key gives 0, as the TPU
+    kernel. ``bq`` and
     ``bk`` are the reference's TPU tile sizes, kept for its signature;
     the CUDA kernels tile by their own (128 x 64 in bf16, 64 x 64 in f32)
     and take any S and T."""
@@ -294,8 +296,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k, v, length, *, bk: int = 512):
-    """q: [B, H, d]; k, v: [B, H, T, d]; length [B] (the valid cache
-    prefix) -> [B, H, d] in q's dtype; a row with length <= 0 gives 0,
+    """q: [B, H, d]; k, v: [B, KV, T, d], H a multiple of KV (query head h
+    reads kv head h // (H // KV)); length [B] (the valid cache prefix) ->
+    [B, H, d] in q's dtype; a row with length <= 0 gives 0,
     as the TPU kernel. ``bk`` is the reference's TPU block size, kept for
     its signature; the CUDA kernel splits the cache by its own plan."""
     del bk

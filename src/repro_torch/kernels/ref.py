@@ -259,26 +259,44 @@ def attention_mask(S: int, T: int, causal: bool, window: int,
     return mask
 
 
+def _group(q, k):
+    """G = query heads a kv head, checked: q [B, H, ...], k [B, KV, ...]
+    with H a multiple of KV."""
+    H, KV = q.shape[1], k.shape[1]
+    if KV < 1 or H % KV:
+        raise ValueError(f"attention needs q heads a multiple of kv heads, "
+                         f"got {H} and {KV}")
+    return H // KV
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window: int = 0):
-    """q: [B, H, S, d]; k, v: [B, H, T, d] -> [B, H, S, d] in q's dtype.
-    Plain softmax attention with logits in f32 scaled by d**-0.5; H is
-    the same for q and kv (the caller expands GQA)."""
-    S, T = q.shape[2], k.shape[2]
-    scale = q.shape[-1] ** -0.5
-    lg = torch.matmul(q.to(torch.float32),
-                      k.to(torch.float32).transpose(-1, -2)) * scale
+    """q: [B, H, S, d]; k, v: [B, KV, T, d] -> [B, H, S, d] in q's dtype.
+    Plain softmax attention with logits in f32 scaled by d**-0.5;
+    grouped-query: H a multiple of KV, query head h reads kv head
+    h // (H // KV) (the kv heads broadcast over their group, not copied)."""
+    B, H, S, d = q.shape
+    T, KV = k.shape[2], k.shape[1]
+    G = _group(q, k)
+    scale = d ** -0.5
+    qg = q.to(torch.float32).reshape(B, KV, G, S, d)
+    lg = torch.matmul(qg, k.to(torch.float32)[:, :, None]
+                      .transpose(-1, -2)) * scale           # [B,KV,G,S,T]
     mask = attention_mask(S, T, causal, window, device=q.device)
-    return _masked_softmax_pv(lg, mask[None, None], v, q.dtype)
+    return _masked_softmax_pv(lg, mask, v[:, :, None], q.dtype
+                              ).reshape(B, H, S, d)
 
 
 def decode_attention_ref(q, k, v, length):
-    """One-token decode. q: [B, H, d]; k, v: [B, H, T, d]; length: [B]
-    integer (the valid cache prefix) -> [B, H, d] in q's dtype."""
-    T = k.shape[2]
-    scale = q.shape[-1] ** -0.5
-    lg = torch.einsum("bhd,bhtd->bht", q.to(torch.float32),
-                      k.to(torch.float32)) * scale
+    """One-token decode. q: [B, H, d]; k, v: [B, KV, T, d] with H a
+    multiple of KV (query head h reads kv head h // (H // KV)); length:
+    [B] integer (the valid cache prefix) -> [B, H, d] in q's dtype."""
+    B, H, d = q.shape
+    T, KV = k.shape[2], k.shape[1]
+    G = _group(q, k)
+    scale = d ** -0.5
+    lg = torch.einsum("bkgd,bktd->bkgt", q.to(torch.float32)
+                      .reshape(B, KV, G, d), k.to(torch.float32)) * scale
     mask = torch.arange(T, device=q.device)[None, :] \
         < length.to(q.device)[:, None]                        # [B, T]
-    return _masked_softmax_pv(lg[:, :, None, :], mask[:, None, None, :], v,
-                              q.dtype)[:, :, 0, :]
+    return _masked_softmax_pv(lg, mask[:, None, None, :], v, q.dtype
+                              ).reshape(B, H, d)

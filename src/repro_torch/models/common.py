@@ -1,0 +1,87 @@
+"""Shared model plumbing (port of ``repro/models/common.py``): the dtype
+policy, parameter init on an explicit ``torch.Generator``, and parameter
+counts.
+
+The reference keeps parameters as nested dicts of arrays, stacked along a
+leading layer axis and run under ``lax.scan`` with a remat policy. The
+port keeps them in ``nn.Module``s whose attribute names are the
+reference's leaf names, one module a layer in an ``nn.ModuleList``, and
+loops over the layers in Python: ``scan_layers`` and remat do not carry
+over (remat is training's business). ``models.from_reference`` carries a
+reference parameter tree across.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+from torch import nn
+
+
+def dtype_of(cfg) -> torch.dtype:
+    """The model's parameter and activation dtype (``cfg.dtype``)."""
+    return getattr(torch, cfg.dtype)
+
+
+def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
+               device=None):
+    """Normal(0, 1 / sqrt(fan_in)) init of a weight ``shape`` [d_out,
+    d_in] (fan_in ``d_in``), drawn in f32 on ``device`` from ``gen`` (a
+    generator on that device) and cast to ``dtype``. The numbers are not
+    ``jax.random``'s: a test carries the reference's parameters across
+    instead. ``gen`` None leaves the tensor uninitialised
+    (``models.from_reference`` fills it)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    std = 1.0 / math.sqrt(max(shape[1], 1))
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    return x.normal_(0.0, std, generator=gen).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
+               device=None):
+    """Normal(0, 0.02) init, as ``dense_init``."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    return x.normal_(0.0, 0.02, generator=gen).to(dtype)
+
+
+def linear(gen: torch.Generator, d_in: int, d_out: int, bias: bool, dtype,
+           device) -> nn.Linear:
+    """An ``nn.Linear`` (weight [d_out, d_in], the reference's [d_in,
+    d_out] matrix transposed) with ``dense_init`` weights over fan_in
+    ``d_in`` and zero bias, made on ``device`` without PyTorch's own
+    init (``gen`` None: the weight left uninitialised)."""
+    lin = nn.Linear(d_in, d_out, bias=bias, device="meta", dtype=dtype)
+    lin.weight = nn.Parameter(dense_init(gen, (d_out, d_in), dtype=dtype,
+                                         device=device))
+    if bias:
+        lin.bias = nn.Parameter(torch.zeros(d_out, dtype=dtype,
+                                            device=device))
+    return lin
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def param_bytes(model: nn.Module) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def cast_tree(tree: Any, dtype):
+    """Cast every floating tensor of a nested dict / list / tuple of
+    tensors to ``dtype``, leaving integer tensors as they are; an
+    ``nn.Module`` is cast in place (``module.to(dtype)`` casts only its
+    floating parameters and buffers) and returned."""
+    if isinstance(tree, nn.Module):
+        return tree.to(dtype)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    return tree

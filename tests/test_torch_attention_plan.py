@@ -10,11 +10,12 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 
-# the five timed rows of chip_smoke.FLASH_CASES: (B, H, S, T, d, causal,
+# the six timed rows of chip_smoke.FLASH_CASES: (B, H, S, T, d, causal,
 # window) -> whether the kernel splits the kv range
 TIMED = [((1, 4, 512, 512, 64, True, 0), True),            # bench
          ((1, 24, 4096, 4096, 128, True, 0), False),       # starcoder2-3b
          ((1, 24, 512, 4096, 128, True, 0), True),         # its chunk
+         ((8, 24, 1024, 1024, 128, True, 0), False),       # its LM prefill
          ((1, 32, 8192, 8192, 128, True, 4096), False),    # mixtral-8x7b
          ((1, 16, 8192, 8192, 256, True, 2048), False)]    # recurrentgemma
 

@@ -1372,3 +1372,107 @@ def test_scheduler_card_equals_cpu(cuda, mode):
     assert out["cuda"][1] == out["cpu"][1]
     assert out["cuda"][2] == out["cpu"][2]
     assert sorted(c[0] for t in out["cuda"][1] for c in t) == list(range(96))
+
+
+# ------------------- grouped-query attention and LM serving ------------------
+
+@pytest.mark.parametrize("G", [1, 4, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,window", [(200, 200, 0), (1024, 1024, 0),
+                                        (150, 100, 40), (64, 640, 0)])
+def test_gqa_flash_attention_matches_plain(cuda, G, dtype, S, T, window):
+    """B8 with q heads = G kv heads (query head h reads kv head h // G)
+    against its plain version: causal, ragged, S > T with blind rows,
+    a window, a chunk; the bf16 kernel also split over blocks."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    KV, d = 2, 128
+    q, k, v = _attn_inputs(cuda, dtype, (2, KV * G, S, d), (2, KV, T, d),
+                           (2, KV, T, d), seed=G * S + T)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    splits = (None, 3) if dtype == torch.bfloat16 else (None,)
+    for n_split in splits:
+        before = ops.launch_counts()["flash_attention"]
+        out = flash_attention_cuda(q, k, v, causal=True, window=window,
+                                   n_split=n_split)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == before + 1
+        tol = 2e-3 if dtype == torch.float32 else 0.05
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert kf.attention_excess(out, want) <= 1
+        if S > T:
+            assert bool((out[:, :, :S - T] == 0).all())
+
+
+@pytest.mark.parametrize("G", [1, 4, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,lengths", [(1056, [1056, 0, 1, 700]),
+                                       (5000, [0, 4999, 5000, 5007])])
+def test_gqa_decode_attention_matches_plain(cuda, G, dtype, T, lengths):
+    """B9 with q heads = G kv heads against its plain version, rows with
+    length 0 exactly 0, one device kernel a call."""
+    KV, d = 2, 128
+    B = len(lengths)
+    q, k, v = _attn_inputs(cuda, dtype, (B, KV * G, d), (B, KV, T, d),
+                           (B, KV, T, d), seed=G + T)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, k, v, ln)
+    want = ref.decode_attention_ref(q, k, v, ln)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert kf.attention_excess(out, want) <= 1
+    assert bool((out[ln <= 0] == 0).all())
+    assert kf.device_kernels(lambda: ops.decode_attention(q, k, v, ln)) == 1
+
+
+def test_gqa_kernels_refuse_ragged_groups(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.zeros(1, 3, 8, 64, device=cuda)
+    kv = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(q, kv, kv, causal=True, window=0)
+    with pytest.raises(ValueError, match="multiple"):
+        decode_attention_cuda(q[:, :, 0], kv, kv,
+                              torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+# LM serving card against CPU: f32 smoke configs, the same parameters on
+# both; logits to 2e-3 (tests/test_models.py:76's decode tolerance; the
+# kernels and the plain versions sum in other orders), tokens equal.
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "llama3-405b",
+                                  "internvl2-76b"])
+def test_generation_engine_card_equals_cpu(cuda, arch):
+    """``GenerationEngine`` on the card launches B8 once a layer at
+    prefill and B9 once a layer a step, and gives the CPU's greedy
+    tokens and logits; the retrieval decode likewise at the smoke
+    ``RetrievalConfig``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RetrievalConfig
+    from repro_torch.data.tokens import batch_extras_for, synthetic_batch
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import GenerationEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    batch = synthetic_batch(0, 0, 2, 24, cfg.vocab,
+                            extras=batch_extras_for(cfg))
+    batch.pop("labels")
+    for c in (cfg, cfg.replace(retrieval=RetrievalConfig(
+            enabled=True, d_low=4, topk=8, block=8, partitions=2))):
+        card = get_model(c).init(torch.Generator(device=cuda).manual_seed(0),
+                                 cuda)
+        host = get_model(c).init(None, "cpu")
+        host.load_state_dict(card.state_dict())
+        ops.reset_launch_counts()
+        got = GenerationEngine(c, card, max_new=4).generate(
+            {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == c.n_layers
+        assert counts["decode_attention"] == (
+            0 if c.retrieval.enabled else 4 * c.n_layers)
+        want = GenerationEngine(c, host, max_new=4, device="cpu").generate(
+            batch)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        np.testing.assert_allclose(got.last_logits, want.last_logits,
+                                   rtol=2e-3, atol=2e-3)

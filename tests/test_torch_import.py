@@ -55,7 +55,16 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.obs.bridge", "repro_torch.bench.common",
               "repro_torch.bench.table3_qps",
               "repro_torch.bench.fig5_energy",
-              "repro_torch.bench.fig2_kselect"):
+              "repro_torch.bench.fig2_kselect",
+              "repro_torch.configs.registry",
+              "repro_torch.configs.starcoder2_3b",
+              "repro_torch.models", "repro_torch.models.common",
+              "repro_torch.models.rope", "repro_torch.models.layers",
+              "repro_torch.models.attention",
+              "repro_torch.models.retrieval_attention",
+              "repro_torch.models.transformer", "repro_torch.models.api",
+              "repro_torch.serve.engine", "repro_torch.data.tokens",
+              "repro_torch.launch", "repro_torch.launch.serve"):
         assert m in got["modules"]
     assert got["bad"] == []
     assert got["built"] == []
