@@ -2,7 +2,7 @@
 or pHNSW vector search, on the card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --vector \\
       --n-points 8000 --cache-dir experiments/data
@@ -13,6 +13,8 @@ import argparse
 
 import numpy as np
 import torch
+
+from repro_torch.configs import ARCH_IDS
 
 
 def serve_lm(args):
@@ -36,8 +38,9 @@ def serve_lm(args):
                             cfg.vocab, extras=batch_extras_for(cfg))
     batch.pop("labels")
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    if "patches" in batch:
-        batch["patches"] = batch["patches"].to(dtype_of(cfg))
+    for k in ("frames", "patches"):      # the frontend stubs' outputs
+        if k in batch:
+            batch[k] = batch[k].to(dtype_of(cfg))
     res = eng.generate(batch)
     print(f"[serve] {cfg.name} on {dev}: batch={args.batch} "
           f"prompt={args.prompt_len} new={res.steps}: prefill "
@@ -78,7 +81,7 @@ def serve_vectors(args):
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--vector", action="store_true")
-    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--arch", default="starcoder2-3b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,6 +1,8 @@
-"""LM models (port of ``repro/models``): the dense and vlm families of
-the decoder-only transformer, and ``from_reference``, which carries the
-JAX package's parameter tree (as numpy arrays) into the port's module."""
+"""LM models (port of ``repro/models``): every family (the decoder-only
+transformer's dense, moe and vlm, whisper's encoder-decoder, the
+recurrentgemma hybrid and rwkv6), and ``from_reference``, which carries
+the JAX package's parameter tree (as numpy arrays) into the port's
+module."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Tuple
@@ -9,7 +11,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models import transformer
 from repro_torch.models.api import ModelApi, get_model
 
 __all__ = ["ModelApi", "from_reference", "get_model"]
@@ -55,11 +56,15 @@ def _tensor(a, transpose: bool) -> torch.Tensor:
 def from_reference(cfg, params: Dict, device="cuda") -> nn.Module:
     """The port's module with the reference's parameters: ``params`` is
     ``repro.models.get_model(cfg).init(key)``'s tree with its leaves as
-    numpy arrays (layers stacked on axis 0, matrices [in, out]). Every
+    numpy arrays (blocks stacked on axis 0 under ``layers``,
+    ``enc_layers_p``, ``groups`` and ``trail``, whose port modules are
+    ``nn.ModuleList``s; ``x @ W`` matrices [in, out], the port's
+    ``nn.Linear`` weights their transposes; the other leaves, the MoE's
+    router and experts among them, in the reference's layout). Every
     leaf must land on a port parameter of the same shape and dtype, and
     every port parameter must receive one; anything else raises
     ``ValueError``."""
-    model = transformer.init(cfg, None, device)
+    model = get_model(cfg).init(None, device)
     named = dict(model.named_parameters())
     filled = set()
 
@@ -78,10 +83,15 @@ def from_reference(cfg, params: Dict, device="cuda") -> nn.Module:
 
     with torch.no_grad():
         for path, a in _leaves(params):
-            if path[0] == "layers":
-                for i in range(cfg.n_layers):
-                    name, tr = _port_leaf(model.layers[i], path[1:])
-                    put(f"layers.{i}.{name}", np.asarray(a)[i], tr)
+            stack = getattr(model, path[0], None)
+            if isinstance(stack, nn.ModuleList):
+                if np.shape(a)[0] != len(stack):
+                    raise ValueError(f"from_reference: {'/'.join(path)} "
+                                     f"stacks {np.shape(a)[0]} blocks, the "
+                                     f"port's {path[0]} {len(stack)}")
+                for i, block in enumerate(stack):
+                    name, tr = _port_leaf(block, path[1:])
+                    put(f"{path[0]}.{i}.{name}", np.asarray(a)[i], tr)
             else:
                 name, tr = _port_leaf(model, path)
                 put(name, a, tr)

@@ -1,38 +1,53 @@
 """Unified model API (port of ``repro/models/api.py``): a config bound to
-its family's implementation. The port serves the dense and vlm families
-(``models/transformer.py``); the others (moe, encdec, hybrid, ssm) raise
-``NotImplementedError`` (ROADMAP.md A10)."""
+its family's implementation. Every family serves: dense, moe and vlm
+(``models/transformer.py``), encdec (``encdec.py``, whisper), hybrid
+(``hybrid.py``, recurrentgemma) and ssm (``ssm.py``, rwkv6). Training
+(``loss``) waits for ROADMAP.md A10c, the ``input_specs`` of the
+reference's dry-run for A10d."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
+
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "encdec": encdec,
+    "hybrid": hybrid,
+    "ssm": ssm,
+}
 
 
 class ModelApi:
     """Thin namespace binding a config to its family implementation."""
 
     def __init__(self, cfg: ModelConfig):
-        transformer.check_supported(cfg)
         self.cfg = cfg
+        self.mod = _FAMILY_MODULES[cfg.family]
 
     # --- parameters ---
     def init(self, gen: torch.Generator, device=None):
         """The model's module on ``device`` (default: ``gen``'s device),
-        parameters drawn from ``gen``."""
-        return transformer.init(self.cfg, gen,
-                                gen.device if device is None else device)
+        parameters drawn from ``gen`` (None: left uninitialised)."""
+        if device is None:
+            device = gen.device
+        return self.mod.init(self.cfg, gen, device)
 
     # --- steps ---
     def prefill(self, model, batch, cache_len=None):
-        return transformer.prefill(self.cfg, model, batch, cache_len)
+        """(last-token logits [B, V] f32, cache); ``cache_len`` sizes the
+        KV cache of the attention families (the recurrent states are
+        fixed in size)."""
+        return self.mod.prefill(self.cfg, model, batch, cache_len)
 
     def decode_step(self, model, cache, token, pos):
-        return transformer.decode_step(self.cfg, model, cache, token, pos)
+        return self.mod.decode_step(self.cfg, model, cache, token, pos)
 
     def init_cache(self, batch: int, seq_len: int, device="cuda"):
-        return transformer.init_cache(self.cfg, batch, seq_len, device)
+        return self.mod.init_cache(self.cfg, batch, seq_len, device)
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:

@@ -25,16 +25,18 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
-               device=None):
-    """Normal(0, 1 / sqrt(fan_in)) init of a weight ``shape`` [d_out,
-    d_in] (fan_in ``d_in``), drawn in f32 on ``device`` from ``gen`` (a
-    generator on that device) and cast to ``dtype``. The numbers are not
-    ``jax.random``'s: a test carries the reference's parameters across
-    instead. ``gen`` None leaves the tensor uninitialised
-    (``models.from_reference`` fills it)."""
+               device=None, *, fan_in: int = None, scale: float = 1.0):
+    """Normal(0, scale / sqrt(fan_in)) init of a weight ``shape`` (fan_in
+    ``shape[1]`` unless given: the ``d_in`` of an [d_out, d_in] matrix),
+    drawn in f32 on ``device`` from ``gen`` (a generator on that device)
+    and cast to ``dtype``. The numbers are not ``jax.random``'s: a test
+    carries the reference's parameters across instead. ``gen`` None
+    leaves the tensor uninitialised (``models.from_reference`` fills
+    it)."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device=device)
-    std = 1.0 / math.sqrt(max(shape[1], 1))
+    fan_in = shape[1] if fan_in is None else fan_in
+    std = scale / math.sqrt(max(fan_in, 1))
     x = torch.empty(shape, dtype=torch.float32, device=device)
     return x.normal_(0.0, std, generator=gen).to(dtype)
 
@@ -85,3 +87,20 @@ def cast_tree(tree: Any, dtype):
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_tree(v, dtype) for v in tree)
     return tree
+
+
+def pos_tensor(pos, device):
+    """The current decode position as a [1] int64 tensor on ``device``: an
+    int is filled there (no copy from the host), a tensor moved as it
+    is."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), int(pos), dtype=torch.long, device=device)
+
+
+def stack_zeros(one: dict, n: int, device) -> dict:
+    """Zeros of each template's shape and dtype (a layer's cache or state,
+    made on the "meta" device) with a leading axis of ``n`` layers, on
+    ``device``."""
+    return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=device)
+            for k, v in one.items()}

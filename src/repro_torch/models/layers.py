@@ -1,6 +1,6 @@
 """Norms, MLPs, embeddings and the LM head (port of
 ``repro/models/layers.py``; ``chunked_xent`` waits for the training
-port, ROADMAP.md A10).
+port, ROADMAP.md A10c).
 
 Norm parameters are f32 even in a bf16 model, and the norm runs in f32
 and casts back, as the reference does. starcoder2's MLP is GELU in its
@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import linear
+from repro_torch.models.common import embed_init, linear
 
 
 # ----------------------------- norms --------------------------------------
@@ -70,6 +70,15 @@ def apply_mlp(cfg, p: MLP, x):
 
 
 # ------------------------- embeddings / head -------------------------------
+
+def init_embed(m: nn.Module, cfg, gen, dtype, device) -> None:
+    """Give ``m`` the token embedding ``emb`` [V, D] and, untied, the
+    head ``lm_head``: the reference's ``init_embed`` leaves."""
+    m.emb = nn.Parameter(embed_init(gen, (cfg.vocab, cfg.d_model), dtype,
+                                    device))
+    if not cfg.tie_embeddings:
+        m.lm_head = linear(gen, cfg.d_model, cfg.vocab, False, dtype, device)
+
 
 def embed_tokens(cfg, p, tokens):
     return F.embedding(tokens, p.emb)

@@ -1,4 +1,5 @@
-"""Rotary position embeddings (port of ``repro/models/rope.py``)."""
+"""Rotary position embeddings and whisper's sinusoidal positions (port
+of ``repro/models/rope.py``)."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +27,15 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None):
+    """Whisper's [n, d] f32 table: sin of pos / 10000 ** (2i / d) in the
+    even columns, cos in the odd ones."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d))
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang[:, :(d + 1) // 2])
+    return pe

@@ -1,54 +1,60 @@
-"""Decoder-only transformer for the dense and vlm families (port of
+"""Decoder-only transformer for the dense, moe and vlm families (port of
 ``repro/models/transformer.py``): init, the KV cache, prefill and
-decode. The layers are an ``nn.ModuleList`` run in a Python loop (the
-reference stacks them and scans).
+decode, with the sliding-window ring buffer and the int8 cache. The
+layers are an ``nn.ModuleList`` run in a Python loop (the reference
+stacks them and scans).
 
-Not ported yet (ROADMAP.md A10): the moe family, windowed attention, the
-int8 cache, and the training loss."""
+Not ported yet: the training loss (ROADMAP.md A10c)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import dtype_of, embed_init, linear
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import (dtype_of, linear, pos_tensor,
+                                       stack_zeros)
 from repro_torch.models.layers import (MLP, Norm, apply_mlp, apply_norm,
-                                       embed_tokens, logits_fn)
+                                       embed_tokens, init_embed, logits_fn)
 
-FAMILIES = ("dense", "vlm")
-
-
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this module does not serve
-    yet: the moe family, a sliding window, the int8 cache."""
-    if cfg.family not in FAMILIES or cfg.moe is not None:
-        raise NotImplementedError(f"the {cfg.family} family is not ported "
-                                  "yet (ROADMAP.md A10)")
-    attn._refuse(cfg)
+# the reference's capacity factors at prefill and at decode
+# (transformer.py:137, 165)
+PREFILL_CAPACITY, DECODE_CAPACITY = 1.25, 2.0
 
 
 class Block(nn.Module):
+    """``ln_attn``, ``attn``, ``ln_mlp`` and ``mlp``, or ``moe`` for the
+    moe family."""
+
     def __init__(self, cfg, gen, dtype, device):
         super().__init__()
         self.ln_attn = Norm(cfg, device=device)
         self.attn = attn.Attention(cfg, gen, dtype, device)
         self.ln_mlp = Norm(cfg, device=device)
-        self.mlp = MLP(cfg, gen, dtype, device)
+        if cfg.moe is not None:
+            self.moe = moe_mod.MoE(cfg, gen, dtype, device)
+        else:
+            self.mlp = MLP(cfg, gen, dtype, device)
+
+
+def ffn(cfg, lp: Block, x, capacity_factor: float):
+    """The block's MLP, or its MoE at ``capacity_factor`` (its metrics
+    dropped: serving does not read them)."""
+    if cfg.moe is not None:
+        return moe_mod.apply_moe(cfg, lp.moe, x,
+                                 capacity_factor=capacity_factor)[0]
+    return apply_mlp(cfg, lp.mlp, x)
 
 
 class Transformer(nn.Module):
     """``emb`` [V, D], ``lm_head`` (untied), ``layers`` (one ``Block``
-    each: ``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``), ``ln_f`` and, for
-    vlm, ``vis_proj``: the reference's leaf names."""
+    each), ``ln_f`` and, for vlm, ``vis_proj``: the reference's leaf
+    names."""
 
     def __init__(self, cfg, gen, device):
         super().__init__()
         dtype = dtype_of(cfg)
-        self.emb = nn.Parameter(embed_init(gen, (cfg.vocab, cfg.d_model),
-                                           dtype, device))
-        if not cfg.tie_embeddings:
-            self.lm_head = linear(gen, cfg.d_model, cfg.vocab, False, dtype,
-                                  device)
+        init_embed(self, cfg, gen, dtype, device)
         self.layers = nn.ModuleList(Block(cfg, gen, dtype, device)
                                     for _ in range(cfg.n_layers))
         self.ln_f = Norm(cfg, device=device)
@@ -61,7 +67,6 @@ def init(cfg, gen, device=None) -> Transformer:
     """Parameters on ``device`` drawn from ``gen`` (a ``torch.Generator``
     on that device; None leaves them uninitialised), without gradients:
     the port serves, it does not train yet."""
-    check_supported(cfg)
     return Transformer(cfg, gen, device).requires_grad_(False)
 
 
@@ -70,12 +75,12 @@ def _device(model):
 
 
 def init_cache(cfg, batch: int, seq_len: int, device="cuda") -> dict:
-    """The zero KV cache of every layer: {"k", "v"} [L, B, KV, T, Hd]
-    (``k_low`` [L, B, KV, T, d_low] for retrieval archs); layer l's slice
-    is contiguous in the kernels' layout."""
-    one = attn.init_cache(cfg, batch, seq_len, dtype_of(cfg), device)
-    return {k: torch.zeros((cfg.n_layers,) + v.shape, dtype=v.dtype,
-                           device=device) for k, v in one.items()}
+    """The zero KV cache of every layer, ``attention.init_cache``'s
+    stacked: {"k", "v"} [L, B, KV, T, Hd] (T bounded by the window; int8
+    with ``k_sc`` / ``v_sc`` for ``kv_quant``; ``k_low`` for retrieval
+    archs); layer l's slice is contiguous in the kernels' layout."""
+    return stack_zeros(attn.init_cache(cfg, batch, seq_len, dtype_of(cfg),
+                                       "meta"), cfg.n_layers, device)
 
 
 def _embed_inputs(cfg, model, batch):
@@ -90,33 +95,35 @@ def _embed_inputs(cfg, model, batch):
     return h, torch.arange(h.shape[1], device=dev)
 
 
-def _pos(pos, device):
-    """The current position as a [1] int64 tensor on ``device``: an int
-    is filled there (no copy from the host), a tensor moved as it is."""
-    if isinstance(pos, torch.Tensor):
-        return pos.reshape(1).to(device=device, dtype=torch.long)
-    return torch.full((1,), int(pos), dtype=torch.long, device=device)
-
-
 def prefill(cfg, model, batch, cache_len=None):
-    """Run the prompt: (last-token logits [B, V] f32, cache). The cache
-    holds every layer's k and v of the prompt in positions 0..S_total-1
-    of ``cache_len`` positions (None: exactly the prompt, as the
-    reference returns it; serving preallocates the decode length here
-    instead of padding later)."""
+    """Run the prompt: (last-token logits [B, V] f32, cache {"k", "v"}
+    [L, B, KV, T, Hd]). T is ``cache_len`` (None: the prompt's length, as
+    the reference returns it; serving preallocates the decode length
+    here instead of padding later), bounded by a windowed arch's window.
+    The prompt's positions go to slots 0.. in order; past the window,
+    its last ``window`` positions, as the reference keeps them (so the
+    ring's slots are not ``pos % T`` when the prompt is longer than the
+    window and not a multiple of it: the reference's own layout, kept;
+    ROADMAP.md C). The cache is in the model's dtype even for
+    ``kv_quant``: the reference's prefill returns k and v unquantised,
+    and its decode quantises only a cache that has scales (one from
+    ``init_cache``)."""
     h, positions = _embed_inputs(cfg, model, batch)
     B, S = h.shape[:2]
-    cache = init_cache(cfg, B, S if cache_len is None else cache_len,
-                       _device(model))
-    cache.pop("k_low", None)      # the engine derives it (layout (3))
+    T = S if cache_len is None else cache_len
+    keep = min(cfg.window, S) if cfg.window else S
+    if cfg.window:
+        T = min(T, cfg.window)
+    cache = stack_zeros(attn.kv_zeros(cfg, B, T, h.dtype, "meta"),
+                        cfg.n_layers, _device(model))
     for l, lp in enumerate(model.layers):
         a, (k, v) = attn.attn_prefill(cfg, lp.attn,
                                       apply_norm(cfg, lp.ln_attn, h),
                                       positions)
-        cache["k"][l, :, :, :S] = k
-        cache["v"][l, :, :, :S] = v
+        cache["k"][l, :, :, :keep] = k[:, :, S - keep:]
+        cache["v"][l, :, :, :keep] = v[:, :, S - keep:]
         h = h + a
-        h = h + apply_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln_mlp, h))
+        h = h + ffn(cfg, lp, apply_norm(cfg, lp.ln_mlp, h), PREFILL_CAPACITY)
     h = apply_norm(cfg, model.ln_f, h[:, -1])
     return logits_fn(cfg, model, h).to(torch.float32), cache
 
@@ -124,14 +131,15 @@ def prefill(cfg, model, batch, cache_len=None):
 def decode_step(cfg, model, cache, token, pos):
     """token: [B, 1] integer; pos: int or integer tensor (the current
     position). Updates ``cache`` in place (slot ``min(pos, T - 1)`` of
-    every layer) and returns (logits [B, V] f32, cache)."""
+    every layer, ``pos % T`` in a window's ring) and returns (logits [B,
+    V] f32, cache)."""
     dev = _device(model)
     h = embed_tokens(cfg, model, torch.as_tensor(token, device=dev))
-    p = _pos(pos, dev)
+    p = pos_tensor(pos, dev)
     for l, lp in enumerate(model.layers):
         a, _ = attn.attn_decode(cfg, lp.attn, apply_norm(cfg, lp.ln_attn, h),
                                 {k: c[l] for k, c in cache.items()}, p)
         h = h + a
-        h = h + apply_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln_mlp, h))
+        h = h + ffn(cfg, lp, apply_norm(cfg, lp.ln_mlp, h), DECODE_CAPACITY)
     h = apply_norm(cfg, model.ln_f, h[:, -1])
     return logits_fn(cfg, model, h).to(torch.float32), cache

@@ -1,16 +1,19 @@
 """Generation engine (port of ``repro/serve/engine.py``): batched prefill
-then ``max_new`` decode steps against a KV cache, greedy or with
-temperature sampling.
+then ``max_new`` decode steps, greedy or with temperature sampling, for
+every LM family.
 
 The reference's prefill returns a cache of exactly the prompt and pads
-its sequence axis to ``prompt + max_new`` before stepping; the port's
-prefill writes into a cache of that length from the start (the same
-values: the padding is zeros either way). For retrieval-attention archs
-the engine then fills the inline low-dim keys of the whole cache (the
-layout-(3) index, built at prefill time as the paper builds its database
-before the search phase); their cache is rounded up to a length the
-filter can partition (``retrieval_cache_len``), where the reference's
-reshape would fail."""
+its sequence axis to ``prompt + max_new`` before stepping (bounded by a
+windowed arch's window; whisper's self cache, not its cross cache; the
+hybrid's and rwkv6's states are fixed in size and never padded). The
+port's prefill writes into a cache of that length from the start
+(``cache_len``; the same values: the padding is zeros either way). For
+retrieval-attention archs the engine then fills the inline low-dim keys
+of the whole cache (the layout-(3) index, built at prefill time as the
+paper builds its database before the search phase); their cache is
+rounded up to a length the filter can partition
+(``retrieval_cache_len``), where the reference's reshape would fail.
+Whisper's ``frames`` go to the prefill with the tokens."""
 from __future__ import annotations
 
 import time
@@ -41,10 +44,13 @@ class GenerationResult:
 
 def cache_len(cfg: ModelConfig, prompt: int, max_new: int) -> int:
     """The decode cache's length: prompt (with the vlm's patch tokens)
-    plus ``max_new``, rounded up for a retrieval arch."""
+    plus ``max_new``, rounded up for a retrieval arch, at most a windowed
+    arch's window (the ring buffer). The hybrid and ssm families' states
+    are fixed in size, and their prefill does not read it."""
     total = prompt + (cfg.vis_tokens or 0) + max_new
-    return retrieval_cache_len(cfg, total) if cfg.retrieval.enabled \
-        else total
+    if cfg.retrieval.enabled:
+        total = retrieval_cache_len(cfg, total)
+    return min(total, cfg.window) if cfg.window else total
 
 
 def low_keys(model, cache: dict) -> dict:
@@ -58,9 +64,9 @@ def low_keys(model, cache: dict) -> dict:
 class GenerationEngine:
     """``generate(batch)`` over ``model`` (the port's module, on
     ``device``): ``batch`` holds ``tokens`` [B, S] (and ``patches`` for
-    vlm) as numpy arrays or tensors. Greedy is argmax; temperature
-    sampling draws from a ``torch.Generator`` seeded with ``seed`` (not
-    ``jax.random``'s numbers)."""
+    vlm, ``frames`` for encdec) as numpy arrays or tensors. Greedy is
+    argmax; temperature sampling draws from a ``torch.Generator`` seeded
+    with ``seed`` (not ``jax.random``'s numbers)."""
 
     def __init__(self, cfg: ModelConfig, model, *, max_new: int = 32,
                  temperature: float = 0.0, seed: int = 0, device="cuda"):

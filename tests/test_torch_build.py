@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import PHNSWConfig as RefConfig
 from repro.core.graph import build_hnsw as ref_build_hnsw
@@ -20,6 +21,16 @@ from repro_torch.core.pca import fit_pca
 from repro_torch.core.search_torch import build_packed, search_batched
 from repro_torch.data.vectors import (brute_force_topk, make_queries,
                                       make_sift_like)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tier-1 run puts several workers on the host's cores: one torch
+    thread each keeps the plain CPU kernels from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _ref(cfg):

@@ -1476,3 +1476,105 @@ def test_generation_engine_card_equals_cpu(cuda, arch):
         np.testing.assert_array_equal(got.tokens, want.tokens)
         np.testing.assert_allclose(got.last_logits, want.last_logits,
                                    rtol=2e-3, atol=2e-3)
+
+
+# The moe, encdec, hybrid and ssm families' attention shapes (reduced in
+# length where the plain version's logits would be large): recurrentgemma's
+# local MQA (16 heads over 1, d=256, window 2048 at S past it), whisper's
+# non-causal encoder and cross-attention (d=64, T = 1,500 frames), qwen3's
+# G = 16 (64 heads over 4), mixtral's window 4096.
+FAMILY_FLASH = [(1, 16, 1, 2100, 2100, 256, True, 2048),
+                (2, 16, 16, 1500, 1500, 64, False, 0),
+                (2, 16, 16, 64, 1500, 64, False, 0),
+                (2, 64, 4, 300, 300, 128, True, 0),
+                (1, 8, 2, 4200, 4200, 128, True, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,T,d,causal,window", FAMILY_FLASH)
+def test_family_flash_attention_matches_plain(cuda, dtype, B, H, KV, S, T, d,
+                                              causal, window):
+    """B8 at the families' prefill and encoder shapes against its plain
+    version (non-causal rows see every key: none is blind)."""
+    q, k, v = _attn_inputs(cuda, dtype, (B, H, S, d), (B, KV, T, d),
+                           (B, KV, T, d), seed=H * S + T)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert kf.attention_excess(out, want) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,T,d,lengths", [
+    (16, 1, 2048, 256, [2048, 1, 1000, 2048]),      # the ring: min(pos+1, T)
+    (16, 16, 1500, 64, [1500, 1500]),              # whisper's cross cache
+    (64, 4, 1040, 128, [1040, 7]),                 # qwen3, G = 16
+])
+def test_family_decode_attention_matches_plain(cuda, dtype, H, KV, T, d,
+                                               lengths):
+    """B9 at the families' decode shapes against its plain version, one
+    device kernel a call."""
+    B = len(lengths)
+    q, k, v = _attn_inputs(cuda, dtype, (B, H, d), (B, KV, T, d),
+                           (B, KV, T, d), seed=H + T)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, k, v, ln)
+    want = ref.decode_attention_ref(q, k, v, ln)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert kf.attention_excess(out, want) <= 1
+    assert kf.device_kernels(lambda: ops.decode_attention(q, k, v, ln)) == 1
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b",
+                                  "whisper-medium", "recurrentgemma-9b",
+                                  "rwkv6-1.6b", "llama3-405b int8"])
+def test_family_generation_card_equals_cpu(cuda, arch):
+    """``GenerationEngine`` on the card for each family (the smoke
+    configs, f32; mixtral's 16-token prompt twice its window, so the ring
+    wraps; recurrentgemma's past its local window) gives the CPU's greedy
+    tokens and logits (2e-3), launching B8 once an attention layer at
+    prefill and B9 once an attention layer a step (rwkv6 neither); and,
+    for ``kv_quant``, decode from the int8 cache of ``init_cache``, card
+    against CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import batch_extras_for, synthetic_batch
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import GenerationEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, _, quant = arch.partition(" ")
+    cfg = get_smoke_config(name).replace(kv_quant=bool(quant))
+    batch = synthetic_batch(0, 0, 2, 16, cfg.vocab,
+                            extras=batch_extras_for(cfg))
+    batch.pop("labels")
+    card = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                               cuda)
+    host = get_model(cfg).init(None, "cpu")
+    host.load_state_dict(card.state_dict())
+    ops.reset_launch_counts()
+    got = GenerationEngine(cfg, card, max_new=4).generate(
+        {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    counts = ops.launch_counts()
+    attn_layers = {"encdec": 2 * cfg.n_layers, "ssm": 0,
+                   "hybrid": cfg.n_layers // max(len(cfg.pattern), 1)}.get(
+        cfg.family, cfg.n_layers)
+    assert counts["flash_attention"] == attn_layers + cfg.enc_layers
+    assert counts["decode_attention"] == 4 * attn_layers
+    want = GenerationEngine(cfg, host, max_new=4, device="cpu").generate(
+        batch)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.last_logits, want.last_logits,
+                               rtol=2e-3, atol=2e-3)
+    if quant:
+        api = get_model(cfg)
+        caches = {d: api.init_cache(2, 12, d) for d in (cuda, "cpu")}
+        for t in range(10):
+            tok = torch.from_numpy(batch["tokens"][:, t:t + 1])
+            lg = {d: api.decode_step(m, caches[d], tok.to(d), t)[0].cpu()
+                  for d, m in ((cuda, card), ("cpu", host))}
+            torch.testing.assert_close(lg[cuda], lg["cpu"], rtol=2e-3,
+                                       atol=2e-3)
+        assert caches[cuda]["k"].dtype == torch.int8

@@ -32,7 +32,8 @@ from repro_torch.core import filters
 from repro_torch.core.graph import build_hnsw
 from repro_torch.core.search_torch import search_batched
 from repro_torch.distributed import faults as tfaults
-from test_torch_search import _int_filters, port_cfg
+from test_torch_search import (_int_filters,  # noqa: F401 (fixture)
+                               _one_torch_thread, port_cfg)
 
 N_INT = 601                    # 601 % 3 == 601 % 4 == 1
 

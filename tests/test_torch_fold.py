@@ -53,6 +53,16 @@ from repro_torch.kernels import merge_sorted as ms
 from repro_torch.kernels import trip_fold as tf
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tier-1 run puts several workers on the host's cores: one torch
+    thread each keeps the plain CPU kernels from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(params=["ref", "interpret"])
 def jax_impl(request, monkeypatch):
     """Route the JAX ops to the jnp oracles or to the Pallas kernels in

@@ -63,6 +63,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.models.attention",
               "repro_torch.models.retrieval_attention",
               "repro_torch.models.transformer", "repro_torch.models.api",
+              "repro_torch.models.moe", "repro_torch.models.encdec",
+              "repro_torch.models.rglru", "repro_torch.models.hybrid",
+              "repro_torch.models.rwkv6", "repro_torch.models.ssm",
               "repro_torch.serve.engine", "repro_torch.data.tokens",
               "repro_torch.launch", "repro_torch.launch.serve"):
         assert m in got["modules"]

@@ -38,7 +38,7 @@ from repro_torch.models import attention, from_reference, get_model
 from repro_torch.models.common import count_params
 from repro_torch.models.retrieval_attention import (
     retrieval_cache_len, retrieval_decode_attention)
-from repro_torch.serve.engine import GenerationEngine, low_keys
+from repro_torch.serve.engine import GenerationEngine, cache_len, low_keys
 
 TOL = 1e-4
 KEY = jax.random.key(0)
@@ -106,6 +106,87 @@ def _reference_run(jcfg, params, batch, steps=STEPS, cache_len=None):
     return np.asarray(lg), _np(cache0), logits, _np(cache), toks
 
 
+# cache leaves whose sequence axis the port moves: the reference's [..., B,
+# T, KV, X] is the port's [..., B, KV, T, X]
+_SEQ_LEAVES = ("k", "v", "k_sc", "v_sc", "k_low")
+
+
+def cache_as_reference(tree):
+    """A port cache (nested dicts of tensors) as numpy in the reference's
+    layout."""
+    return {k: cache_as_reference(v) if isinstance(v, dict) else
+            (v.float().numpy().swapaxes(-3, -2) if k in _SEQ_LEAVES
+             else v.float().numpy())
+            for k, v in tree.items()}
+
+
+def close_trees(got, want, tol=TOL):
+    """Every leaf of the port's cache (``cache_as_reference``) within
+    ``tol`` of the reference's, the same keys."""
+    assert set(got) == set(want)
+    for k in got:
+        if isinstance(got[k], dict):
+            close_trees(got[k], want[k], tol)
+        else:
+            _close(got[k], want[k], tol)
+
+
+def engine_run(jcfg, params, batch, steps=4):
+    """The reference engine's greedy ``generate`` of ``steps`` tokens,
+    then its own jitted prefill and decode step replayed (no new
+    compile): (its tokens, prefill logits, prefill cache, each step's
+    logits, the final cache, the tokens fed), the cache padded as the
+    engine pads it."""
+    eng = JEngine(jcfg, params, max_new=steps)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tokens = eng.generate(jb).tokens
+    lg, cache0 = eng._prefill(params, jb)
+    S_tot = batch["tokens"].shape[1] + jcfg.vis_tokens
+    cache = cache0
+    if jcfg.family in ("dense", "moe", "vlm", "encdec"):
+        total = S_tot + steps
+        cache = j_pad_cache_seq(jcfg, params, cache0, min(
+            total, jcfg.window) if jcfg.window else total)
+    tok = np.asarray(jnp.argmax(lg, -1))[:, None].astype(np.int32)
+    logits, toks = [], []
+    for i in range(steps):
+        toks.append(tok)
+        out, cache = eng._step(params, cache, jnp.asarray(tok),
+                               jnp.int32(S_tot + i))
+        logits.append(np.asarray(out))
+        tok = np.asarray(jnp.argmax(out, -1))[:, None].astype(np.int32)
+    return tokens, np.asarray(lg), _np(cache0), logits, _np(cache), toks
+
+
+def check_family_against_reference(jcfg, tcfg, params, batch, run,
+                                   steps=4):
+    """``from_reference``, then the port's prefill logits and cache, each
+    decode step's logits and the final cache within ``TOL`` of the
+    reference's engine-padded run (``engine_run``), and
+    ``GenerationEngine``'s greedy tokens equal to the reference
+    engine's. Returns the port's model."""
+    tokens, lg, cache0, logits, cache, toks = run
+    model = from_reference(tcfg, _np(params), "cpu")
+    api = get_model(tcfg)
+    S_tot = batch["tokens"].shape[1] + tcfg.vis_tokens
+    got, tc = api.prefill(model, batch)
+    assert got.dtype == torch.float32 and got.shape == lg.shape
+    _close(got, lg)
+    close_trees(cache_as_reference(tc), cache0)
+    _, tc = api.prefill(model, batch, cache_len(tcfg, S_tot - tcfg.vis_tokens,
+                                                steps))
+    for i, tok in enumerate(toks):
+        got, tc = api.decode_step(model, tc, torch.from_numpy(tok),
+                                  S_tot + i)
+        _close(got, logits[i])
+    close_trees(cache_as_reference(tc), cache)
+    res = GenerationEngine(tcfg, model, max_new=steps,
+                           device="cpu").generate(batch)
+    np.testing.assert_array_equal(res.tokens, tokens)
+    np.testing.assert_array_equal(res.tokens, np.concatenate(toks, 1))
+    return model
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def arch_case(request):
     """One smoke config (f32) in both packages, the reference's
@@ -141,12 +222,11 @@ def test_configs_equal_reference():
 
 # --------------------------- carrying weights ------------------------------
 
-def _expected_leaf(model, path, i=None):
-    """The port tensor that should hold reference leaf ``path`` (layer
-    ``i`` of a stacked leaf), as the reference's array."""
+def _expected_leaf(mod, path):
+    """The port tensor below module ``mod`` that should hold reference
+    leaf ``path``, as the reference's array."""
     names = {"bq": ("wq", "bias"), "bk": ("wk", "bias"), "bv": ("wv", "bias"),
              "b_up": ("w_up", "bias"), "b_down": ("w_down", "bias")}
-    mod = model.layers[i] if i is not None else model
     for p in path[:-1]:
         mod = getattr(mod, p)
     leaf = path[-1]
@@ -154,6 +234,29 @@ def _expected_leaf(model, path, i=None):
         return getattr(getattr(mod, names[leaf][0]), names[leaf][1])
     t = getattr(mod, leaf)
     return t.weight.T if isinstance(t, torch.nn.Linear) else t
+
+
+# the reference's stacked blocks (axis 0), one port module each
+STACKS = ("layers", "enc_layers_p", "groups", "trail")
+
+
+def check_carries_every_leaf(model, params) -> None:
+    """Every leaf of the reference's tree (numpy) is bit for bit the port
+    parameter it names (block i of a stacked leaf in the port's module
+    list), with its dtype, and every port parameter holds one."""
+    assert count_params(model) == j_count_params(params)
+    n = 0
+    for path, a in _leaves(params):
+        stacked = path[0] in STACKS
+        for i in (range(a.shape[0]) if stacked else [None]):
+            got = _expected_leaf(getattr(model, path[0])[i], path[1:]) \
+                if stacked else _expected_leaf(model, path)
+            want = a[i] if stacked else a
+            assert str(got.dtype).endswith(str(want.dtype)), path
+            assert np.array_equal(got.float().numpy(),
+                                  want.astype(np.float32)), path
+            n += 1
+    assert n == len(list(model.parameters()))
 
 
 def _leaves(tree, path=()):
@@ -178,18 +281,7 @@ def test_from_reference_carries_every_leaf(arch, dtype):
         dtype=dtype, retrieval=RetrievalConfig(**SMOKE_RETRIEVAL))
     params = _np(j_get_model(jcfg).init(KEY))
     model = from_reference(tcfg, params, "cpu")
-    assert count_params(model) == j_count_params(params)
-    n = 0
-    for path, a in _leaves(params):
-        layered = path[0] == "layers"
-        for i in (range(tcfg.n_layers) if layered else [None]):
-            want = a[i] if layered else a
-            got = _expected_leaf(model, path[1:] if layered else path, i)
-            assert str(got.dtype).endswith(str(want.dtype)), path
-            assert np.array_equal(got.float().numpy(),
-                                  want.astype(np.float32)), path
-            n += 1
-    assert n == len(list(model.parameters()))
+    check_carries_every_leaf(model, params)
     if dtype == "bfloat16":
         assert model.layers[0].ln_attn.scale.dtype == torch.float32
         assert model.layers[0].attn.wq.weight.dtype == torch.bfloat16
@@ -200,6 +292,31 @@ def test_from_reference_carries_every_leaf(arch, dtype):
     extra = dict(params, stray=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="stray"):
         from_reference(tcfg, extra, "cpu")
+
+
+def ref_params(jcfg, tcfg, seed=0):
+    """Parameters for both packages without the reference's init, whose
+    eager ops take seconds to compile: the port's seeded init (the same
+    scales) laid out as the reference's tree, leaf by leaf through
+    ``_expected_leaf`` (the tree's paths, shapes and dtypes from
+    ``jax.eval_shape`` of the reference's ``init``, which compiles
+    nothing), as numpy arrays."""
+    model = get_model(tcfg).init(torch.Generator().manual_seed(seed), "cpu")
+    tree = jax.eval_shape(j_get_model(jcfg).init, KEY)
+
+    def leaf(path, sds):
+        if path[0] in STACKS:
+            t = torch.stack([_expected_leaf(b, path[1:])
+                             for b in getattr(model, path[0])])
+        else:
+            t = _expected_leaf(model, path)
+        assert tuple(t.shape) == sds.shape, path
+        return np.asarray(t.float().numpy()).astype(sds.dtype)
+
+    def walk(node, path=()):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else leaf(path + (k,), v) for k, v in node.items()}
+    return walk(tree)
 
 
 # ---------------------------- prefill / decode -----------------------------
@@ -386,25 +503,73 @@ def test_retrieval_cache_len_and_refusal():
                                    torch.tensor([3]))
 
 
-# ------------------------------- refusals ----------------------------------
+# ----------------------- every family and cache kind -----------------------
+
+def _shapes(tree):
+    """{path: (shape, dtype name)} of a cache, the port's in the
+    reference's layout."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({(k,) + p: x for p, x in _shapes(v).items()})
+        elif isinstance(v, torch.Tensor):
+            shape = list(v.shape)
+            if k in _SEQ_LEAVES:
+                shape[-3], shape[-2] = shape[-2], shape[-3]
+            out[(k,)] = (tuple(shape), str(v.dtype).replace("torch.", ""))
+        else:
+            out[(k,)] = (tuple(v.shape), str(v.dtype))
+    return out
+
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b",
                                   "whisper-medium", "recurrentgemma-9b",
                                   "rwkv6-1.6b"])
 def test_unported_families_refuse(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        get_model(get_smoke_config(arch))
+    """Every family serves: ``get_model`` binds the smoke config, and
+    its ``init_cache`` holds the reference's leaves with their shapes
+    (the port's layout moves the sequence axis) and dtypes, zeros, below
+    the window (W = 8) and past it."""
+    cfg, jcfg = get_smoke_config(arch), j_smoke(arch)
+    api = get_model(cfg)
+    for T in (5, 12):
+        cache = api.init_cache(2, T, "cpu")
+        assert _shapes(cache) == _shapes(_np(j_get_model(jcfg).init_cache(
+            2, T)))
+        assert not any(t.any() for t in _leaf_tensors(cache))
+
+
+def _leaf_tensors(tree):
+    for v in tree.values():
+        yield from (_leaf_tensors(v) if isinstance(v, dict) else (v,))
 
 
 def test_unported_cache_kinds_refuse():
-    cfg = get_smoke_config("llama3-405b")
-    for bad in (cfg.replace(kv_quant=True), cfg.replace(window=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-            get_model(bad)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-            attention.init_cache(bad, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        attention.attn_forward(cfg, None, None, None)
+    """The windowed ring buffer and the int8 cache serve: their caches
+    hold the reference's shapes and dtypes (T bounded by the window; int8
+    values and scales in the model's dtype, bf16 too), and
+    ``attn_forward`` runs its bidirectional and cross-attention forms."""
+    cfg, jcfg = get_smoke_config("llama3-405b"), j_smoke("llama3-405b")
+    for kw in (dict(kv_quant=True), dict(window=8),
+               dict(kv_quant=True, window=8, dtype="bfloat16")):
+        for T in (6, 20):
+            got = get_model(cfg.replace(**kw)).init_cache(1, T, "cpu")
+            want = j_get_model(jcfg.replace(**kw)).init_cache(1, T)
+            assert _shapes(got) == _shapes(_np(want))
+            assert attention.init_cache(cfg.replace(**kw), 1, T,
+                                        torch.float32)["k"].shape[2] == \
+                (min(T, 8) if "window" in kw else T)
+    p = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu") \
+        .layers[0].attn
+    x = torch.randn(2, 5, cfg.d_model)
+    pos = torch.arange(5)
+    assert attention.attn_forward(cfg, p, x, pos, causal=False).shape == \
+        x.shape
+    y = attention.attn_forward(cfg, p, x, pos, kv_src=torch.randn(
+        2, 9, cfg.d_model), causal=False)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    with pytest.raises(ValueError, match="window"):
+        attention.attn_forward(cfg, p, x, pos, kv_src=x, window=4)
 
 
 # ------------------------------ GQA kernels --------------------------------
@@ -457,9 +622,10 @@ def test_synthetic_batch_bit_equal():
 
 def test_serve_lm_smoke_on_cpu():
     """``python -m repro_torch.launch.serve --smoke --device cpu`` at the
-    launcher's defaults (batch 4, prompt 32, 16 new)."""
+    launcher's defaults (batch 4, prompt 32, 16 new), for every arch
+    (whisper's frames cast to the model's dtype as the patches are)."""
     from repro_torch.launch.serve import parser, serve_lm
-    for arch in ("starcoder2-3b", "internvl2-76b"):
+    for arch in ARCH_IDS:
         res = serve_lm(parser().parse_args(["--arch", arch, "--smoke",
                                             "--device", "cpu"]))
         vocab = get_smoke_config(arch).vocab

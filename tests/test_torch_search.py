@@ -44,6 +44,16 @@ def ref_db_arrays(db) -> dict:
             "entry": int(db.entry), "filter_kind": db.filter_kind}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tier-1 run puts several workers on the host's cores: one torch
+    thread each keeps the plain CPU kernels from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def int_fixture():
     """600 integer vectors in [0, 8)^16, a graph over them, and integer
