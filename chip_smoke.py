@@ -141,6 +141,22 @@ non-zero:
                 wrap) within ``LM_BF16_TOL`` of the logits' RMS; (c) a
                 full-width cut in f32 on the card and on this machine's
                 CPU: equal greedy tokens, logits within ``LM_F32_TOL``;
+  3e. train   — LM training (``run_train``; no kernel: the port trains
+                through ``blocked_attention``, as the reference through
+                its jnp attention): (a) starcoder2-3b at full width and
+                depth, bf16, ``remat="full"``, seeded weights, sequence
+                4,096, global batch 8 (a ``reduced`` line: train_4k's is
+                256) in 4 microbatches, one warm-up and 3 timed steps
+                (s a step, tokens/s, FLOPs, peak memory, finite loss and
+                gradient norm, 0 attention-kernel launches); (b) one
+                loss and backward in f32 on the card and on this
+                machine's CPU: a 2-layer cut at full width and the smoke
+                configs of mixtral-8x7b, internvl2-76b, whisper-medium,
+                recurrentgemma-9b and rwkv6-1.6b, the loss to rtol 1e-5
+                and each gradient leaf within 1e-4 of its largest
+                magnitude; (c) ``TrainLoop`` on the card, 4 straight
+                steps against 2 + resume from a checkpoint + 2: losses
+                and parameters bit for bit;
   4. build    — the wave builder at the paper's SIFT1M configuration:
                 ``--shards`` graphs over ``shard_bounds(--n, P)``, shard s
                 with seed ``seed + s``; ``graph_invariants`` must hold for
@@ -235,7 +251,7 @@ non-zero:
                 (integer centroids, a coordinate-selecting projection),
                 recall within 0.005 and ids equal for >= 99% of queries on
                 float data; then the sharded search at P=4 on the card
-                and on the CPU (the first ``SHARDED_PARITY_QUERIES``, 100,
+                and on the CPU (the first ``SHARDED_PARITY_QUERIES``, 50,
                 of the 200 queries, a ``reduced`` line) in every mode
                 bit-identical on integer data with and without
                 tombstones, and in ``SHARDED_FLOAT_MODES`` (pca) the
@@ -321,7 +337,8 @@ non-zero:
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main-path run (the footprint
-bench, the lm phase, each lm_families generate, the build, each
+bench, the lm phase, each lm_families generate, the train phase's timed
+steps, the build, each
 single-shard arm, each sharded arm, each mesh run,
 each part of the serve, replica and stream phases and the table3 batched
 rows) and read just after. The degraded, resilient and mesh phases need
@@ -3546,9 +3563,10 @@ def _mesh_parity(torch, np, cfg, xi, qi, igraphs, ifilts, deleted,
 # the sharded parity's queries (of the fixture's 200) and the modes it also
 # runs on float data (every mode runs on integer data, bit for bit): its
 # checks are bits and id agreement, not rates; on all 200 queries and
-# every mode it took 106 s of the smoke on an H100 host, so it is cut to
-# make room for the lm_families phase
-SHARDED_PARITY_QUERIES = 100
+# every mode it took 106 s of the smoke on an H100 host, 67.92 s at 100
+# queries in the pca float mode, so it is cut to make room for the
+# lm_families and train phases
+SHARDED_PARITY_QUERIES = 50
 SHARDED_FLOAT_MODES = ("pca",)
 # the modes of its mesh search card against CPU: the mesh phase holds the
 # card's mesh to its host path in four modes, this phase the host path
@@ -4118,6 +4136,306 @@ def run_lm_families(torch, np, smi: str, seed: int = 0,
     return out
 
 
+# ---------------------------------- train ------------------------------------
+
+TRAIN_ARCH = "starcoder2-3b"
+# (a): global batch, sequence (train_4k's), timed steps after one warm-up
+TRAIN_TIMED = (8, 4096, 3)
+TRAIN_CUT_LAYERS = 2               # (b): the full-width cut, f32
+TRAIN_PARITY = (2, 64)             # (b): batch, sequence of the cut
+TRAIN_FAMILIES = ("mixtral-8x7b", "internvl2-76b", "whisper-medium",
+                  "recurrentgemma-9b", "rwkv6-1.6b")
+TRAIN_FAMILY_BATCH = (2, 32)       # (b): the smoke configs' batch, sequence
+TRAIN_RESUME = (8, 64, 4)          # (c): batch, sequence (the launcher's
+                                   # --smoke shape), steps
+# (b): the CPU tests' tolerances (tests/test_torch_train_loss.py): the loss
+# to rtol 1e-5, each gradient leaf within 1e-4 of its largest magnitude
+# plus 1e-7 (f32 on both sides, matrix products without TF32)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL, TRAIN_GRAD_ABS = 1e-4, 1e-7
+
+
+def train_flops(cfg, B: int, S: int) -> dict:
+    """The FLOPs of one training step under ``remat="full"``: the matrix
+    products (2 a weight a token forward, twice that backward, and one
+    more forward recomputed; the embedding is a gather) and
+    ``blocked_attention``'s two products, every causal block computed
+    (the reference's q-chunks skip none)."""
+    tokens = B * S
+    dense = cfg.n_params() - cfg.vocab * cfg.d_model
+    attn = 4 * B * S * S * cfg.n_heads * cfg.resolved_head_dim \
+        * cfg.n_layers
+    fwd = 2 * dense * tokens + attn
+    return {"matmul": 8 * dense * tokens, "attention": 4 * attn,
+            "total": 4 * fwd}
+
+
+def _loss_and_grads(torch, api, model, batch):
+    loss, metrics = api.loss(model, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), \
+        {k: float(v.detach()) for k, v in metrics.items()}, \
+        grads
+
+
+def _card_vs_cpu(torch, np, cfg, card, host, batch, dev) -> dict:
+    """One loss and backward of the same parameters and batch on the card
+    and on this machine's CPU: the losses, the metrics and every
+    gradient leaf, against the CPU tests' tolerances."""
+    from repro_torch.models import get_model
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    cl, cm, cg = _loss_and_grads(torch, api, card,
+                                 {k: v.to(dev) for k, v in batch.items()})
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hl, hm, hg = _loss_and_grads(torch, api, host, batch)
+    cpu_s = time.perf_counter() - t0
+    worst, worst_leaf = 0.0, None
+    for n, want in hg.items():
+        scale = float(want.abs().max())
+        err = float((cg[n] - want).abs().max())
+        need(err <= TRAIN_GRAD_REL * scale + TRAIN_GRAD_ABS,
+             f"train (b) {cfg.name}: gradient {n} off by {err} at scale "
+             f"{scale}")
+        if scale > 1e-6 and err / scale > worst:
+            worst, worst_leaf = err / scale, n
+    need(abs(cl - hl) <= TRAIN_LOSS_RTOL * abs(hl),
+         f"train (b) {cfg.name}: loss card {cl} cpu {hl}")
+    need(cm.get("dropped_frac") == hm.get("dropped_frac"),
+         f"train (b) {cfg.name}: dropped_frac card {cm} cpu {hm}")
+    return {"loss_card": cl, "loss_cpu": hl,
+            "loss_rel": abs(cl - hl) / abs(hl), "metrics_card": cm,
+            "metrics_cpu": hm, "grad_leaves": len(hg),
+            "worst_grad_rel": worst, "worst_grad_leaf": worst_leaf,
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _profile_layer(torch, cfg, model, B: int, S: int, dev) -> dict:
+    """One block's forward and backward at a microbatch's shape under
+    the profiler (``profile_batch``): where a layer's time goes. (A
+    whole microbatch launches ~40,000 kernels, whose trace takes the
+    profiler ~45 s to reduce on the card's host.)"""
+    from repro_torch.models.transformer import _layer_fwd
+    x = torch.randn((B, S, cfg.d_model), dtype=model.emb.dtype, device=dev,
+                    requires_grad=True)
+    pos = torch.arange(S, device=dev)
+
+    def layer():
+        h, _ = _layer_fwd(cfg, model.layers[0], x, pos)
+        h.float().sum().backward()
+        model.zero_grad(set_to_none=True)
+    layer()
+    return profile_batch(torch, layer, top=12)
+
+
+def _train_batch(torch, cfg, seed, B, S):
+    from repro_torch.data.tokens import batch_extras_for, synthetic_batch
+    return {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        seed, 0, B, S, cfg.vocab, extras=batch_extras_for(cfg)).items()}
+
+
+TRAIN_CKPT_DEVICE_BYTES = 1 << 30   # (a): a checkpoint's device memory
+
+
+def _checkpoint_state(torch, cfg, model, opt, dev) -> dict:
+    """What ``TrainLoop`` hands its async checkpoint at full width:
+    ``train.loop.state_tree`` (parameters, ``m``, ``v`` and ``step`` in
+    the reference's layout, new host arrays, copied a block at a time
+    and stacked on the host). Records its seconds, the host bytes and
+    the device memory it takes above what was allocated before it,
+    which must stay under ``TRAIN_CKPT_DEVICE_BYTES`` (one transposed
+    block, not the stacked state)."""
+    from repro_torch.train.loop import state_tree
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tree = state_tree(cfg, model, opt)
+    seconds = time.perf_counter() - t0
+    host = 0
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        for v in node.values():
+            if isinstance(v, dict):
+                stack.append(v)
+            else:
+                host += v.nbytes
+    extra = torch.cuda.max_memory_allocated() - base if cuda else None
+    del tree
+    if cuda:
+        need(extra <= TRAIN_CKPT_DEVICE_BYTES,
+             f"train (a): the checkpoint's state took {extra} bytes of "
+             f"device memory")
+    return {"seconds": seconds, "host_bytes": host,
+            "device_bytes_above": extra}
+
+
+def _resume_on_card(torch, cfg, dev, seed) -> dict:
+    """(c): ``TrainLoop`` for ``TRAIN_RESUME``'s steps straight, against
+    half of them, a new loop resuming from the checkpoint, and the
+    rest: losses after the restart and final parameters bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    B, S, steps = TRAIN_RESUME
+    half = steps // 2
+    shape = ShapeConfig("smoke", S, B, "train")
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    run = lambda n, sub: TrainLoop(
+        cfg, shape, None, TrainLoopConfig(steps=n, seed=seed, ckpt_every=half,
+                                          log_every=1_000,
+                                          ckpt_dir=f"{d}/{sub}"),
+        device=dev)
+    try:
+        straight = run(steps, "a")
+        straight.run()
+        run(half, "b").run()
+        resumed = run(steps, "b")
+        resumed.run()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = [m["loss"] for m in resumed.metrics_log]
+    want = [m["loss"] for m in straight.metrics_log][half:]
+    params_equal = all(torch.equal(a, b) for a, b in zip(
+        resumed.model.parameters(), straight.model.parameters()))
+    need(got == want, f"train (c): resumed losses {got}, straight {want}")
+    need(params_equal, "train (c): the resumed parameters differ from the "
+         "straight run's")
+    return {"arch": cfg.name, "batch": B, "seq": S, "steps": steps,
+            "resumed_at": half, "losses_straight":
+            [m["loss"] for m in straight.metrics_log],
+            "losses_resumed": got, "losses_equal": got == want,
+            "params_equal": params_equal}
+
+
+def run_train(torch, np, smi: str, seed: int = 0,
+              device: str = "cuda") -> dict:
+    """LM training on the card (the port's ``build_train_step``:
+    ``api.loss`` through ``blocked_attention`` and ``chunked_xent``,
+    backward, f32 gradient sums over the microbatches, ``adamw_update``
+    in place; no attention kernel):
+    (a) starcoder2-3b at full width and depth, bf16, ``remat="full"``,
+        seeded weights drawn on the card, sequence 4,096 (train_4k's),
+        global batch 8 (``default_microbatches``: 4 of 2) from
+        ``TokenPipeline``: one warm-up step, then ``TRAIN_TIMED``'s
+        timed steps: seconds a step, tokens/s, the FLOPs a step and the
+        rate, peak memory, loss and gradient norm (finite, the norm > 0),
+        and the attention kernels' launches (0: the counts are reset just
+        before the timed steps and read just after; checked in
+        ``main``); then one block's forward and backward at a
+        microbatch's shape under the profiler (``_profile_layer``), and
+        the state a checkpoint takes, with the device memory it adds
+        (``_checkpoint_state``);
+    (b) one loss and backward card against this machine's CPU in f32,
+        the same parameters and batch: a 2-layer cut of starcoder2-3b at
+        full width, then the smoke config of one arch each of the moe,
+        vlm, encdec, hybrid and ssm families (``_card_vs_cpu``);
+    (c) resume on the card (``_resume_on_card``): starcoder2-3b's smoke
+        config at the launcher's --smoke shape.
+    ``device="cpu"`` rehearses the phase (point ``get_config`` at a
+    smoke config and cut ``TRAIN_TIMED``)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize()) if cuda else (lambda: None)
+    out = {"phase": "train", "gpu": smi}
+    # (a) the timed run at full width
+    cfg = get_config(TRAIN_ARCH)
+    B, S, n_timed = TRAIN_TIMED
+    shape = ShapeConfig("train_4k_b8", S, B, "train")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = get_model(cfg).init(gen, dev).requires_grad_(True)
+    opt = adamw_init(model)
+    sync()
+    init_s = time.perf_counter() - t0
+    step, specs = build_train_step(cfg, None, shape)
+    pipe = TokenPipeline(cfg, shape, seed=seed, device=dev)
+    try:
+        _, batch = next(pipe)
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        sync()
+        warm_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        steps = []
+        for _ in range(n_timed):
+            _, batch = next(pipe)
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, batch)
+            sync()
+            steps.append({"seconds": time.perf_counter() - t0,
+                          **{k: float(v) for k, v in m.items()}})
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        if cuda:
+            profiled = _profile_layer(torch, cfg, model,
+                                      B // specs["microbatches"], S, dev)
+        ckpt_state = _checkpoint_state(torch, cfg, model, opt, dev)
+    finally:
+        pipe.close()
+    s_step = sum(r["seconds"] for r in steps) / n_timed
+    flops = train_flops(cfg, B, S)
+    out["timed"] = {
+        "arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_params": cfg.n_params(), "dtype": cfg.dtype, "remat": cfg.remat,
+        "global_batch": B, "seq_len": S,
+        "microbatches": specs["microbatches"], "init_s": init_s,
+        "warmup_s": warm_s, "steps": steps, "s_per_step": s_step,
+        "tokens_per_s": B * S / s_step, "flops_per_step": flops,
+        "tflops_per_s": flops["total"] / s_step / 1e12,
+        "max_memory_allocated": peak, "launches": launches,
+        "profiled_layer": profiled if cuda else None,
+        "checkpoint_state": ckpt_state}
+    for r in steps:
+        need(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+             and r["grad_norm"] > 0, f"train (a): step {r}")
+    del model, opt, step, batch, m
+    if cuda:
+        torch.cuda.empty_cache()
+    # (b) card against CPU in f32
+    out["card_vs_cpu"] = {}
+    cut = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CUT_LAYERS,
+                                         dtype="float32")
+    cases = [(f"{TRAIN_ARCH}-cut{TRAIN_CUT_LAYERS}", cut, TRAIN_PARITY)] + \
+        [(a, get_smoke_config(a), TRAIN_FAMILY_BATCH) for a in TRAIN_FAMILIES]
+    for i, (name, c, (b, s)) in enumerate(cases):
+        card = get_model(c).init(gen, dev).requires_grad_(True)
+        host = get_model(c).init(None, "cpu")
+        host.load_state_dict(card.state_dict())
+        host.requires_grad_(True)
+        r = out["card_vs_cpu"][name] = _card_vs_cpu(
+            torch, np, c, card, host, _train_batch(torch, c, seed + i, b, s),
+            dev)
+        r.update(batch=b, seq=s, layers=c.n_layers, d_model=c.d_model)
+        del card, host
+    if cuda:
+        torch.cuda.empty_cache()
+    # (c) resume, bit for bit
+    out["resume"] = _resume_on_card(torch, get_smoke_config(TRAIN_ARCH),
+                                    dev, seed)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # --------------------------------- main ------------------------------------
 
 KERNEL_META = {
@@ -4225,6 +4543,17 @@ def main(argv=None) -> int:
         want = r["timed"]["expected_launches"]
         need(r["timed"]["launches"] == want, f"lm_families {arch} (a): "
              f"launches {r['timed']['launches']}, not exactly {want}")
+    tr = run_train(torch, np, smi, args.seed)
+    emit({"reduced": {"train_global_batch": TRAIN_TIMED[0], "of": 256,
+                      "why": (
+        "train_4k's global batch of 256 sequences of 4,096 is 32 times "
+        "the timed steps' work; 8 (4 microbatches of 2) keep the phase "
+        f"inside the {TIME_LIMIT_S} s smoke limit")}})
+    emit(tr)
+    need(not tr["timed"]["launches"].get("flash_attention")
+         and not tr["timed"]["launches"].get("decode_attention"),
+         f"train (a): attention kernels launched "
+         f"{tr['timed']['launches']}: training must take blocked_attention")
 
     P = args.shards
     x, graphs, blines, bout = run_build(torch, np, args.n, P, args.seed,
@@ -4389,7 +4718,7 @@ def main(argv=None) -> int:
                       "mesh_modes": list(MESH_PARITY_MODES),
                       "of_modes": list(SHARD_PARITY_MODES), "why": (
         "the sharded parity checks bits and id agreement, not rates; the "
-        "lm_families phase needs its time within the "
+        "lm_families and train phases need its time within the "
         f"{TIME_LIMIT_S} s smoke limit")}})
     parity, table = run_parity(torch, np)
     emit(parity)

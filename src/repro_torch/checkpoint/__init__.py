@@ -1,0 +1,7 @@
+"""Checkpoints in the reference's format (port of ``repro/checkpoint``)."""
+from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
+                                         restore_checkpoint,
+                                         save_checkpoint)
+
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
+           "save_checkpoint"]

@@ -11,11 +11,12 @@ from repro_torch.configs.registry import (
     ARCH_IDS,
     cell_supported,
     get_config,
+    get_shape,
     get_smoke_config,
 )
 
 __all__ = [
     "ModelConfig", "MoEConfig", "PHNSWConfig", "RetrievalConfig",
     "ShapeConfig", "SHAPES", "smoke_config", "ARCH_IDS", "cell_supported",
-    "get_config", "get_smoke_config",
+    "get_config", "get_shape", "get_smoke_config",
 ]

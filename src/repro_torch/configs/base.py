@@ -76,7 +76,7 @@ class ModelConfig:
     attn_impl: str = "xla"
     remat: str = "full"         # full | none | dots
     # int8 KV cache (per-token-per-head absmax scales): halves decode
-    # cache reads (not served by the port yet: ROADMAP.md A10)
+    # cache reads
     kv_quant: bool = False
     # parameter-sharding profile of the reference's mesh: "tp" =
     # FSDP(data) x tensor-parallel (model); "fsdp" = pure FSDP over

@@ -4,7 +4,8 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig, smoke_config
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      smoke_config)
 
 _ARCH_MODULES = {
     "whisper-medium": "repro_torch.configs.whisper_medium",
@@ -31,6 +32,14 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return smoke_config(get_config(arch))
+
+
+def get_shape(name: str) -> ShapeConfig:
+    """One of the assigned LM shapes (``train_4k``, ``prefill_32k``,
+    ``decode_32k``, ``long_500k``)."""
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {list(SHAPES)}")
+    return SHAPES[name]
 
 
 def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> str:

@@ -1,12 +1,17 @@
 """Synthetic LM tokens (port of ``repro/data/tokens.py``): seeded,
 restart-deterministic, bit-equal to the reference (the same numpy
-arithmetic). ``TokenPipeline`` waits for the training port (ROADMAP.md
-A10)."""
+arithmetic). Each step's batch is a function of (seed, step) alone, so a
+restarted job regenerates the exact stream from its step counter.
+``TokenPipeline`` prefetches them on a thread and moves them to the
+device."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+import queue
+import threading
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 
 def synthetic_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
@@ -33,3 +38,57 @@ def batch_extras_for(cfg) -> Dict:
     if cfg.vis_tokens:
         extras["patches"] = ((cfg.vis_tokens, cfg.d_model), np.float32)
     return extras
+
+
+class TokenPipeline:
+    """Prefetching iterator of (step, batch) from ``start_step`` on: each
+    batch ``synthetic_batch(seed, step, ...)`` at ``shape``'s global
+    batch and sequence length, as tensors on ``device`` (the frontend
+    extras cast to the config's dtype, as the reference casts them). A
+    thread makes up to ``prefetch`` batches ahead; ``close`` stops it."""
+
+    def __init__(self, cfg, shape, *, seed: int = 0, start_step: int = 0,
+                 device="cuda", prefetch: int = 2):
+        self.cfg, self.shape = cfg, shape
+        self.seed = seed
+        self.step = start_step
+        self.device = torch.device(device)
+        self.extras = batch_extras_for(cfg)
+        self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _make(self, step: int) -> Dict[str, torch.Tensor]:
+        b = synthetic_batch(self.seed, step, self.shape.global_batch,
+                            self.shape.seq_len, self.cfg.vocab,
+                            extras=self.extras)
+        out = {k: torch.from_numpy(v) for k, v in b.items()}
+        dtype = getattr(torch, self.cfg.dtype)
+        for name in self.extras:
+            out[name] = out[name].to(dtype)
+        return out
+
+    def _worker(self):
+        step = self.step
+        while not self._stop.is_set():
+            item = (step, self._make(step))
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        step, batch = self._q.get()
+        self.step = step
+        return step, {k: v.to(self.device) for k, v in batch.items()}
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)

@@ -3,10 +3,10 @@
 
 NOT to be confused with ``distributed.faults`` (plural), the serving
 plane's deterministic fault-INJECTION harness, whose ``ShardHealth``
-runs one ``StepMonitor`` per shard over query wall times. The training
-plane's other mechanisms in the reference module (``GradSkipPolicy``,
-``remesh``, ``healthy_mesh_shape``) come with the training plane
-(ROADMAP.md A10).
+runs one ``StepMonitor`` per shard over query wall times, and
+``train.TrainLoop`` one over step wall times. The reference module's
+mesh mechanisms (``GradSkipPolicy``, ``remesh``, ``healthy_mesh_shape``)
+come with the mesh port (ROADMAP.md A10d).
 
 Per-step wall times feed a robust (median + MAD) estimator; steps
 slower than ``straggler_factor`` x median raise a straggler event, and a

@@ -274,6 +274,18 @@ def _same_attention_dtype(name, *ts):
                         f"float32 or bfloat16, got {sorted(map(str, dt))}")
 
 
+def _refuse_graph(name, *ts) -> None:
+    """The attention kernels have no backward: on the card their output
+    would carry no ``grad_fn``, and backward would leave the projections
+    before them without gradients, silently. So neither op builds a
+    graph on any device; training takes ``blocked_attention``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{name}: the kernel has no backward; train "
+                           "through models.attention.blocked_attention "
+                           "(attn_forward(..., train=True)), or serve "
+                           "under torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     bq: int = 128, bk: int = 128):
     """q: [B, H, S, d]; k, v: [B, KV, T, d] -> [B, H, S, d] in q's dtype,
@@ -287,6 +299,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     del bq, bk
     if window < 0:
         raise ValueError(f"flash_attention: window={window} < 0")
+    _refuse_graph("flash_attention", q, k, v)
     if _on_cuda(q, k, v):
         _same_attention_dtype("flash_attention", q, k, v)
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
@@ -302,6 +315,7 @@ def decode_attention(q, k, v, length, *, bk: int = 512):
     as the TPU kernel. ``bk`` is the reference's TPU block size, kept for
     its signature; the CUDA kernel splits the cache by its own plan."""
     del bk
+    _refuse_graph("decode_attention", q, k, v)
     if _on_cuda(q, k, v, length):
         _same_attention_dtype("decode_attention", q, k, v)
         return decode_attention_cuda(q.contiguous(), k.contiguous(),

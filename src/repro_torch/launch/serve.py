@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import ARCH_IDS
 
 
+@torch.no_grad()
 def serve_lm(args):
     """Generate ``--max-new`` tokens for a synthetic batch with a seeded
     model (``--smoke``: the arch's reduced config); returns the
@@ -50,6 +51,7 @@ def serve_lm(args):
     return res
 
 
+@torch.no_grad()
 def serve_vectors(args):
     """Build (or load from ``--cache-dir``) a graph over ``--n-points``
     SIFT-like vectors, serve ``--n-queries`` through the batched

@@ -1,9 +1,9 @@
 """Unified model API (port of ``repro/models/api.py``): a config bound to
-its family's implementation. Every family serves: dense, moe and vlm
+its family's implementation. Every family trains (``loss``) and serves
+(``prefill``, ``decode_step``): dense, moe and vlm
 (``models/transformer.py``), encdec (``encdec.py``, whisper), hybrid
-(``hybrid.py``, recurrentgemma) and ssm (``ssm.py``, rwkv6). Training
-(``loss``) waits for ROADMAP.md A10c, the ``input_specs`` of the
-reference's dry-run for A10d."""
+(``hybrid.py``, recurrentgemma) and ssm (``ssm.py``, rwkv6). The
+``input_specs`` of the reference's dry-run wait for ROADMAP.md A10d."""
 from __future__ import annotations
 
 import torch
@@ -37,12 +37,22 @@ class ModelApi:
         return self.mod.init(self.cfg, gen, device)
 
     # --- steps ---
+    def loss(self, model, batch):
+        """(the loss to differentiate, a scalar f32 tensor; metrics
+        {"loss": the mean NLL, and the MoE's "aux_loss" and
+        "dropped_frac"}): ``batch`` holds ``tokens`` and ``labels`` [B,
+        S] and the family's frontend inputs (``patches``, ``frames``)."""
+        return self.mod.loss(self.cfg, model, batch)
+
+    @torch.no_grad()
     def prefill(self, model, batch, cache_len=None):
         """(last-token logits [B, V] f32, cache); ``cache_len`` sizes the
         KV cache of the attention families (the recurrent states are
-        fixed in size)."""
+        fixed in size). Serving: no graph is built, whether or not the
+        parameters require grad."""
         return self.mod.prefill(self.cfg, model, batch, cache_len)
 
+    @torch.no_grad()
     def decode_step(self, model, cache, token, pos):
         return self.mod.decode_step(self.cfg, model, cache, token, pos)
 

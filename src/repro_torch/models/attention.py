@@ -1,16 +1,22 @@
 """Attention (port of ``repro/models/attention.py``): grouped-query
-self-attention at prefill, with an optional sliding window; the
-encoder's bidirectional attention and cross-attention
+self-attention over a whole sequence, with an optional sliding window;
+the encoder's bidirectional attention and cross-attention
 (``attn_forward``); single-token decode against a KV cache, dense, a
 ring buffer (windowed archs) or int8 (``kv_quant``).
 
-The reference computes these in jnp (``blocked_attention``, a q-chunked
-scan, and an einsum at decode). The port routes them through the
-hand-written kernels: prefill, the encoder and cross-attention through
-``ops.flash_attention`` (B8), decode through ``ops.decode_attention``
-(B9) with a valid-prefix length a row. On CPU tensors the ops take their
-plain versions, the reference's arithmetic in torch. Both kernels take
-grouped-query attention, so the kv heads are never expanded.
+Serving routes these through the hand-written kernels: prefill, the
+encoder and cross-attention through ``ops.flash_attention`` (B8), decode
+through ``ops.decode_attention`` (B9) with a valid-prefix length a row.
+On CPU tensors the ops take their plain versions, the reference's
+arithmetic in torch. Both kernels take grouped-query attention, so the
+kv heads are never expanded. Neither has a backward, and both refuse a
+graph (``ops``).
+
+Training takes ``blocked_attention``, as the reference trains through
+its jnp version (the reference never reads ``attn_impl``): plain torch
+that autograd differentiates, q-chunked so the [S, T] scores are never
+whole, with the reference's masks by positions; ``attn_forward(...,
+train=True)`` routes the families' losses there.
 
 The cache stays in the kernels' layout, ``[B, KV, T, Hd]`` a layer (the
 reference's is ``[B, T, KV, Hd]``), and decode writes each step's slot in
@@ -20,12 +26,15 @@ einsum)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import retrieval_attention as ra
 from repro_torch.models.common import linear
 from repro_torch.models.rope import apply_rope
+
+NEG_INF = -1e30   # the reference's mask value: finite, never float("-inf")
 
 
 class Attention(nn.Module):
@@ -71,6 +80,114 @@ def to_cache(t):
     return t.transpose(1, 2).contiguous()
 
 
+# ------------------------ q-chunked core (training) ------------------------
+
+def _mm_f32(a, b):
+    """a @ b for bf16 a, b with the f32 accumulator kept (no rounding to
+    bf16): ``bmm``'s ``out_dtype`` on the card (which has no backward of
+    its own), the inputs widened elsewhere (their products are exact in
+    f32)."""
+    if a.is_cuda:
+        lead = a.shape[:-2]
+        return torch.bmm(a.flatten(0, -3), b.flatten(0, -3),
+                         out_dtype=torch.float32).view(
+            *lead, a.shape[-2], b.shape[-1])
+    return a.float() @ b.float()
+
+
+class _ScoresF32(torch.autograd.Function):
+    """q @ k^T in f32 from bf16 q and k, the reference's
+    ``einsum(..., preferred_element_type=f32)``. Backward takes the f32
+    cotangent to bf16 and multiplies in bf16 with f32 accumulation, the
+    gradients in bf16, so the card's two products stay on its bf16
+    tensor cores. The reference's transposed products on the CPU keep
+    the cotangent f32 (the bf16 operand widened); the whole bf16 step
+    against the reference is bounded by
+    ``test_bf16_loss_and_grads_match_reference``, where every product
+    and activation rounds to bf16 at places that differ anyway."""
+
+    @staticmethod
+    def forward(ctx, q, kt):
+        ctx.save_for_backward(q, kt)
+        return _mm_f32(q, kt)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kt = ctx.saved_tensors
+        g = g.to(q.dtype)
+        return g @ kt.transpose(-1, -2), q.transpose(-1, -2) @ g
+
+
+def _logits(qc, kc):
+    """q . k in f32, as the reference's ``preferred_element_type=f32``:
+    a plain product in f32, ``_ScoresF32`` in bf16."""
+    kt = kc.transpose(-1, -2)
+    if qc.dtype == torch.float32:
+        return qc @ kt
+    return _ScoresF32.apply(qc, kt)
+
+
+def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
+                      window: int = 0, q_chunk: int = 256):
+    """q: [B, S, N, Hd]; k, v: [B, T, KV, Hd]; positions integer [S] /
+    [T]. Returns [B, S, N, Hd]; N a multiple of KV (grouped-query: the
+    query heads are reshaped into KV groups of G, the kv heads never
+    copied).
+
+    The reference's q-chunked formulation in plain torch: chunks of
+    ``q_chunk`` query rows (fewer where S is not a multiple), each
+    against every key, or, where ``window > 0 and T > window + c``,
+    against the band of ``window + c`` keys that can reach it (kv padded
+    on the left by ``window``, the padding at position -1). The masks
+    are the reference's, by positions: causal ``q_pos >= kv_pos``, the
+    window ``q_pos - kv_pos < window``, and ``kv_pos >= 0``; a masked
+    score is ``NEG_INF`` (a row that sees no key averages v, as the
+    reference's). Scores and softmax in f32, the weights cast to v's
+    dtype for the product."""
+    B, S, N, Hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = N // KV
+    scale = Hd ** -0.5
+    c = min(q_chunk, S)
+    while S % c:
+        c -= 1
+    kt = k.permute(0, 2, 1, 3)                          # [B, KV, T, Hd]
+    vt = v.permute(0, 2, 1, 3)
+    banded = window > 0 and T > window + c
+    if banded:
+        kt = F.pad(kt, (0, 0, window, 0))
+        vt = F.pad(vt, (0, 0, window, 0))
+        kv_pos = F.pad(kv_pos, (window, 0), value=-1)
+    outs = []
+    for qs in range(0, S, c):
+        qc = q[:, qs:qs + c].reshape(B, c, KV, G, Hd).permute(0, 2, 1, 3, 4) \
+            .reshape(B, KV, c * G, Hd)
+        qp = q_pos[qs:qs + c]
+        if banded:
+            # query rows [qs, qs + c) reach keys [qs - window, qs + c),
+            # padded rows [qs, qs + window + c)
+            kc, vc = kt[:, :, qs:qs + window + c], vt[:, :, qs:qs + window + c]
+            kpos = kv_pos[qs:qs + window + c]
+        else:
+            kc, vc, kpos = kt, vt, kv_pos
+        lg = _logits(qc, kc) * scale                    # [B, KV, c*G, Tc]
+        mask = (kpos[None, :] >= 0).expand(c, -1)
+        if causal:
+            mask = mask & (qp[:, None] >= kpos[None, :])
+        if window > 0:
+            mask = mask & ((qp[:, None] - kpos[None, :]) < window)
+        Tc = kpos.shape[0]
+        lg = torch.where(mask[None, None, :, None, :],
+                         lg.view(B, KV, c, G, Tc), NEG_INF)
+        w = torch.softmax(lg, dim=-1).view(B, KV, c * G, Tc)
+        oc = w.to(v.dtype) @ vc                         # [B, KV, c*G, Hd]
+        outs.append(oc.view(B, KV, c, G, Hd).permute(0, 2, 1, 3, 4)
+                    .reshape(B, c, N, Hd))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+# ------------------------ block-level APIs ----------------------------------
+
 def attend(cfg, p: Attention, q, k, v, *, causal: bool, window: int = 0):
     """q [B, S, N, Hd] against k, v [B, KV, T, Hd] through B8 (query row
     i at position i + T - S: the kernel masks by index, the reference by
@@ -81,27 +198,39 @@ def attend(cfg, p: Attention, q, k, v, *, causal: bool, window: int = 0):
 
 
 def attn_forward(cfg, p: Attention, x, positions, *, causal=True,
-                 window=None, kv_src=None, kv_positions=None):
+                 window=None, kv_src=None, kv_positions=None, train=False):
     """Self- or cross-attention over a whole sequence: x [B, S, D] at
-    positions 0..S-1 -> [B, S, D]. ``kv_src`` [B, T, D] (the encoder's
+    ``positions`` -> [B, S, D]. ``kv_src`` [B, T, D] (the encoder's
     states) makes it cross-attention: no rope, no causal mask, keys at
-    0..T-1 (``kv_positions``, kept for the reference's signature, must be
-    those: the kernel masks by index). ``causal=False`` is the encoder's
-    bidirectional self-attention. Serving calls it for the encoder and
-    for whisper's cross-attention; its training use waits for the
-    training port (ROADMAP.md A10c)."""
+    ``kv_positions`` (default 0..T-1). ``causal=False`` is the encoder's
+    bidirectional self-attention.
+
+    ``train=True`` is the families' loss: ``blocked_attention``, with the
+    reference's masks by positions, differentiable. Otherwise B8 (the
+    encoder and cross-attention at serving), which masks by index: the
+    query at i + T - S, the keys at 0..T-1, the same on every serving
+    caller's positions (``kv_positions`` must be those)."""
     q = project_q(cfg, p, x)
-    k, v = project_kv(cfg, p, x if kv_src is None else kv_src)
+    src = x if kv_src is None else kv_src
+    k, v = project_kv(cfg, p, src)
     w = (cfg.window if window is None else window) or 0
+    if kv_src is None and cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        kv_pos = positions
+    else:
+        kv_pos = kv_positions if kv_positions is not None else \
+            torch.arange(src.shape[1], device=src.device)
+    causal = causal and kv_src is None
+    if train:
+        return merge_heads(cfg, p, blocked_attention(
+            q, k, v, positions, kv_pos, causal=causal, window=w))
     if kv_src is not None and w:
         raise ValueError("attn_forward: a window on cross-attention masks "
                          "decoder positions against encoder ones; no "
                          "config has one")
-    if kv_src is None and cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return attend(cfg, p, q, to_cache(k), to_cache(v),
-                  causal=causal and kv_src is None, window=w)
+    return attend(cfg, p, q, to_cache(k), to_cache(v), causal=causal,
+                  window=w)
 
 
 def attn_prefill(cfg, p: Attention, x, positions, *, window=None):

@@ -6,17 +6,20 @@ The reference keeps parameters as nested dicts of arrays, stacked along a
 leading layer axis and run under ``lax.scan`` with a remat policy. The
 port keeps them in ``nn.Module``s whose attribute names are the
 reference's leaf names, one module a layer in an ``nn.ModuleList``, and
-loops over the layers in Python: ``scan_layers`` and remat do not carry
-over (remat is training's business). ``models.from_reference`` carries a
-reference parameter tree across.
+loops over the layers in Python (``scan_layers``), the reference's remat
+policies mapped onto ``torch.utils.checkpoint``. ``models.from_reference``
+and ``models.to_reference`` carry a parameter tree across.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any
+from typing import Any, Callable, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -104,3 +107,79 @@ def stack_zeros(one: dict, n: int, device) -> dict:
     ``device``."""
     return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=device)
             for k, v in one.items()}
+
+
+# ------------------------------- remat --------------------------------------
+
+# the products "dots" keeps (jax's checkpoint_dots_with_no_batch_dims: the
+# matrix products without batch dimensions, the linear layers; the
+# batched ones, attention's and the experts', are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _ckpt(fn, *args, **kw):
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+def maybe_remat(fn: Callable, cfg) -> Callable:
+    """``fn`` under the config's remat policy: "full" recomputes all of
+    its forward in backward (``torch.utils.checkpoint``), "dots" keeps
+    the outputs of its plain matrix products and recomputes the rest (a
+    selective checkpoint), "none" keeps everything. The values do not
+    depend on the policy."""
+    mode = getattr(cfg, "remat", "none")
+    if mode == "full":
+        return functools.partial(_ckpt, fn)
+    if mode == "dots":
+        return functools.partial(_ckpt, fn, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return fn
+
+
+def _sqrt_block(L: int) -> int:
+    """Largest divisor of L that is <= ceil(sqrt(L))."""
+    best = 1
+    d = 1
+    while d * d <= L:
+        if L % d == 0:
+            best = d
+        d += 1
+    return best
+
+
+def _loop(body, carry, blocks) -> Tuple[Any, List]:
+    ys = []
+    for b in blocks:
+        carry, y = body(carry, b)
+        ys.append(y)
+    return carry, ys
+
+
+def scan_layers(cfg, body: Callable, carry, blocks) -> Tuple[Any, List]:
+    """``carry, y = body(carry, block)`` over ``blocks`` (a module list)
+    in order, under the config's remat policy (``maybe_remat``, a
+    checkpoint a block): (the last carry, [y a block]). Under "full",
+    stacks of 16 blocks or more also checkpoint groups of
+    ``_sqrt_block(L)`` blocks (two levels, as the reference's: O(sqrt L)
+    block inputs kept, at about one more forward). Without grad mode the
+    blocks just run."""
+    mode = getattr(cfg, "remat", "none")
+    if mode == "none" or not torch.is_grad_enabled():
+        return _loop(body, carry, blocks)
+    cbody = maybe_remat(body, cfg)
+    L = len(blocks)
+    bs = _sqrt_block(L)
+    if mode != "full" or L < 16 or bs == 1:
+        return _loop(cbody, carry, blocks)
+    blocks = list(blocks)
+    ys = []
+    for g in range(0, L, bs):
+        carry, yg = _ckpt(_loop, cbody, carry, blocks[g:g + bs])
+        ys.extend(yg)
+    return carry, ys

@@ -12,7 +12,9 @@ table and lets promotion carry a bf16 encoder in f32, which PyTorch's
 matrix products refuse. Serving casts them before the call
 (``launch.serve``), so both packages see the same values.
 
-Not ported yet: the training loss (ROADMAP.md A10c)."""
+The training loss (``loss``) runs the encoder and the decoder over the
+whole sequence through ``blocked_attention`` (``attn_forward(...,
+train=True)``), as the reference's."""
 from __future__ import annotations
 
 import torch
@@ -20,9 +22,11 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.common import dtype_of, pos_tensor, stack_zeros
+from repro_torch.models.common import (dtype_of, pos_tensor, scan_layers,
+                                       stack_zeros)
 from repro_torch.models.layers import (MLP, Norm, apply_mlp, apply_norm,
-                                       embed_tokens, init_embed, logits_fn)
+                                       chunked_xent, embed_tokens,
+                                       init_embed, logits_fn)
 from repro_torch.models.rope import sinusoidal_positions
 
 MAX_DEC_POS = 65536   # sinusoidal table length for the decoder
@@ -73,20 +77,55 @@ def _device(model):
     return model.emb.device
 
 
-def encode(cfg, model, frames):
+def encode(cfg, model, frames, *, train=False):
     """frames: [B, F, D] (the stubbed frontend's output) -> the encoder's
-    states [B, F, D] in the model's dtype."""
+    states [B, F, D] in the model's dtype; ``train``: through
+    ``blocked_attention`` under the remat policy (the loss), else B8."""
     dev = _device(model)
     frames = torch.as_tensor(frames, device=dev).to(dtype_of(cfg))
     F_ = frames.shape[1]
     h = frames + model.dec_pos[:F_].to(frames.dtype)
     pos = torch.arange(F_, device=dev)
-    for lp in model.enc_layers_p:
-        h = h + attn.attn_forward(cfg, lp.attn,
-                                  apply_norm(cfg, lp.ln_attn, h), pos,
-                                  causal=False)
-        h = h + apply_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln_mlp, h))
+
+    def body(hh, lp):
+        hh = hh + attn.attn_forward(cfg, lp.attn,
+                                    apply_norm(cfg, lp.ln_attn, hh), pos,
+                                    causal=False, train=train)
+        return hh + apply_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln_mlp, hh)), \
+            None
+
+    h, _ = scan_layers(cfg, body, h, model.enc_layers_p)
     return apply_norm(cfg, model.ln_enc, h)
+
+
+def loss(cfg, model, batch):
+    """(the mean NLL, {"loss": it}): the encoder over ``batch["frames"]``,
+    the decoder over ``tokens`` with causal self-attention and
+    cross-attention to the encoder's states, the NLL of ``labels``."""
+    dev = _device(model)
+    enc = encode(cfg, model, batch["frames"], train=True)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    S = tokens.shape[1]
+    h = embed_tokens(cfg, model, tokens)
+    h = h + model.dec_pos[:S].to(h.dtype)
+    pos = torch.arange(S, device=dev)
+    enc_pos = torch.arange(enc.shape[1], device=dev)
+
+    def body(hh, lp):
+        hh = hh + attn.attn_forward(cfg, lp.attn,
+                                    apply_norm(cfg, lp.ln_attn, hh), pos,
+                                    train=True)
+        hh = hh + attn.attn_forward(cfg, lp.xattn,
+                                    apply_norm(cfg, lp.ln_xattn, hh), pos,
+                                    kv_src=enc, kv_positions=enc_pos,
+                                    causal=False, train=True)
+        return hh + apply_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln_mlp, hh)), \
+            None
+
+    h, _ = scan_layers(cfg, body, h, model.layers)
+    nll = chunked_xent(cfg, model, apply_norm(cfg, model.ln_f, h), labels)
+    return nll, {"loss": nll}
 
 
 def init_cache(cfg, batch: int, seq_len: int, device="cuda") -> dict:

@@ -11,7 +11,9 @@ prompt shorter than the window keeps a ring of its own length, and the
 first decode step evicts position 0 (the reference's own behaviour,
 kept; ROADMAP.md C).
 
-Not ported yet: the training loss (ROADMAP.md A10c)."""
+The training loss (``loss``) runs the groups, then the trailing blocks,
+each stack under the remat policy, the local attention through
+``blocked_attention`` (banded past its window)."""
 from __future__ import annotations
 
 import torch
@@ -19,9 +21,11 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru
-from repro_torch.models.common import dtype_of, pos_tensor, stack_zeros
+from repro_torch.models.common import (dtype_of, pos_tensor, scan_layers,
+                                       stack_zeros)
 from repro_torch.models.layers import (MLP, Norm, apply_mlp, apply_norm,
-                                       embed_tokens, init_embed, logits_fn)
+                                       chunked_xent, embed_tokens,
+                                       init_embed, logits_fn)
 
 
 def _n_groups(cfg):
@@ -101,6 +105,43 @@ def _blocks(cfg, model):
             j += kind == "rec"
     for t, bp in enumerate(getattr(model, "trail", ())):
         yield "trail", bp, None, t
+
+
+def _train_block(cfg, kind, bp, h, positions):
+    """One block of the loss: the RG-LRU over the sequence, or the local
+    attention (``blocked_attention``, window ``local_window``); then the
+    MLP."""
+    hn = apply_norm(cfg, bp.ln_mix, h)
+    if kind == "attn":
+        h = h + attn.attn_forward(cfg, bp.attn, hn, positions,
+                                  window=cfg.local_window, train=True)
+    else:
+        h = h + rglru.apply_rglru(cfg, bp.rec, hn)
+    return h + apply_mlp(cfg, bp.mlp, apply_norm(cfg, bp.ln_mlp, h))
+
+
+def loss(cfg, model, batch):
+    """(the mean NLL, {"loss": it}) of ``labels`` after ``tokens``: the
+    groups (a checkpoint a group under the remat policy, as the
+    reference scans groups), then the trailing recurrent blocks."""
+    dev = _device(model)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    h = embed_tokens(cfg, model, tokens)
+    pos = torch.arange(tokens.shape[1], device=dev)
+
+    def group_body(hh, gp):
+        for i, kind in enumerate(cfg.pattern):
+            hh = _train_block(cfg, kind, getattr(gp, f"{kind}{i}"), hh, pos)
+        return hh, None
+
+    h, _ = scan_layers(cfg, group_body, h, model.groups)
+    if hasattr(model, "trail"):
+        h, _ = scan_layers(
+            cfg, lambda hh, bp: (_train_block(cfg, "rec", bp, hh, pos), None),
+            h, model.trail)
+    nll = chunked_xent(cfg, model, apply_norm(cfg, model.ln_f, h), labels)
+    return nll, {"loss": nll}
 
 
 def init_cache(cfg, batch: int, seq_len: int, device="cuda") -> dict:

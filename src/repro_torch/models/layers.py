@@ -1,6 +1,5 @@
-"""Norms, MLPs, embeddings and the LM head (port of
-``repro/models/layers.py``; ``chunked_xent`` waits for the training
-port, ROADMAP.md A10c).
+"""Norms, MLPs, embeddings, the LM head and the chunked cross-entropy
+loss (port of ``repro/models/layers.py``).
 
 Norm parameters are f32 even in a bf16 model, and the norm runs in f32
 and casts back, as the reference does. starcoder2's MLP is GELU in its
@@ -10,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import embed_init, linear
 
@@ -93,3 +93,44 @@ def head_matrix(cfg, p):
 
 def logits_fn(cfg, p, h):
     return F.linear(h, head_matrix(cfg, p))
+
+
+# ------------------------- chunked XENT loss --------------------------------
+
+def _xent_chunk(W, hc, lc, mc):
+    """One chunk's (sum of masked NLL, sum of mask): the [B, c, V] logits
+    in f32 (the head's product in the model's dtype, then widened, as the
+    reference's ``(hc @ W).astype(f32)``)."""
+    lg = F.linear(hc, W).to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    tgt = lg.gather(-1, lc[..., None])[..., 0]
+    return ((lse - tgt) * mc).sum(), mc.sum()
+
+
+def chunked_xent(cfg, p, h, labels, mask=None, chunk=512):
+    """h: [B, S, D]; labels: [B, S] integer; mask [B, S] f32 (None: all
+    ones). Returns the mean NLL over the mask (the count floored at 1).
+
+    The [B, S, V] logits are never whole: the sequence goes in chunks of
+    ``chunk`` (the last ``S % chunk`` positions as one more), each under
+    ``torch.utils.checkpoint``, so backward recomputes a chunk's logits
+    instead of keeping them (the reference's ``jax.checkpoint``). The
+    chunks' sums add in order, as the reference's scan."""
+    B, S, D = h.shape
+    W = head_matrix(cfg, p)
+    labels = labels.to(torch.long)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    chunk = min(chunk, S)
+    n = S // chunk
+    spans = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if S > n * chunk:
+        spans.append((n * chunk, S))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for a, b in spans:
+        l, c = checkpoint(_xent_chunk, W, h[:, a:b], labels[:, a:b],
+                          mask[:, a:b], use_reentrant=False,
+                          preserve_rng_state=False)
+        tot, cnt = tot + l, cnt + c
+    return tot / cnt.clamp(min=1.0)

@@ -3,16 +3,18 @@ with a recurrent state of fixed size a layer, the time mix's {"x_prev",
 "S" [B, H, hd, hd] f32} and the channel mix's {"x_prev"}. It launches
 neither attention kernel.
 
-Not ported yet: the training loss (ROADMAP.md A10c)."""
+The training loss (``loss``) runs the layers with no state at all, as
+the reference's ``_layer(cfg, lp, h, None)``: serving's ``_layers``
+writes the states into the cache in place, which autograd refuses."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from repro_torch.models import rwkv6
-from repro_torch.models.common import dtype_of, stack_zeros
-from repro_torch.models.layers import (Norm, apply_norm, embed_tokens,
-                                       init_embed, logits_fn)
+from repro_torch.models.common import dtype_of, scan_layers, stack_zeros
+from repro_torch.models.layers import (Norm, apply_norm, chunked_xent,
+                                       embed_tokens, init_embed, logits_fn)
 
 
 class Layer(nn.Module):
@@ -46,6 +48,26 @@ def init(cfg, gen, device=None) -> RWKV:
 
 def _device(model):
     return model.emb.device
+
+
+def loss(cfg, model, batch):
+    """(the mean NLL, {"loss": it}) of ``labels`` after ``tokens``: each
+    layer's time and channel mix from zero state (the chunked form),
+    under the remat policy; no state is kept or written."""
+    dev = _device(model)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    h = apply_norm(cfg, model.ln_0, embed_tokens(cfg, model, tokens))
+
+    def body(hh, lp):
+        t, _ = rwkv6.tmix_forward(cfg, lp.tmix, apply_norm(cfg, lp.ln_t, hh))
+        hh = hh + t
+        c, _ = rwkv6.cmix_forward(cfg, lp.cmix, apply_norm(cfg, lp.ln_c, hh))
+        return hh + c, None
+
+    h, _ = scan_layers(cfg, body, h, model.layers)
+    nll = chunked_xent(cfg, model, apply_norm(cfg, model.ln_f, h), labels)
+    return nll, {"loss": nll}
 
 
 def init_cache(cfg, batch: int, seq_len: int, device="cuda") -> dict:

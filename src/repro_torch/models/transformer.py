@@ -1,10 +1,9 @@
 """Decoder-only transformer for the dense, moe and vlm families (port of
-``repro/models/transformer.py``): init, the KV cache, prefill and
-decode, with the sliding-window ring buffer and the int8 cache. The
-layers are an ``nn.ModuleList`` run in a Python loop (the reference
-stacks them and scans).
-
-Not ported yet: the training loss (ROADMAP.md A10c)."""
+``repro/models/transformer.py``): init, the training loss
+(``forward_hidden``, ``loss``), the KV cache, prefill and decode, with
+the sliding-window ring buffer and the int8 cache. The layers are an
+``nn.ModuleList`` run in a Python loop (the reference stacks them and
+scans; ``common.scan_layers`` keeps its remat policies)."""
 from __future__ import annotations
 
 import torch
@@ -13,9 +12,10 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (dtype_of, linear, pos_tensor,
-                                       stack_zeros)
+                                       scan_layers, stack_zeros)
 from repro_torch.models.layers import (MLP, Norm, apply_mlp, apply_norm,
-                                       embed_tokens, init_embed, logits_fn)
+                                       chunked_xent, embed_tokens,
+                                       init_embed, logits_fn)
 
 # the reference's capacity factors at prefill and at decode
 # (transformer.py:137, 165)
@@ -66,7 +66,7 @@ class Transformer(nn.Module):
 def init(cfg, gen, device=None) -> Transformer:
     """Parameters on ``device`` drawn from ``gen`` (a ``torch.Generator``
     on that device; None leaves them uninitialised), without gradients:
-    the port serves, it does not train yet."""
+    a trainer turns them on for its own model (``train.TrainLoop``)."""
     return Transformer(cfg, gen, device).requires_grad_(False)
 
 
@@ -93,6 +93,49 @@ def _embed_inputs(cfg, model, batch):
         patches = torch.as_tensor(batch["patches"], device=dev)
         h = torch.cat([model.vis_proj(patches.to(h.dtype)), h], dim=1)
     return h, torch.arange(h.shape[1], device=dev)
+
+
+# --------------------------- forward (full-seq) -----------------------------
+
+def _layer_fwd(cfg, lp: Block, h, positions):
+    """One block in training: ``blocked_attention`` and the MLP, or the
+    MoE at the training capacity with its metrics."""
+    h = h + attn.attn_forward(cfg, lp.attn, apply_norm(cfg, lp.ln_attn, h),
+                              positions, train=True)
+    hn = apply_norm(cfg, lp.ln_mlp, h)
+    if cfg.moe is not None:
+        m, aux = moe_mod.apply_moe(cfg, lp.moe, hn)
+    else:
+        m, aux = apply_mlp(cfg, lp.mlp, hn), {}
+    return h + m, aux
+
+
+def forward_hidden(cfg, model, h, positions):
+    """h: [B, S, D] embedded inputs -> (the final hidden [B, S, D], the
+    MoE's metrics, each the mean over the layers)."""
+    h, aux = scan_layers(cfg, lambda c, lp: _layer_fwd(cfg, lp, c, positions),
+                         h, model.layers)
+    h = apply_norm(cfg, model.ln_f, h)
+    aux = {k: torch.stack([a[k] for a in aux]).mean() for k in aux[0]} \
+        if aux and aux[0] else {}
+    return h, aux
+
+
+def loss(cfg, model, batch):
+    """(the total loss, {"loss": the mean NLL, and the MoE's "aux_loss"
+    and "dropped_frac"}): ``batch`` holds ``tokens`` and ``labels`` [B,
+    S] (and ``patches`` for vlm, whose positions take no loss); the moe
+    family adds ``aux_loss_weight`` times its mean ``aux_loss``."""
+    h, positions = _embed_inputs(cfg, model, batch)
+    h, aux = forward_hidden(cfg, model, h, positions)
+    labels = torch.as_tensor(batch["labels"], device=h.device)
+    # logits only over text positions (the reference's mask, 0 on the
+    # patch positions, which it then slices away)
+    nll = chunked_xent(cfg, model, h[:, cfg.vis_tokens:], labels)
+    total = nll
+    if cfg.moe is not None and "aux_loss" in aux:
+        total = total + cfg.moe.aux_loss_weight * aux["aux_loss"]
+    return total, {"loss": nll, **aux}
 
 
 def prefill(cfg, model, batch, cache_len=None):

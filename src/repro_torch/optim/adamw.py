@@ -1,0 +1,96 @@
+"""AdamW with global-norm clipping and a cosine schedule (port of
+``repro/optim/adamw.py``).
+
+Parameters, gradients and the moments are dicts keyed by parameter name
+(``dict(model.named_parameters())``; an ``nn.Module`` is taken as its
+named parameters). Each element follows the reference's formula in f32
+and is cast back to the parameter's dtype. The update is in place: the
+parameters, ``m`` and ``v`` are overwritten, and the reference's
+``(params, state, metrics)`` is returned with the same objects. At
+starcoder2-3b's width the standing state is 6.36 GB of bf16 parameters
+and 25.45 GB of f32 moments; a functional update would need another
+31.8 GB for the new ones."""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+from torch import nn
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return params
+
+
+def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
+    """The learning rate at ``step`` (an int or an integer tensor), f32:
+    linear warm-up over ``warmup_steps``, then a cosine to 0 at
+    ``total_steps``."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
+
+
+def adamw_init(params) -> Dict[str, Any]:
+    """{"m", "v": f32 zeros a parameter, "step": int32 0}, on the
+    parameters' device."""
+    named = _named(params)
+    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in named.items()}
+    dev = next(iter(named.values())).device
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum over a dict's tensors, in its order, of each one's
+    sum of squares in f32."""
+    return torch.sqrt(sum(x.detach().to(torch.float32).square().sum()
+                          for x in tensors.values()))
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params, grads, state
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One step, in place: clip the gradients to ``clip_norm`` by their
+    global norm, update ``m`` and ``v``, bias-correct, and step each
+    parameter by lr * (m^ / (sqrt(v^) + eps) + weight_decay * p).
+    Returns (params, state, {"grad_norm", "lr"})."""
+    named = _named(params)
+    state["step"] += 1
+    step = state["step"]
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    lr = cosine_lr(cfg, step).to(gnorm.device)
+    b1, b2 = cfg.b1, cfg.b2
+    sf = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(b1, sf)
+    bc2 = 1.0 - torch.pow(b2, sf)
+    for name, p in named.items():
+        g = grads[name].to(torch.float32) * scale
+        m, v = state["m"][name], state["v"][name]
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g.square())
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+            + cfg.weight_decay * p.to(torch.float32)
+        p.copy_(p.to(torch.float32) - lr * delta)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

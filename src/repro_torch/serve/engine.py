@@ -92,7 +92,11 @@ class GenerationEngine:
         return torch.multinomial(probs, 1, generator=self.gen
                                  ).to(torch.int32)
 
+    @torch.no_grad()
     def generate(self, batch: Dict[str, Any]) -> GenerationResult:
+        """Prefill, then ``max_new`` decode steps, building no graph even
+        where the model's parameters require grad (a training loop's
+        model serves the same tokens)."""
         B, S = batch["tokens"].shape
         t0 = time.monotonic()
         logits, cache = self.api.prefill(

@@ -1578,3 +1578,131 @@ def test_family_generation_card_equals_cpu(cuda, arch):
             torch.testing.assert_close(lg[cuda], lg["cpu"], rtol=2e-3,
                                        atol=2e-3)
         assert caches[cuda]["k"].dtype == torch.int8
+
+
+# ------------------------------- training ----------------------------------
+
+TRAIN_ARCHS = ["starcoder2-3b", "mixtral-8x7b", "internvl2-76b",
+               "whisper-medium", "recurrentgemma-9b", "rwkv6-1.6b"]
+
+
+def _train_grads(api, model, batch):
+    loss, metrics = api.loss(model, batch)
+    loss.backward()
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), \
+        {k: float(v.detach()) for k, v in metrics.items()}, \
+        grads
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_loss_card_equals_cpu(cuda, arch):
+    """``ModelApi.loss`` and its backward at each family's smoke config
+    in f32, card against CPU on the same parameters and batch: the loss
+    to rtol 1e-5, each gradient within 1e-4 of its leaf's largest
+    magnitude + 1e-7 (the CPU tests' bars against the reference), the
+    MoE's dropped fraction exactly; no attention kernel launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import batch_extras_for, synthetic_batch
+    from repro_torch.models import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    api = get_model(cfg)
+    card = api.init(torch.Generator(device=cuda).manual_seed(1), cuda) \
+        .requires_grad_(True)
+    host = api.init(None, "cpu")
+    host.load_state_dict(card.state_dict())
+    host.requires_grad_(True)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        2, 0, 2, 32, cfg.vocab, extras=batch_extras_for(cfg)).items()}
+    ops.reset_launch_counts()
+    cl, cm, cg = _train_grads(api, card,
+                              {k: v.to(cuda) for k, v in batch.items()})
+    assert not any(ops.launch_counts().values())
+    hl, hm, hg = _train_grads(api, host, batch)
+    assert abs(cl - hl) <= 1e-5 * abs(hl)
+    assert cm.get("dropped_frac") == hm.get("dropped_frac")
+    for n, want in hg.items():
+        err = float((cg[n] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-7, n
+
+
+@pytest.mark.parametrize("S,window,q_chunk", [(512, 0, 256), (512, 64, 128)])
+def test_blocked_attention_bf16_card_equals_cpu(cuda, S, window, q_chunk):
+    """``blocked_attention`` in bf16 (on the card the scores come from a
+    bf16 product with an f32 output, on the CPU from the widened
+    inputs: the same exact products, summed in other orders), grouped,
+    causal, plain and banded: the output and the gradients of q, k and
+    v within 2 bf16 ulps of each tensor's largest magnitude."""
+    from repro_torch.models.attention import blocked_attention
+    g = torch.Generator().manual_seed(S + window)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16)
+               for shape in ((2, S, 8, 64), (2, S, 2, 64), (2, S, 2, 64)))
+    w = torch.randn((2, S, 8, 64), generator=g).to(torch.bfloat16)
+    pos = torch.arange(S)
+
+    def run(dev):
+        ts = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        o = blocked_attention(*ts, pos.to(dev), pos.to(dev), causal=True,
+                              window=window, q_chunk=q_chunk)
+        (o.float() * w.to(dev).float()).sum().backward()
+        return [o.detach().float().cpu()] + \
+            [t.grad.float().cpu() for t in ts]
+
+    for got, want in zip(run(cuda), run("cpu")):
+        tol = 2 * 2 ** -8 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol
+
+
+def test_train_resume_bit_equal_on_card(cuda, tmp_path):
+    """``TrainLoop`` on the card (starcoder2-3b smoke, seq 64, batch 8):
+    4 straight steps against 2, a new loop resuming from the checkpoint,
+    and 2 more: the losses after the restart and the final parameters
+    bit for bit (the backward passes are deterministic run to run)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    cfg = get_smoke_config("starcoder2-3b")
+    shape = ShapeConfig("smoke", 64, 8, "train")
+    run = lambda n, d: TrainLoop(
+        cfg, shape, None, TrainLoopConfig(steps=n, seed=3, ckpt_every=2,
+                                          ckpt_dir=str(tmp_path / d)),
+        device=cuda)
+    straight = run(4, "a")
+    straight.run()
+    run(2, "b").run()
+    resumed = run(4, "b")
+    resumed.run()
+    assert [m["loss"] for m in resumed.metrics_log] == \
+        [m["loss"] for m in straight.metrics_log][2:]
+    for a, b in zip(resumed.model.parameters(),
+                    straight.model.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_attention_kernels_refuse_a_graph_on_card(cuda):
+    """On the card the kernels' outputs would carry no ``grad_fn``: both
+    ops raise under autograd, and a model whose parameters require grad
+    serves through ``GenerationEngine`` (``torch.no_grad()``) the same
+    tokens as the same weights without grad."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import GenerationEngine
+    q = torch.randn(1, 4, 8, 16, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 8, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(q[:, :, 0], k, k,
+                             torch.tensor([8], device=cuda))
+    cfg = get_smoke_config("starcoder2-3b")
+    model = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                                cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), device=cuda)}
+    want = GenerationEngine(cfg, model, max_new=4, device=cuda) \
+        .generate(batch)
+    model.requires_grad_(True)
+    got = GenerationEngine(cfg, model, max_new=4, device=cuda).generate(batch)
+    assert np.array_equal(got.tokens, want.tokens)
+    assert np.array_equal(got.last_logits, want.last_logits)

@@ -67,7 +67,12 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.models.rglru", "repro_torch.models.hybrid",
               "repro_torch.models.rwkv6", "repro_torch.models.ssm",
               "repro_torch.serve.engine", "repro_torch.data.tokens",
-              "repro_torch.launch", "repro_torch.launch.serve"):
+              "repro_torch.launch", "repro_torch.launch.serve",
+              "repro_torch.launch.steps", "repro_torch.launch.train",
+              "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.compression", "repro_torch.checkpoint",
+              "repro_torch.checkpoint.ckpt", "repro_torch.train",
+              "repro_torch.train.loop"):
         assert m in got["modules"]
     assert got["bad"] == []
     assert got["built"] == []

@@ -12,6 +12,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -34,7 +35,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import RetrievalConfig
 from repro_torch.data.tokens import batch_extras_for, synthetic_batch
 from repro_torch.kernels import ops, ref
-from repro_torch.models import attention, from_reference, get_model
+from repro_torch.models import (attention, from_reference, get_model,
+                                to_reference)
 from repro_torch.models.common import count_params
 from repro_torch.models.retrieval_attention import (
     retrieval_cache_len, retrieval_decode_attention)
@@ -296,27 +298,29 @@ def test_from_reference_carries_every_leaf(arch, dtype):
 
 def ref_params(jcfg, tcfg, seed=0):
     """Parameters for both packages without the reference's init, whose
-    eager ops take seconds to compile: the port's seeded init (the same
-    scales) laid out as the reference's tree, leaf by leaf through
-    ``_expected_leaf`` (the tree's paths, shapes and dtypes from
-    ``jax.eval_shape`` of the reference's ``init``, which compiles
-    nothing), as numpy arrays."""
+    eager ops take seconds to compile: the port's seeded init laid out
+    as the reference's tree by ``models.to_reference``, checked leaf by
+    leaf against the tree's paths, shapes and dtypes from
+    ``jax.eval_shape`` of the reference's ``init`` (which compiles
+    nothing), as numpy arrays (bf16 as ``ml_dtypes.bfloat16``)."""
     model = get_model(tcfg).init(torch.Generator().manual_seed(seed), "cpu")
     tree = jax.eval_shape(j_get_model(jcfg).init, KEY)
 
-    def leaf(path, sds):
-        if path[0] in STACKS:
-            t = torch.stack([_expected_leaf(b, path[1:])
-                             for b in getattr(model, path[0])])
-        else:
-            t = _expected_leaf(model, path)
-        assert tuple(t.shape) == sds.shape, path
-        return np.asarray(t.float().numpy()).astype(sds.dtype)
-
-    def walk(node, path=()):
-        return {k: walk(v, path + (k,)) if isinstance(v, dict)
-                else leaf(path + (k,), v) for k, v in node.items()}
-    return walk(tree)
+    def walk(node, mine, path=()):
+        assert set(node) == set(mine), path
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, mine[k], path + (k,))
+                continue
+            a = mine[k]
+            assert a.shape == v.shape, path + (k,)
+            if a.dtype.kind == "V":          # bf16 bits
+                a = a.view(ml_dtypes.bfloat16)
+            assert a.dtype == v.dtype, path + (k,)
+            out[k] = a
+        return out
+    return walk(tree, to_reference(tcfg, model))
 
 
 # ---------------------------- prefill / decode -----------------------------
