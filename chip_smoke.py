@@ -146,7 +146,7 @@ non-zero:
                 its jnp attention): (a) starcoder2-3b at full width and
                 depth, bf16, ``remat="full"``, seeded weights, sequence
                 4,096, global batch 8 (a ``reduced`` line: train_4k's is
-                256) in 4 microbatches, one warm-up and 3 timed steps
+                256) in 4 microbatches, one warm-up and 2 timed steps
                 (s a step, tokens/s, FLOPs, peak memory, finite loss and
                 gradient norm, 0 attention-kernel launches); (b) one
                 loss and backward in f32 on the card and on this
@@ -157,6 +157,30 @@ non-zero:
                 magnitude; (c) ``TrainLoop`` on the card, 4 straight
                 steps against 2 + resume from a checkpoint + 2: losses
                 and parameters bit for bit;
+  3f. mesh_lm — the LM side on a mesh of the card repeated
+                (``run_mesh_lm``, through ``launch.steps``): (a)
+                starcoder2-3b at full width, 4 layers, bf16, seq 4,096,
+                global batch 8 on a (2, 2) mesh: every stored block laid
+                out by ``param_specs``, one copy of the parameters, m
+                and v, timed steps, no attention kernel; a full-width
+                f32 cut card against CPU under "tp" and "fsdp" (every
+                gradient leaf of the step before its update, and every
+                parameter after it, within 1e-4 of its leaf's largest
+                + 1e-7; the loss and the gradient norm to rtol 1e-5);
+                (b) the cut's state
+                saved and restored onto a (1, 4) mesh, ``remesh``, and
+                ``TrainLoop`` resuming on the (2, 2) mesh, bit for bit;
+                (c) mixtral-8x7b, 2 layers, serving on a (2, 4) mesh,
+                B=8, prompt 1,024, 16 new: the expert-parallel dispatch
+                in every prefill MoE layer (a data row each), a decode's
+                local over the whole batch (one computing unit, as the
+                reference's serve step), B8 exactly layers x prefill
+                units and B9 layers x decode units x new, the cache
+                laid out by
+                ``cache_shardings``; a 1-layer f32 cut card against CPU
+                (tokens equal, logits within 2e-3, dropped fractions
+                equal); (d) ``build_pipeline_forward`` on a (1, 4) mesh
+                against the sequential forward (1e-5);
   4. build    — the wave builder at the paper's SIFT1M configuration:
                 ``--shards`` graphs over ``shard_bounds(--n, P)``, shard s
                 with seed ``seed + s``; ``graph_invariants`` must hold for
@@ -237,8 +261,9 @@ non-zero:
                 quarantined; 4,096 round-robin upserts found by the next
                 queries (self-recall >= 0.95), the stacked db of the
                 epoch before them unchanged; a deferred search of the
-                index; the one-npz snapshot round-trips bit-equal; the
-                index's ``search(mesh=)`` (plain and deferred) and a
+                index; the one-npz snapshot round-trips bit-equal (each
+                id's shard and local id: a restore renumbers a
+                reservation's stride); the index's ``search(mesh=)`` (plain and deferred) and a
                 service over the mesh bit-equal to the host path, the
                 mesh service's ``scheduler()`` refused; peak
                 device memory (every publish stacks a copy of the shards);
@@ -359,13 +384,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TIME_LIMIT_S = 1200
-# SIFT1M is 1M points; the smoke builds 200k by default. The wave
+# SIFT1M is 1M points; the smoke builds 100k by default. The wave
 # builder's linking runs in numpy on the host (the reference's
 # arithmetic, kept so the graph can be held bit-for-bit against it) and
 # takes ~93% of the build: a 1M build does not fit a third of the time
-# limit, 200k does (PERF.md, "Cells").
+# limit; 200k did, until the mesh_lm phase needed its ~125 s (PERF.md,
+# "Cells").
 FULL_N = 1_000_000
-DEFAULT_N = 200_000
+DEFAULT_N = 100_000
 
 
 def emit(obj) -> None:
@@ -1366,6 +1392,9 @@ FLASH_CASES = [
      False),
     ("qwen3-moe lm prefill gqa G=16", 8, 64, 4, 1024, 1024, 128, "bf16",
      True, 0, True, False),
+    # the mesh_lm phase's prefill: one data row's 4 prompts a launch
+    ("mixtral-8x7b mesh prefill gqa", 4, 32, 8, 1024, 1024, 128, "bf16",
+     True, 4096, True, False),
 ]
 # decode_attention rows: (label, B, H, KV, T, d, dtype, lengths, timed);
 # starcoder2-3b at its widths (24 kv heads, expanded) with empty, short,
@@ -1391,6 +1420,10 @@ DECODE_CASES = [
      True),
     ("whisper-medium cross", 4, 16, 16, 1500, 64, "bf16", [1500] * 4, True),
     ("qwen3-moe lm decode gqa G=16", 8, 64, 4, 1040, 128, "bf16",
+     [1040] * 8, True),
+    # the mesh_lm phase's last decode step: its one computing unit's 8
+    # rows (an MoE decode pools the whole batch, as the reference's)
+    ("mixtral-8x7b mesh decode gqa", 8, 32, 8, 1040, 128, "bf16",
      [1040] * 8, True),
 ]
 # the JAX suite's attention tolerances (tests/test_kernels.py): the PV
@@ -2365,7 +2398,10 @@ def run_serve_sharded(torch, np, graphs, filt, q, gt, batch: int,
     corrupt answer quarantined; ``SHARDED_UPSERTS`` round-robin upserts
     found by the next queries (self-recall >= 0.95), the ShardedDB of the
     epoch before them unchanged; a deferred search of the index; the
-    one-npz snapshot round-trips bit-equal. Launch counts are reset just
+    one-npz snapshot round-trips to the same points (dists, and each
+    id's shard and local id: the restored stride is the next power of
+    two of the points, not the reservation), and the restored index's
+    own round trip bit-equal (dists and ids). Launch counts are reset just
     before the part and read just after."""
     from repro_torch.core.distributed import shard_bounds
     from repro_torch.distributed import faults
@@ -2483,13 +2519,35 @@ def run_serve_sharded(torch, np, graphs, filt, q, gt, batch: int,
     sync()
     t3 = time.perf_counter()
     snap.unlink()
+    # the snapshot keeps no capacity (the reference's format): the
+    # restored index's stride is the next power of two of its points,
+    # not the reservation, so global ids renumber (ROADMAP.md C); each
+    # answer must be the same (shard, local) point at the same distance
+    local = lambda ids, stride: torch.where(
+        ids >= 0, (ids // stride) * (1 << 40) + ids % stride, ids)
+    qs = [q[i:i + batch] for i in range(0, min(len(q), 4 * batch), batch)]
     same = True
-    for i in range(0, min(len(q), 4 * batch), batch):
-        a, b = sidx.search(q[i:i + batch]), back.search(q[i:i + batch])
-        same &= all(torch.equal(u, v) for u, v in zip(a, b))
-    out["snapshot"] = {"save_seconds": t2 - t1, "load_seconds": t3 - t2,
-                       "bit_equal": bool(same)}
+    for qi in qs:
+        (ad, ai), (bd, bi) = sidx.search(qi), back.search(qi)
+        same &= torch.equal(ad, bd) and torch.equal(
+            local(ai.long(), sidx.stride), local(bi.long(), back.stride))
     need(same, "serve_sharded: the restored index searches otherwise")
+    # the restored index is reserved no further than its points' power of
+    # two: its own round trip keeps the stride, and every id bit for bit
+    back.save(snap)
+    again = ShardedMutableIndex.load(snap, cfg, seed=seed, device=device)
+    snap.unlink()
+    strict = again.stride == back.stride and all(
+        torch.equal(a, b) for qi in qs
+        for a, b in zip(back.search(qi), again.search(qi)))
+    out["snapshot"] = {"save_seconds": t2 - t1, "load_seconds": t3 - t2,
+                       "stride": sidx.stride, "restored_stride":
+                       back.stride, "same_points": bool(same),
+                       "second_stride": again.stride,
+                       "second_bit_equal": bool(strict)}
+    need(strict, "serve_sharded: a snapshot of an index at its points' "
+         "stride did not round-trip bit for bit")
+    del back, again
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
         if device == "cuda" else None
     out["epoch"] = sidx.epoch
@@ -4140,7 +4198,7 @@ def run_lm_families(torch, np, smi: str, seed: int = 0,
 
 TRAIN_ARCH = "starcoder2-3b"
 # (a): global batch, sequence (train_4k's), timed steps after one warm-up
-TRAIN_TIMED = (8, 4096, 3)
+TRAIN_TIMED = (8, 4096, 2)
 TRAIN_CUT_LAYERS = 2               # (b): the full-width cut, f32
 TRAIN_PARITY = (2, 64)             # (b): batch, sequence of the cut
 TRAIN_FAMILIES = ("mixtral-8x7b", "internvl2-76b", "whisper-medium",
@@ -4436,6 +4494,546 @@ def run_train(torch, np, smi: str, seed: int = 0,
     return out
 
 
+# ------------------------------- mesh_lm ----------------------------------
+
+MESH_TRAIN_ARCH = "starcoder2-3b"
+MESH_TRAIN = dict(layers=4, batch=8, seq=4096, mesh=(2, 2), timed=2)
+MESH_TRAIN_CUT = dict(layers=2, batch=4, seq=64)    # (a) card vs CPU, f32
+MESH_RESUME = (8, 64, 4)           # (b): batch, sequence, steps (TrainLoop)
+MESH_SERVE_ARCH = "mixtral-8x7b"
+MESH_SERVE = dict(layers=2, batch=8, prompt=1024, new=16, mesh=(2, 4))
+MESH_SERVE_CUT = dict(layers=1, batch=2, prompt=32, new=3)  # (c) vs CPU, f32
+MESH_PIPE = dict(d=3072, layers=8, micro=8, batch=2, seq=128, mesh=(1, 4))
+MESH_PIPE_TOL = 1e-5
+
+
+def _grid_mesh(shape, device):
+    from repro_torch.core.distributed import make_mesh
+    n = 1
+    for k in shape:
+        n *= k
+    return make_mesh(shape, ("data", "model"), devices=[device] * n)
+
+
+def _check_layout(torch, leaves, shardings, what: str) -> None:
+    """Each ``Sharded`` leaf laid out by its sharding: its spec, and each
+    stored block of its block's shape on its position's device, every
+    (block, device) pair once."""
+    for n, leaf in leaves.items():
+        want = shardings[n]
+        need(tuple(leaf.sharding.spec) == tuple(want.spec),
+             f"{what}: {n} laid out {leaf.sharding.spec}, not {want.spec}")
+        keys = leaf.keys()
+        need(list(leaf.blocks) == list(dict.fromkeys(keys)),
+             f"{what}: {n} stores {len(leaf.blocks)} blocks for "
+             f"{len(set(keys))} (block, device) pairs")
+        for (idx, dev), b in leaf.blocks.items():
+            shape = [hi - lo for lo, hi in leaf.block_range(idx)]
+            need(list(b.shape) == shape and b.device == dev,
+                 f"{what}: {n} block {idx} is {list(b.shape)} on "
+                 f"{b.device}, not {shape} on {dev}")
+
+
+def _moe_probe():
+    """Wrap ``moe._apply_moe_sharded`` and ``moe._apply_moe_local``: the
+    calls of each ("sharded", "local") and every call's dropped_frac
+    tensor in order ("dropped", with its kind in "kinds") until
+    ``restore()``."""
+    from repro_torch.models import moe as moe_mod
+    orig = {"sharded": moe_mod._apply_moe_sharded,
+            "local": moe_mod._apply_moe_local}
+    log = {"sharded": 0, "local": 0, "dropped": [], "kinds": []}
+
+    def wrap(kind):
+        def probe(*a, **kw):
+            y, m = orig[kind](*a, **kw)
+            log[kind] += 1
+            log["dropped"].append(m["dropped_frac"])
+            log["kinds"].append(kind)
+            return y, m
+        return probe
+    moe_mod._apply_moe_sharded = wrap("sharded")
+    moe_mod._apply_moe_local = wrap("local")
+
+    def restore():
+        moe_mod._apply_moe_sharded = orig["sharded"]
+        moe_mod._apply_moe_local = orig["local"]
+    log["restore"] = restore
+    return log
+
+
+def _mesh_train_cut(torch, np, cfg, seed, dev) -> dict:
+    """(a) card against CPU: one mesh train step of the same parameters
+    and batch on a mesh of the card and the same mesh shape of "cpu":
+    the step's gradients first (``specs["grads"]``, before the update),
+    each leaf within ``TRAIN_GRAD_REL`` of the CPU leaf's largest +
+    ``TRAIN_GRAD_ABS``; then the step: the loss and the gradient norm
+    to ``TRAIN_LOSS_RTOL``, each parameter after the step within the
+    gradients' bar. (AdamW's first step moves an element by about lr x
+    the sign of its gradient, so the parameters alone cannot see a
+    wrong gradient.)"""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import (adamw_init_sharded,
+                                          build_train_step, shard_params)
+    from repro_torch.models import get_model
+    c = MESH_TRAIN_CUT
+    shape = ShapeConfig("cut", c["seq"], c["batch"], "train")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = get_model(cfg).init(gen, dev)
+    named = {n: p.detach() for n, p in model.named_parameters()}
+    batch = _train_batch(torch, cfg, seed, c["batch"], c["seq"])
+    res, states, grads = {}, {}, {}
+    for where in (dev, torch.device("cpu")):
+        mesh = _grid_mesh(MESH_TRAIN["mesh"], where)
+        step, specs = build_train_step(cfg, mesh, shape)
+        params = shard_params({n: t.to(where) for n, t in named.items()},
+                              specs["p_sh"], requires_grad=True)
+        opt = adamw_init_sharded(params)
+        t0 = time.perf_counter()
+        g, _ = specs["grads"](params, batch)
+        grads[where.type] = {n: leaf.gather().cpu() for n, leaf in
+                             g.items()}
+        grads_s = time.perf_counter() - t0
+        del g
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        secs = time.perf_counter() - t0
+        res[where.type] = {"seconds": secs, "grads_seconds": grads_s,
+                           "microbatches": specs["microbatches"],
+                           **{k: float(v) for k, v in m.items()}}
+        states[where.type] = (params, opt, specs)
+    hl, cl = res["cpu"]["loss"], res[dev.type]["loss"]
+    need(abs(cl - hl) <= TRAIN_LOSS_RTOL * abs(hl),
+         f"mesh_lm (a) {cfg.shard_profile}: loss card {cl} cpu {hl}")
+    hn, cn = res["cpu"]["grad_norm"], res[dev.type]["grad_norm"]
+    need(abs(cn - hn) <= TRAIN_LOSS_RTOL * abs(hn) and hn > 0,
+         f"mesh_lm (a) {cfg.shard_profile}: grad_norm card {cn} cpu {hn}")
+    worst_g = 0.0
+    for n, want in grads["cpu"].items():
+        scale = float(want.abs().max())
+        err = float((grads[dev.type][n] - want).abs().max())
+        need(err <= TRAIN_GRAD_REL * scale + TRAIN_GRAD_ABS,
+             f"mesh_lm (a) {cfg.shard_profile}: gradient {n} off by {err} "
+             f"at scale {scale}")
+        worst_g = max(worst_g, err / max(scale, 1e-30))
+    del grads
+    worst = 0.0
+    with torch.no_grad():
+        for n, leaf in states["cpu"][0].items():
+            want = leaf.gather()
+            got = states[dev.type][0][n].gather().cpu()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            need(err <= TRAIN_GRAD_REL * scale + TRAIN_GRAD_ABS,
+                 f"mesh_lm (a) {cfg.shard_profile}: parameter {n} off by "
+                 f"{err} at scale {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+    return {"profile": cfg.shard_profile, "layers": cfg.n_layers,
+            "batch": c["batch"], "seq": c["seq"], "card": res[dev.type],
+            "cpu": res["cpu"], "loss_rel": abs(cl - hl) / abs(hl),
+            "grad_norm_rel": abs(cn - hn) / hn, "worst_grad_rel": worst_g,
+            "worst_param_rel": worst}, states[dev.type]
+
+
+def _mesh_restore(torch, cfg, state, seed, dev) -> dict:
+    """(b): the cut's state saved from its (2, 2) mesh and restored onto a
+    (1, 4) mesh (``train.loop.load_state_sharded``), and the live tree
+    ``remesh``ed there: every leaf bit-equal; then ``TrainLoop`` on the
+    (2, 2) mesh resumes bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.fault import remesh
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    from repro_torch.train.loop import (load_state_sharded, state_like,
+                                        state_tree)
+    params, opt, specs = state
+    mesh14 = _grid_mesh((1, 4), dev)
+    p_sh14 = param_shardings(cfg, specs["skeleton"], mesh14)
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint(d, 1, state_tree(cfg, params, opt))
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = restore_checkpoint(d, 1, like=state_like(cfg))
+        p14, o14 = load_state_sharded(cfg, tree, p_sh14)
+        out["restore_s"] = time.perf_counter() - t0
+        live = remesh(params, p_sh14)
+        with torch.no_grad():
+            for n, leaf in params.items():
+                want = leaf.gather()
+                for what, got in (("restored", p14[n]), ("remeshed",
+                                                         live[n])):
+                    need(torch.equal(got.gather(), want),
+                         f"mesh_lm (b): {what} {n} differs")
+                for k in ("m", "v"):
+                    need(torch.equal(o14[k][n].gather(),
+                                     opt[k][n].gather()),
+                         f"mesh_lm (b): restored {k}[{n}] differs")
+        need(int(o14["step"]) == int(opt["step"]), "mesh_lm (b): step")
+        out["leaves_equal"] = len(params)
+        del tree, p14, o14, live
+        # TrainLoop on the (2, 2) mesh: straight against half + resume
+        from repro_torch.configs import get_smoke_config
+        B, S, steps = MESH_RESUME
+        half = steps // 2
+        scfg = get_smoke_config(cfg.name)
+        mesh = _grid_mesh(MESH_TRAIN["mesh"], dev)
+        run = lambda n, sub: TrainLoop(
+            scfg, ShapeConfig("smoke", S, B, "train"), mesh,
+            TrainLoopConfig(steps=n, seed=seed, ckpt_every=half,
+                            log_every=1_000, ckpt_dir=f"{d}/{sub}"))
+        straight = run(steps, "a")
+        straight.run()
+        run(half, "b").run()
+        resumed = run(steps, "b")
+        resumed.run()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = [m["loss"] for m in resumed.metrics_log]
+    want = [m["loss"] for m in straight.metrics_log][half:]
+    need(got == want, f"mesh_lm (b): resumed losses {got}, straight {want}")
+    with torch.no_grad():
+        equal = all(torch.equal(resumed.model[n].gather(),
+                                straight.model[n].gather())
+                    for n in straight.model)
+    need(equal, "mesh_lm (b): the resumed parameters differ")
+    out["resume"] = {"arch": scfg.name, "batch": B, "seq": S,
+                     "steps": steps, "resumed_at": half,
+                     "losses_resumed": got, "params_equal": equal}
+    return out
+
+
+def _mesh_generate(torch, cfg, mesh, params, batch, new, dev,
+                   timed=False) -> dict:
+    """Prefill (cache ``prompt + new``) and ``new`` greedy decode steps
+    through ``build_prefill_step`` / ``build_serve_step``: tokens,
+    logits (on the host), the cache and, timed, the seconds."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    B, S = batch["tokens"].shape
+    T = S + new
+    pf, pspecs = build_prefill_step(cfg, mesh,
+                                    ShapeConfig("p", S, B, "prefill"))
+    sv, sspecs = build_serve_step(cfg, mesh, ShapeConfig("d", T, B,
+                                                          "decode"))
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize()) if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    lg, cache = pf(params, batch, T)
+    tok = lg.gather().argmax(-1, keepdim=True)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    logits, toks = [lg.gather().cpu()], [tok.cpu()]
+    t0 = time.perf_counter()
+    for i in range(new):
+        lg, cache = sv(params, cache, tok, S + i)
+        g = lg.gather()
+        tok = g.argmax(-1, keepdim=True)
+        if not timed:
+            logits.append(g.cpu())
+            toks.append(tok.cpu())
+    sync()
+    decode_s = time.perf_counter() - t0
+    if timed:
+        logits.append(g.cpu())
+        toks.append(tok.cpu())
+    return {"tokens": torch.cat(toks, 1), "logits": logits, "cache": cache,
+            "c_sh": sspecs["c_sh"], "prefill_s": prefill_s,
+            "decode_s": decode_s}
+
+
+def _mesh_serve(torch, np, cfg, seed, dev) -> dict:
+    """(c): mixtral-8x7b on a (2, 4) mesh at full width, bf16: a timed
+    prefill, the expert-parallel dispatch in every MoE layer and B8 on
+    each data row, and greedy decode, each MoE layer dispatching locally
+    over the whole batch (the reference's serve step sets no mesh) and
+    B9 on that one computing unit; then the full-width f32 cut card
+    against CPU."""
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import computing_units, shard_params
+    from repro_torch.models import get_model
+    s = MESH_SERVE
+    mesh = _grid_mesh(s["mesh"], dev)
+    cuda = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = get_model(cfg).init(gen, dev)
+    p_sh = param_shardings(cfg, model, mesh)
+    params = shard_params(model, p_sh)
+    want_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    del model
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    _check_layout(torch, params, p_sh, "mesh_lm (c) parameters")
+    stored = sum(leaf.nbytes for leaf in params.values())
+    need(stored == want_bytes, f"mesh_lm (c): {stored} bytes stored for "
+         f"{want_bytes} of parameters")
+    batch = _lm_batch(torch, np, cfg, seed, s["batch"], s["prompt"], dev)
+    # warm-up: a prefill and 2 steps
+    _mesh_generate(torch, cfg, mesh, params, batch, 2, dev)
+    units = len(computing_units(cfg, mesh, s["batch"], "prefill"))
+    d_units = len(computing_units(cfg, mesh, s["batch"], "decode"))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    probe = _moe_probe()
+    ops.reset_launch_counts()
+    try:
+        run = _mesh_generate(torch, cfg, mesh, params, batch, s["new"], dev,
+                             timed=True)
+    finally:
+        probe["restore"]()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    cache = run["cache"]
+    for name in ("k", "v"):
+        _check_layout(torch, {name: cache[name]}, run["c_sh"],
+                      "mesh_lm (c) cache")
+    toks, lg = run["tokens"], run["logits"][-1]
+    need(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+         "mesh_lm (c): a token outside the vocabulary")
+    need(bool(torch.isfinite(lg).all()), "mesh_lm (c): logits not finite")
+    # the prefill dispatches expert-parallel a data row (a unit each);
+    # every decode step locally over the whole batch, one unit, as the
+    # reference's serve step (no mesh context)
+    calls_want = {"sharded": cfg.n_layers * units,
+                  "local": cfg.n_layers * d_units * s["new"]}
+    calls = {k: probe[k] for k in calls_want}
+    need(calls == calls_want, f"mesh_lm (c): the MoE dispatches ran "
+         f"{calls} times, not {calls_want}")
+    need(probe["kinds"][:calls_want["sharded"]]
+         == ["sharded"] * calls_want["sharded"],
+         "mesh_lm (c): a prefill MoE layer did not dispatch "
+         "expert-parallel")
+    dropped = [float(x) for x in probe["dropped"]]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": s["mesh"],
+           "batch": s["batch"], "prompt": s["prompt"], "new": s["new"],
+           "computing_units": units, "computing_units_decode": d_units,
+           "init_s": init_s,
+           "param_bytes": stored, "prefill_s": run["prefill_s"],
+           "decode_s": run["decode_s"],
+           "ms_per_step": run["decode_s"] / s["new"] * 1e3,
+           "max_memory_allocated": peak, "launches": launches,
+           "expected_launches": {
+               "flash_attention": cfg.n_layers * units,
+               "decode_attention": cfg.n_layers * d_units * s["new"]},
+           "moe_calls": calls,
+           "dropped_frac_prefill": dropped[:cfg.n_layers * units],
+           "dropped_frac_decode_max": max(dropped[cfg.n_layers * units:])}
+    del params, run, cache
+    if cuda:
+        torch.cuda.empty_cache()
+    # the f32 cut, card against CPU
+    c = MESH_SERVE_CUT
+    cut = cfg.replace(n_layers=c["layers"], dtype="float32")
+    model = get_model(cut).init(gen, dev)
+    named = {n: p.detach() for n, p in model.named_parameters()}
+    del model
+    batch = _lm_batch(torch, np, cut, seed + 1, c["batch"], c["prompt"],
+                      "cpu")
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        m = _grid_mesh(s["mesh"], where)
+        p = shard_params({n: t.to(where) for n, t in named.items()},
+                         param_shardings(cut, named, m))
+        probe = _moe_probe()
+        try:
+            r = _mesh_generate(torch, cut, m, p, {"tokens": batch[
+                "tokens"].to(where)}, c["new"], where)
+        finally:
+            probe["restore"]()
+        r["dropped"] = [float(x) for x in probe["dropped"]]
+        res[where.type] = r
+        del p
+    hc, cc = res["cpu"], res[dev.type]
+    need(torch.equal(cc["tokens"], hc["tokens"]),
+         f"mesh_lm (c) cut: tokens card {cc['tokens'].tolist()} cpu "
+         f"{hc['tokens'].tolist()}")
+    err = max(float((a - b).abs().max()) for a, b in zip(cc["logits"],
+                                                         hc["logits"]))
+    need(err <= LM_F32_TOL, f"mesh_lm (c) cut: logits off by {err}")
+    need(cc["dropped"] == hc["dropped"], f"mesh_lm (c) cut: dropped_frac "
+         f"card {cc['dropped']} cpu {hc['dropped']}")
+    out["card_vs_cpu"] = {"layers": c["layers"], "batch": c["batch"],
+                          "prompt": c["prompt"], "new": c["new"],
+                          "max_logit_err": err, "tokens_equal": True,
+                          "dropped_frac": cc["dropped"]}
+    return out
+
+
+def _mesh_pipeline(torch, np, seed, dev) -> dict:
+    """(d): ``build_pipeline_forward`` on a (1, 4) mesh with the
+    reference test's layer, tanh(x @ W), against the sequential forward
+    in f32."""
+    from repro_torch.distributed.pipeline import (bubble_fraction,
+                                                  build_pipeline_forward)
+    p = MESH_PIPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, M, D = p["layers"], p["micro"], p["d"]
+    params = {"w": torch.randn((L, D, D), generator=gen, device=dev)
+              / D ** 0.5}
+    xs = torch.randn((M, p["batch"], p["seq"], D), generator=gen, device=dev)
+    layer_fn = lambda lp, x: torch.tanh(x @ lp["w"])
+    mesh = _grid_mesh(p["mesh"], dev)
+    pf = build_pipeline_forward(mesh, layer_fn, L)
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+    with torch.no_grad():
+        pf(params, xs)
+        sync()
+        t0 = time.perf_counter()
+        out = pf(params, xs)
+        sync()
+        pipe_s = time.perf_counter() - t0
+        h = xs
+        t0 = time.perf_counter()
+        for l in range(L):
+            h = layer_fn({"w": params["w"][l]}, h)
+        sync()
+        seq_s = time.perf_counter() - t0
+    err = float((out - h).abs().max())
+    need(err <= MESH_PIPE_TOL, f"mesh_lm (d): pipeline off by {err}")
+    stages = mesh.shape["model"]
+    return {"d": D, "layers": L, "microbatches": M, "stages": stages,
+            "max_abs_err": err, "bubble_fraction": bubble_fraction(stages, M),
+            "pipeline_s": pipe_s, "sequential_s": seq_s}
+
+
+def run_mesh_lm(torch, np, smi: str, seed: int = 0,
+                device: str = "cuda") -> dict:
+    """The LM side on a mesh of one card repeated (``make_mesh(...,
+    devices=["cuda:0"] * n)``), through ``launch.steps``:
+    (a) starcoder2-3b at full width, ``MESH_TRAIN``'s depth, bf16, a
+        (2, 2) mesh, sequence 4,096, global batch 8 in
+        ``default_microbatches``: every stored block laid out by
+        ``param_specs``, one copy of the parameters, ``m`` and ``v``
+        stored, a warm-up and timed steps (s a step, tokens/s, peak
+        memory; finite loss, gradient norm > 0, no attention kernel);
+        then a full-width f32 cut card against CPU, under "tp" and
+        "fsdp" (``_mesh_train_cut``);
+    (b) the cut's state saved and restored onto a (1, 4) mesh,
+        ``remesh``, and ``TrainLoop`` resuming on the (2, 2) mesh, bit
+        for bit (``_mesh_restore``);
+    (c) mixtral-8x7b serving on a (2, 4) mesh (``_mesh_serve``);
+    (d) the GPipe pipeline (``_mesh_pipeline``).
+    ``device="cpu"`` rehearses the phase (point ``get_config`` at smoke
+    configs and cut the sizes above)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed.sharding import tree_nbytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (adamw_init_sharded,
+                                          build_train_step, shard_params)
+    from repro_torch.models import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize()) if cuda else (lambda: None)
+    out = {"phase": "mesh_lm", "gpu": smi, "reduced": []}
+    # (a) training on a (2, 2) mesh at full width
+    a = MESH_TRAIN
+    full = get_config(MESH_TRAIN_ARCH)
+    cfg = full.replace(n_layers=a["layers"])
+    out["reduced"].append({"mesh_train_layers": a["layers"],
+                           "of": full.n_layers, "why": (
+        "the mesh phases' training checks layouts, bytes and parity, not "
+        "the full model's rate (the train phase times 30 layers on one "
+        f"card); 4 layers keep them inside the {TIME_LIMIT_S} s limit")})
+    mesh = _grid_mesh(a["mesh"], dev)
+    shape = ShapeConfig("train_4k_b8", a["seq"], a["batch"], "train")
+    step, specs = build_train_step(cfg, mesh, shape)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = get_model(cfg).init(gen, dev)
+    params = shard_params(model, specs["p_sh"], requires_grad=True)
+    want_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    want_f32 = sum(p.numel() * 4 for p in model.parameters())
+    del model
+    opt = adamw_init_sharded(params)
+    sync()
+    init_s = time.perf_counter() - t0
+    _check_layout(torch, params, specs["p_sh"], "mesh_lm (a) parameters")
+    for k in ("m", "v"):
+        _check_layout(torch, opt[k], specs["o_sh"][k], f"mesh_lm (a) {k}")
+    stored = {"params": tree_nbytes(params), "m": tree_nbytes(opt["m"]),
+              "v": tree_nbytes(opt["v"])}
+    need(stored == {"params": want_bytes, "m": want_f32, "v": want_f32},
+         f"mesh_lm (a): stored {stored}, one copy is {want_bytes} of "
+         f"parameters and {want_f32} each of m and v")
+    pipe = TokenPipeline(cfg, shape, seed=seed, shardings=specs["b_sh"])
+    try:
+        _, batch = next(pipe)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        sync()
+        warm_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        steps = []
+        for _ in range(a["timed"]):
+            _, batch = next(pipe)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            sync()
+            steps.append({"seconds": time.perf_counter() - t0,
+                          **{k: float(v) for k, v in m.items()}})
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+    finally:
+        pipe.close()
+    for r in steps:
+        need(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+             and r["grad_norm"] > 0, f"mesh_lm (a): step {r}")
+    s_step = sum(r["seconds"] for r in steps) / len(steps)
+    out["train"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                    "d_model": cfg.d_model, "mesh": a["mesh"],
+                    "global_batch": a["batch"], "seq_len": a["seq"],
+                    "microbatches": specs["microbatches"],
+                    "stored_bytes": stored, "init_s": init_s,
+                    "warmup_s": warm_s, "steps": steps, "s_per_step": s_step,
+                    "tokens_per_s": a["batch"] * a["seq"] / s_step,
+                    "max_memory_allocated": peak, "launches": launches}
+    del params, opt, step, batch, m
+    if cuda:
+        torch.cuda.empty_cache()
+    cut = full.replace(n_layers=MESH_TRAIN_CUT["layers"], dtype="float32")
+    out["train_cut"], state = _mesh_train_cut(torch, np, cut, seed, dev)
+    out["train_cut_fsdp"], _ = _mesh_train_cut(
+        torch, np, cut.replace(shard_profile="fsdp"), seed, dev)
+    # (b) elastic restore
+    out["restore"] = _mesh_restore(torch, cut, state, seed, dev)
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+    # (c) serving mixtral-8x7b on a (2, 4) mesh
+    sfull = get_config(MESH_SERVE_ARCH)
+    out["reduced"].append({"mesh_serve_layers": MESH_SERVE["layers"],
+                           "of": sfull.n_layers, "why": (
+        "mixtral-8x7b's bf16 weights at full depth pass the card's 80 GB "
+        "(93 GB)")})
+    out["serve"] = _mesh_serve(
+        torch, np, sfull.replace(n_layers=MESH_SERVE["layers"]), seed, dev)
+    # (d) the pipeline
+    out["pipeline"] = _mesh_pipeline(torch, np, seed, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # --------------------------------- main ------------------------------------
 
 KERNEL_META = {
@@ -4544,6 +5142,10 @@ def main(argv=None) -> int:
         need(r["timed"]["launches"] == want, f"lm_families {arch} (a): "
              f"launches {r['timed']['launches']}, not exactly {want}")
     tr = run_train(torch, np, smi, args.seed)
+    emit({"reduced": {"train_timed_steps": TRAIN_TIMED[2], "of": 3,
+                      "why": (
+        "the mesh_lm phase's time: two timed steps (9.7-10.1 s each, "
+        "within 0.5% of each other) still give the rate")}})
     emit({"reduced": {"train_global_batch": TRAIN_TIMED[0], "of": 256,
                       "why": (
         "train_4k's global batch of 256 sequences of 4,096 is 32 times "
@@ -4554,6 +5156,17 @@ def main(argv=None) -> int:
          and not tr["timed"]["launches"].get("decode_attention"),
          f"train (a): attention kernels launched "
          f"{tr['timed']['launches']}: training must take blocked_attention")
+    ml = run_mesh_lm(torch, np, smi, args.seed)
+    for line in ml["reduced"]:
+        emit({"reduced": line})
+    emit(ml)
+    need(not ml["train"]["launches"].get("flash_attention")
+         and not ml["train"]["launches"].get("decode_attention"),
+         f"mesh_lm (a): attention kernels launched "
+         f"{ml['train']['launches']}: training must take blocked_attention")
+    want = ml["serve"]["expected_launches"]
+    need(ml["serve"]["launches"] == want, f"mesh_lm (c): launches "
+         f"{ml['serve']['launches']}, not exactly {want}")
 
     P = args.shards
     x, graphs, blines, bout = run_build(torch, np, args.n, P, args.seed,
@@ -4569,7 +5182,9 @@ def main(argv=None) -> int:
         emit({"reduced": {"n_points": args.n, "of": FULL_N, "why": (
             "the wave builder links on the host in numpy (the "
             "reference's arithmetic); a 1M build does not fit a third "
-            f"of the {TIME_LIMIT_S} s smoke limit")}})
+            f"of the {TIME_LIMIT_S} s smoke limit, and 100,000 (200,000 "
+            "before the mesh_lm phase) pays for the mesh_lm phase's "
+            "~125 s")}})
     g0 = graphs[0]
     n0 = len(g0.x)
     if P > 1:
@@ -4734,6 +5349,7 @@ def main(argv=None) -> int:
         n_table3 = t3["launches"][name]
         n_stream = sum(c[name] for c in stream_launches)
         n_mesh = sum(c[name] for c in mesh_launches)
+        n_mesh_lm = ml["serve"]["launches"].get(name, 0)
         n_lm = sum(lm[part]["launches"].get(name, 0)
                    for part in ("launcher", "timed")) \
             + sum(r["timed"]["launches"].get(name, 0)
@@ -4743,7 +5359,7 @@ def main(argv=None) -> int:
                      "launches": bout["launches"][name]
                      + sum(per_arm.values()) + sum(per_sharded.values())
                      + fout["launches"][name] + n_serve + n_replica
-                     + n_table3 + n_stream + n_mesh + n_lm,
+                     + n_table3 + n_stream + n_mesh + n_lm + n_mesh_lm,
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
                      "launches_sharded": per_sharded,
@@ -4754,6 +5370,7 @@ def main(argv=None) -> int:
                      "launches_stream": n_stream,
                      "launches_mesh": n_mesh,
                      "launches_lm": n_lm,
+                     "launches_mesh_lm": n_mesh_lm,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Sharded
 from repro_torch.models import bits_bf16, to_numpy
 
 
@@ -111,12 +112,15 @@ def latest_step(ckpt_dir: Path) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: Path, step: int, like: Any = None,
-                       device=None) -> Dict:
+                       shardings: Any = None, device=None) -> Dict:
     """Step ``step``'s tree, nested by its "/" keys, every leaf a tensor
     on ``device`` (bf16 where the manifest says "bfloat16"). ``like``
     (a tree), when given, must have the same keys, and where its leaf
     is a shape (a tuple), the manifest's must equal it; otherwise
-    ``ValueError``, before any leaf is read."""
+    ``ValueError``, before any leaf is read. ``shardings`` (a tree of
+    ``distributed.sharding.NamedSharding``), when given, places each
+    leaf it names straight onto its mesh, as a ``Sharded`` leaf: the
+    leaves are global, so a mesh of any shape takes them."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     if like is not None:
@@ -131,12 +135,16 @@ def restore_checkpoint(ckpt_dir: Path, step: int, like: Any = None,
                 raise ValueError(f"restore_checkpoint: {d} holds {key} "
                                  f"as {manifest['leaves'][key]['shape']}, "
                                  f"not {list(shape)}")
+    sh_flat = _flatten(shardings) if shardings is not None else {}
     flat = {}
     for key, meta in manifest["leaves"].items():
         arr = np.load(d / meta["file"])
         t = bits_bf16(arr) if meta["dtype"] == "bfloat16" \
             else torch.from_numpy(arr)
-        flat[key] = t.to(device) if device is not None else t
+        if key in sh_flat:
+            flat[key] = Sharded.place(t, sh_flat[key])
+        else:
+            flat[key] = t.to(device) if device is not None else t
     return _nest(flat)
 
 

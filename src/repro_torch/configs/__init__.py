@@ -9,6 +9,7 @@ from repro_torch.configs.base import (
 )
 from repro_torch.configs.registry import (
     ARCH_IDS,
+    all_cells,
     cell_supported,
     get_config,
     get_shape,
@@ -17,6 +18,7 @@ from repro_torch.configs.registry import (
 
 __all__ = [
     "ModelConfig", "MoEConfig", "PHNSWConfig", "RetrievalConfig",
-    "ShapeConfig", "SHAPES", "smoke_config", "ARCH_IDS", "cell_supported",
+    "ShapeConfig", "SHAPES", "smoke_config", "ARCH_IDS", "all_cells",
+    "cell_supported",
     "get_config", "get_shape", "get_smoke_config",
 ]

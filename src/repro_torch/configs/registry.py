@@ -42,6 +42,13 @@ def get_shape(name: str) -> ShapeConfig:
     return SHAPES[name]
 
 
+def all_cells():
+    """Yield every (arch, shape) cell of the assignment (40 total)."""
+    for arch in ARCH_IDS:
+        for shape in SHAPES.values():
+            yield arch, shape
+
+
 def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> str:
     """Classify a cell: 'native', 'retrieval' (runs via the paper's pHNSW
     retrieval attention), or 'skip:<reason>'."""

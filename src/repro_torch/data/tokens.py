@@ -13,6 +13,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Sharded
+
 
 def synthetic_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
                     *, extras: Optional[Dict] = None) -> Dict[str, np.ndarray]:
@@ -44,14 +46,18 @@ class TokenPipeline:
     """Prefetching iterator of (step, batch) from ``start_step`` on: each
     batch ``synthetic_batch(seed, step, ...)`` at ``shape``'s global
     batch and sequence length, as tensors on ``device`` (the frontend
-    extras cast to the config's dtype, as the reference casts them). A
-    thread makes up to ``prefetch`` batches ahead; ``close`` stops it."""
+    extras cast to the config's dtype, as the reference casts them), or,
+    with ``shardings`` ({key: ``distributed.sharding.NamedSharding``},
+    ``batch_sharding``'s), as ``Sharded`` leaves: each batch block on
+    its positions' devices. A thread makes up to ``prefetch`` batches
+    ahead; ``close`` stops it."""
 
     def __init__(self, cfg, shape, *, seed: int = 0, start_step: int = 0,
-                 device="cuda", prefetch: int = 2):
+                 shardings=None, device="cuda", prefetch: int = 2):
         self.cfg, self.shape = cfg, shape
         self.seed = seed
         self.step = start_step
+        self.shardings = shardings
         self.device = torch.device(device)
         self.extras = batch_extras_for(cfg)
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
@@ -87,6 +93,9 @@ class TokenPipeline:
     def __next__(self):
         step, batch = self._q.get()
         self.step = step
+        if self.shardings is not None:
+            return step, {k: Sharded.place(v, self.shardings[k])
+                          for k, v in batch.items()}
         return step, {k: v.to(self.device) for k, v in batch.items()}
 
     def close(self):

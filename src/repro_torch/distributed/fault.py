@@ -1,16 +1,19 @@
-"""Heartbeat and straggler detection (port of ``StepEvent`` and
-``StepMonitor`` from ``repro/distributed/fault.py``).
+"""Fault tolerance and elasticity for the training plane (port of
+``repro/distributed/fault.py``).
 
 NOT to be confused with ``distributed.faults`` (plural), the serving
 plane's deterministic fault-INJECTION harness, whose ``ShardHealth``
 runs one ``StepMonitor`` per shard over query wall times, and
-``train.TrainLoop`` one over step wall times. The reference module's
-mesh mechanisms (``GradSkipPolicy``, ``remesh``, ``healthy_mesh_shape``)
-come with the mesh port (ROADMAP.md A10d).
+``train.TrainLoop`` one over step wall times.
 
-Per-step wall times feed a robust (median + MAD) estimator; steps
-slower than ``straggler_factor`` x median raise a straggler event, and a
-missing heartbeat past ``dead_after_s`` marks the worker dead.
+1. Heartbeat / straggler detection (``StepMonitor``): per-step wall
+   times feed a robust (median + MAD) estimator; steps slower than
+   ``straggler_factor`` x median raise a straggler event, and a missing
+   heartbeat past ``dead_after_s`` marks the worker dead.
+2. Deadline-skipped microbatches (``GradSkipPolicy``): the accumulated
+   gradient is renormalised by the microbatches completed.
+3. Elastic re-meshing (``remesh``, ``healthy_mesh_shape``): a sharded
+   tree's global leaves re-placed onto another mesh's layout.
 """
 from __future__ import annotations
 
@@ -20,6 +23,9 @@ from dataclasses import dataclass
 from typing import Deque, List, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import gather_tree, shard_tree
 
 
 @dataclass
@@ -102,3 +108,57 @@ class StepMonitor:
                                  detail=ev.detail)
             return ev
         return None
+
+
+# --------------------------------------------------------------------------
+# 2. straggler mitigation: deadline-skipped microbatches
+# --------------------------------------------------------------------------
+
+@dataclass
+class GradSkipPolicy:
+    """Tracks how many microbatches completed before the deadline; the
+    train loop divides the accumulated gradient by ``completed`` instead
+    of the planned count. Skipping is bounded so the batch never shrinks
+    below ``min_fraction`` of plan."""
+    planned: int
+    min_fraction: float = 0.5
+    completed: int = 0
+    skipped_total: int = 0
+
+    def complete(self, n: int = 1):
+        self.completed += n
+
+    def should_skip_rest(self, elapsed_s: float, deadline_s: float) -> bool:
+        if elapsed_s < deadline_s:
+            return False
+        return self.completed >= max(1, int(self.planned * self.min_fraction))
+
+    def renorm(self) -> float:
+        """Gradient renormalization factor (planned/completed)."""
+        self.skipped_total += self.planned - self.completed
+        return self.planned / max(self.completed, 1)
+
+
+# --------------------------------------------------------------------------
+# 3. elastic re-meshing
+# --------------------------------------------------------------------------
+
+def remesh(tree, shardings_new):
+    """Re-place a (restored or live) tree onto a new mesh's shardings
+    (nested dicts of ``sharding.NamedSharding``) through the host: each
+    ``Sharded`` leaf (or tensor) is gathered to the CPU as its global
+    tensor and placed anew, so any mesh shape takes any other's leaves,
+    bit for bit. The new blocks carry no autograd history."""
+    with torch.no_grad():
+        host = gather_tree(tree, torch.device("cpu"))
+    return shard_tree(host, shardings_new)
+
+
+def healthy_mesh_shape(n_healthy: int, model_parallel: int = 16):
+    """Largest (data, model) mesh that fits the healthy-device count,
+    keeping the model axis fixed (weights layout unchanged) and shrinking
+    the data axis; grad-accum rises to keep global batch constant."""
+    data = n_healthy // model_parallel
+    if data < 1:
+        raise RuntimeError("not enough healthy devices for model parallelism")
+    return (data, model_parallel)

@@ -1,4 +1,5 @@
 """Launchers (port of ``repro/launch``): ``serve``, LM generation or
-pHNSW vector search; ``train``, the training loop, with ``steps``
-(``build_train_step``, one card). The dry-run and mesh tools wait for
-the mesh port (ROADMAP.md A10d)."""
+pHNSW vector search; ``train``, the training loop; ``steps``, the train,
+prefill and serve steps on one card or on a mesh; ``mesh``, the
+production and host meshes. The dry-run tools (``lower_step``,
+``dryrun``, ``hlo_cost``, ``roofline``) wait for ROADMAP.md A10e."""

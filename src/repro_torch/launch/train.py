@@ -4,11 +4,13 @@ unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
       --smoke --steps 20 --device cpu
 
-``--smoke`` trains the arch's reduced config at sequence 64, batch 8;
-without it, the full config at ``--shape`` (``train_4k``: 4,096 tokens,
-batch 256) on one card. Relaunching with the same arguments resumes
-from the latest checkpoint in ``--ckpt-dir`` (``--no-resume`` starts
-over)."""
+``--smoke`` trains the arch's reduced config at sequence 64, batch 8
+on ``make_host_mesh``, a (1, 1) mesh of ``--device``; without it, the
+full config at ``--shape`` (``train_4k``: 4,096 tokens, batch 256) on
+``make_production_mesh()``, the reference's (16, 16) mesh of cards,
+which raises where there are fewer. Relaunching with the same arguments
+resumes from the latest checkpoint in ``--ckpt-dir`` (``--no-resume``
+starts over)."""
 from __future__ import annotations
 
 import argparse
@@ -16,6 +18,7 @@ import argparse
 from repro_torch.configs import ARCH_IDS, get_config, get_shape, \
     get_smoke_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.loop import TrainLoop, TrainLoopConfig
 
@@ -42,17 +45,18 @@ def train(args) -> dict:
     if args.smoke:
         cfg = get_smoke_config(args.arch)
         shape = ShapeConfig("smoke", seq_len=64, global_batch=8, kind="train")
+        mesh = make_host_mesh([args.device])
     else:
         cfg = get_config(args.arch)
         shape = get_shape(args.shape)
+        mesh = make_production_mesh()
     loop = TrainLoop(
-        cfg, shape, None,
+        cfg, shape, mesh,
         TrainLoopConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                         ckpt_dir=args.ckpt_dir, seed=args.seed,
                         microbatches=args.microbatches,
                         resume=not args.no_resume),
-        AdamWConfig(lr=args.lr, total_steps=max(args.steps, 10)),
-        device=args.device)
+        AdamWConfig(lr=args.lr, total_steps=max(args.steps, 10)))
     out = loop.run()
     print(f"[train] done: {out}", flush=True)
     return out

@@ -65,8 +65,15 @@ class EncDec(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.ln_enc = Norm(cfg, device=device)
         self.ln_f = Norm(cfg, device=device)
-        self.register_buffer("dec_pos", sinusoidal_positions(
-            MAX_DEC_POS, cfg.d_model, device=device), persistent=False)
+        for name, t in buffers(cfg, device).items():
+            self.register_buffer(name, t, persistent=False)
+
+
+def buffers(cfg, device) -> dict:
+    """{"dec_pos": the decoder's [MAX_DEC_POS, D] f32 sinusoidal table}
+    on ``device``."""
+    return {"dec_pos": sinusoidal_positions(MAX_DEC_POS, cfg.d_model,
+                                            device=device)}
 
 
 def init(cfg, gen, device=None) -> EncDec:

@@ -61,36 +61,48 @@ def adamw_init(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, device=None) -> torch.Tensor:
     """sqrt of the sum over a dict's tensors, in its order, of each one's
-    sum of squares in f32."""
-    return torch.sqrt(sum(x.detach().to(torch.float32).square().sum()
-                          for x in tensors.values()))
+    sum of squares in f32 (each moved to ``device`` first when given:
+    the blocks of a mesh's leaves may lie on several)."""
+    sq = (x.detach().to(torch.float32).square().sum()
+          for x in tensors.values())
+    if device is not None:
+        sq = (t.to(device) for t in sq)
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state
+def adamw_update(cfg: AdamWConfig, params, grads, state, *, norm_of=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One step, in place: clip the gradients to ``clip_norm`` by their
     global norm, update ``m`` and ``v``, bias-correct, and step each
     parameter by lr * (m^ / (sqrt(v^) + eps) + weight_decay * p).
-    Returns (params, state, {"grad_norm", "lr"})."""
+    Returns (params, state, {"grad_norm", "lr"}). ``norm_of`` (default
+    ``grads``) are the tensors whose norm clips: a mesh's blocks, each
+    replicated block once; the scalars move to each parameter's
+    device."""
     named = _named(params)
     state["step"] += 1
     step = state["step"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads if norm_of is None else norm_of,
+                        None if norm_of is None else step.device)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = cosine_lr(cfg, step).to(gnorm.device)
     b1, b2 = cfg.b1, cfg.b2
     sf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, sf)
     bc2 = 1.0 - torch.pow(b2, sf)
+    on = {}
     for name, p in named.items():
-        g = grads[name].to(torch.float32) * scale
+        if p.device not in on:
+            on[p.device] = [t.to(p.device) for t in (scale, lr, bc1, bc2)]
+        scale_, lr_, bc1_, bc2_ = on[p.device]
+        g = grads[name].to(torch.float32) * scale_
         m, v = state["m"][name], state["v"][name]
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g.square())
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+        delta = (m / bc1_) / (torch.sqrt(v / bc2_) + cfg.eps) \
             + cfg.weight_decay * p.to(torch.float32)
-        p.copy_(p.to(torch.float32) - lr * delta)
+        p.copy_(p.to(torch.float32) - lr_ * delta)
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -5,8 +5,9 @@ rounded half to even and clipped to +-127.
 
 The reference's docstring says ``train/loop.py`` uses it for the
 cross-pod all-reduce (``compress_dcn=True``); no such flag exists there
-(ROADMAP.md C). The port's one-card step does not use it either: it
-waits for a mesh (ROADMAP.md A10d)."""
+(ROADMAP.md C). The port's steps, on one card or on a mesh, do not use
+it either: the reference's mesh step has no cross-pod all-reduce to
+compress, and neither has the port's."""
 from __future__ import annotations
 
 from typing import Dict, Tuple

@@ -8,9 +8,13 @@ latest checkpoint and starting the pipeline at its step. Kill the
 process anywhere and relaunch it the same way: training continues bit
 for bit (less what the last ``ckpt_every`` steps had not saved).
 
-One card: ``mesh`` must be None until the mesh port (ROADMAP.md A10d).
-The loop turns on gradients for its own model only; serving's models
-stay without them."""
+``mesh=None`` trains one model on ``device``; a
+``core.distributed.Mesh`` trains the parameters and AdamW's moments as
+``Sharded`` leaves laid out by the step's ``p_sh`` (drawn from the seed
+exactly as on one card, then laid out), with each batch placed by
+``b_sh``; a checkpoint is the same global tree either way, so a run
+resumes on a mesh of any shape. The loop turns on gradients for its own
+parameters only; serving's models stay without them."""
 from __future__ import annotations
 
 import time
@@ -25,7 +29,9 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step,
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.distributed.fault import StepMonitor
-from repro_torch.launch.steps import build_train_step
+from repro_torch.distributed.sharding import Sharded
+from repro_torch.launch.steps import (adamw_init_sharded, build_train_step,
+                                      shard_params)
 from repro_torch.models import (named_from_reference, reference_shapes,
                                 to_numpy, to_reference)
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -43,14 +49,25 @@ class TrainLoopConfig:
     resume: bool = True
 
 
+@torch.no_grad()
+def _global(tensors):
+    """A module, a dict of tensors, or a dict of ``Sharded`` leaves (each
+    gathered to the host as its global tensor)."""
+    if isinstance(tensors, dict):
+        return {n: t.gather(torch.device("cpu")) if isinstance(t, Sharded)
+                else t for n, t in tensors.items()}
+    return tensors
+
+
 def state_tree(cfg, model, opt) -> Dict:
     """The checkpointed state in the reference's layout: {"params",
     "opt": {"m", "v", "step"}}, new numpy arrays on the host
-    (``to_reference``: copied a block at a time, stacked on the host)."""
+    (``to_reference``: copied a block at a time, stacked on the host).
+    ``model`` is the module or, on a mesh, {name: ``Sharded``}."""
     step = opt["step"].detach()
-    return {"params": to_reference(cfg, model),
-            "opt": {"m": to_reference(cfg, opt["m"]),
-                    "v": to_reference(cfg, opt["v"]),
+    return {"params": to_reference(cfg, _global(model)),
+            "opt": {"m": to_reference(cfg, _global(opt["m"])),
+                    "v": to_reference(cfg, _global(opt["v"])),
                     "step": to_numpy(step.to("cpu", copy=True))}}
 
 
@@ -81,19 +98,35 @@ def load_state(cfg, model, tree) -> Dict:
             "step": opt["step"].to(device=dev, dtype=torch.int32)}
 
 
+def load_state_sharded(cfg, tree, p_sh) -> tuple:
+    """``load_state`` onto a mesh: (params, opt) as ``Sharded`` leaves
+    laid out by ``p_sh`` (the parameters' blocks requiring grad), every
+    leaf checked as there."""
+    opt = tree["opt"]
+    named = lambda t, dt=None: named_from_reference(cfg, t, None, "cpu", dt)
+    params = shard_params(named(tree["params"]), p_sh, requires_grad=True)
+    dev = next(iter(params.values())).device
+    return params, {"m": shard_params(named(opt["m"], torch.float32), p_sh),
+                    "v": shard_params(named(opt["v"], torch.float32), p_sh),
+                    "step": opt["step"].to(device=dev, dtype=torch.int32)}
+
+
 class TrainLoop:
     """``run()`` trains ``cfg`` at ``shape`` for ``loop_cfg.steps`` steps
-    on ``device``, from the latest checkpoint in ``loop_cfg.ckpt_dir``
+    on ``device`` (``mesh=None``) or on ``mesh`` (whose first device
+    draws the init), from the latest checkpoint in ``loop_cfg.ckpt_dir``
     when there is one (``resume``), else from the seeded init; returns
     {"final_step", "last_metrics", "straggler_events"}. ``metrics_log``
-    keeps every step's metrics and wall time."""
+    keeps every step's metrics and wall time; ``model`` the trained
+    module, or on a mesh its {name: ``Sharded``}."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, mesh=None,
                  loop_cfg: TrainLoopConfig = TrainLoopConfig(),
                  opt_cfg: AdamWConfig = AdamWConfig(), *, device="cuda"):
         self.cfg, self.shape, self.mesh = cfg, shape, mesh
         self.loop_cfg, self.opt_cfg = loop_cfg, opt_cfg
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None \
+            else mesh.devices.flat[0]
         self.step_fn, self.specs = build_train_step(
             cfg, mesh, shape, opt_cfg, microbatches=loop_cfg.microbatches)
         self.monitor = StepMonitor()
@@ -105,10 +138,16 @@ class TrainLoop:
     # ---- state ----
     def init_state(self):
         """(model, opt): the parameters drawn from a generator on the
-        device seeded with ``loop_cfg.seed``, gradients on."""
+        device seeded with ``loop_cfg.seed``, gradients on; on a mesh,
+        the same draw on its first device, laid out by ``p_sh``."""
         gen = torch.Generator(device=self.device).manual_seed(
             self.loop_cfg.seed)
-        model = self.specs["api"].init(gen, self.device).requires_grad_(True)
+        model = self.specs["api"].init(gen, self.device)
+        if self.mesh is not None:
+            params = shard_params(model, self.specs["p_sh"],
+                                  requires_grad=True)
+            return params, adamw_init_sharded(params)
+        model.requires_grad_(True)
         return model, adamw_init(model)
 
     def try_restore(self):
@@ -118,6 +157,9 @@ class TrainLoop:
             return None
         tree = restore_checkpoint(Path(self.loop_cfg.ckpt_dir), step,
                                   like=state_like(self.cfg))
+        if self.mesh is not None:
+            return (step,) + load_state_sharded(self.cfg, tree,
+                                                self.specs["p_sh"])
         model = self.specs["api"].init(None, self.device)
         opt = load_state(self.cfg, model, tree)
         return step, model.requires_grad_(True), opt
@@ -134,7 +176,8 @@ class TrainLoop:
             model, opt = self.init_state()
         self.model = model
         pipe = TokenPipeline(self.cfg, self.shape, seed=lc.seed,
-                             start_step=start, device=self.device)
+                             start_step=start, device=self.device,
+                             shardings=self.specs.get("b_sh"))
         last_metrics: Dict[str, float] = {}
         try:
             for step, batch in pipe:

@@ -266,6 +266,47 @@ def test_sharded_global_ids_bit_equal(P, tmp_path):
         np.asarray(rback.search(jnp.asarray(QUERIES))[1]), ti.numpy())
 
 
+def test_sharded_snapshot_drops_a_reservation(tmp_path):
+    """The sharded snapshot keeps no capacity (the reference's format):
+    an index ``reserve``d past the next power of two of its points
+    restores at that power, so its global ids renumber (the stride is
+    the per-shard capacity), the same in both packages; each answer is
+    the same (shard, local) point at the same distance."""
+    rng = np.random.default_rng(98)
+    x = _int_rows(rng, N_SHARDED)
+    cfg = _int_cfg(N_SHARDED, min_capacity=32)
+    graphs = [build_hnsw(x[a:b], cfg, seed=1 + s, device="cpu")
+              for s, (a, b) in enumerate(shard_bounds(N_SHARDED, 3))]
+    rfilt, tfilt = _int_filters("pca")
+    ref = RefSharded([RefIndex.from_graph(_ref_graph(g), rfilt,
+                                          seed=10 + s)
+                      for s, g in enumerate(graphs)], rfilt,
+                     RefConfig(**dataclasses.asdict(cfg)))
+    port = ShardedMutableIndex(
+        [MutableIndex.from_graph(g, tfilt, seed=10 + s, device="cpu")
+         for s, g in enumerate(graphs)], tfilt, cfg)
+    big = 4 * port.stride
+    ref.reserve(big)
+    port.reserve(big)
+    assert port.stride == ref.stride == big
+    port.save(tmp_path / "p.npz")
+    ref.save(tmp_path / "r.npz")
+    back = ShardedMutableIndex.load(tmp_path / "p.npz", cfg, seed=10,
+                                    device="cpu")
+    rback = RefSharded.load(tmp_path / "r.npz", ref.cfg, seed=10)
+    assert back.stride == rback.stride == big // 4
+    td, ti = port.search(QUERIES)
+    bd, bi = back.search(QUERIES)
+    np.testing.assert_array_equal(np.asarray(rback.search(
+        jnp.asarray(QUERIES))[1]), bi.numpy())
+    np.testing.assert_array_equal(bd.numpy(), td.numpy())
+    ti, bi = ti.numpy(), bi.numpy()
+    assert not np.array_equal(bi, ti)
+    for a, stride in ((ti, big), (bi, big // 4)):
+        a[a >= 0] = (a[a >= 0] // stride) * N_SHARDED + a[a >= 0] % stride
+    np.testing.assert_array_equal(bi, ti)
+
+
 def test_sharded_mesh_not_ported():
     """``ShardedMutableIndex.search(mesh=)`` (once refused, now the
     collective path) after upserts, a replace-upsert and deletes: on

@@ -85,7 +85,7 @@ class _SeededReferenceLoop(JTrainLoop):
 def test_default_microbatches_match_reference():
     """The accumulation depth of every arch at every training shape and
     a few global batches, against the reference's on a one-device mesh
-    (a "fsdp" arch takes 1)."""
+    (a "fsdp" arch takes 1), and on the port's (1, 1) host mesh too."""
     mesh = auto_mesh()
     for arch in ("starcoder2-3b", "llama3-405b", "qwen3-moe-235b-a22b",
                  "rwkv6-1.6b", "whisper-medium"):
@@ -94,8 +94,11 @@ def test_default_microbatches_match_reference():
             jshape = JShape(shape.name, shape.seq_len, gb, shape.kind)
             assert default_microbatches(get_config(arch), shape) == \
                 j_default_mb(j_get_config(arch), jshape, mesh), (arch, gb)
-    with pytest.raises(NotImplementedError, match="A10d"):
-        default_microbatches(get_config(ARCH), SHAPES["train_4k"], mesh)
+    from repro_torch.launch.mesh import make_host_mesh
+    assert default_microbatches(get_config(ARCH), SHAPES["train_4k"],
+                                make_host_mesh(["cpu"])) == \
+        j_default_mb(j_get_config(ARCH), JShape("train_4k", 4096, 256,
+                                                "train"), mesh)
 
 
 def test_train_loop_follows_reference(tmp_path):
@@ -166,7 +169,8 @@ def test_microbatched_step_sums_in_f32():
     """``build_train_step``: 2 microbatches give the mean of the two
     halves' losses, and the gradients their mean summed in f32 (checked
     against two single-microbatch backward passes); with mb = 1 the
-    gradients stay in the parameters' dtype (bf16)."""
+    gradients stay in the parameters' dtype (bf16); a mesh that is not
+    a ``core.distributed.Mesh`` is refused."""
     cfg = get_smoke_config(ARCH).replace(dtype="bfloat16")
     shape = ShapeConfig("t", 16, 4, "train")
     from repro_torch.data.tokens import synthetic_batch
@@ -214,7 +218,7 @@ def test_microbatched_step_sums_in_f32():
         steps_mod.adamw_update = orig
     assert all(g.dtype == torch.bfloat16 for n, g in seen.items()
                if model.get_parameter(n).dtype == torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A10d"):
+    with pytest.raises(TypeError, match="Mesh"):
         build_train_step(cfg, object(), shape)
 
 
