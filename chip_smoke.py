@@ -181,6 +181,24 @@ non-zero:
                 (tokens equal, logits within 2e-3, dropped fractions
                 equal); (d) ``build_pipeline_forward`` on a (1, 4) mesh
                 against the sequential forward (1e-5);
+  3g. dryrun  — the dry-run tools (``run_dryrun``): (a) each cell of
+                ``mesh_lm`` (starcoder2-3b training on (2, 2), mixtral-8x7b
+                prefill and decode on (2, 4), the card repeated) lowered on
+                "meta" by ``launch.steps.lower_step``: its FLOPs summed
+                over positions equal a ``FlopCounterMode`` count around the
+                same real step on the card (B8 and B9 counted by their
+                formulas) and its argument bytes, once per (block,
+                device), the bytes the real state stores, both exactly;
+                the temp estimate beside the card's peak, no gate; B8 and
+                B9 exactly layers x units; (b) starcoder2-3b x
+                ``train_4k`` x ``pod16x16`` at full width and depth
+                (``launch.dryrun.run_cell``, no card involved): ok, the
+                per-chip FLOPs, argument bytes, collective bytes by
+                category, ``lower_s`` / ``trace_s`` and the roofline row
+                (``launch.roofline``, the H100's peaks), the useful FLOPs
+                over the positions' sum <= 1, inside 90 s; (c) the host
+                time of a B8 / B9 call through the public op, its
+                ctypes wrapper and the dispatcher's operator;
   4. build    — the wave builder at the paper's SIFT1M configuration:
                 ``--shards`` graphs over ``shard_bounds(--n, P)``, shard s
                 with seed ``seed + s``; ``graph_invariants`` must hold for
@@ -356,14 +374,15 @@ non-zero:
                 the sync part never;
  15. the ``{"kernels": [...]}`` line (each kernel's ``launches`` sums
      every main-path run, ``launches_replica``, ``launches_table3``,
-     ``launches_stream``, ``launches_mesh`` and ``launches_lm`` (the
-     lm and lm_families phases' timed generates) included), the
+     ``launches_stream``, ``launches_mesh``, ``launches_lm`` (the
+     lm and lm_families phases' timed generates) and
+     ``launches_dryrun`` included), the
      ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main-path run (the footprint
 bench, the lm phase, each lm_families generate, the train phase's timed
-steps, the build, each
+steps, the dryrun phase's real steps, the build, each
 single-shard arm, each sharded arm, each mesh run,
 each part of the serve, replica and stream phases and the table3 batched
 rows) and read just after. The degraded, resilient and mesh phases need
@@ -384,14 +403,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TIME_LIMIT_S = 1200
-# SIFT1M is 1M points; the smoke builds 100k by default. The wave
+# SIFT1M is 1M points; the smoke builds 75k by default. The wave
 # builder's linking runs in numpy on the host (the reference's
 # arithmetic, kept so the graph can be held bit-for-bit against it) and
 # takes ~93% of the build: a 1M build does not fit a third of the time
-# limit; 200k did, until the mesh_lm phase needed its ~125 s (PERF.md,
-# "Cells").
+# limit; 200k did, until the mesh_lm phase needed its ~125 s, and 100k,
+# until the dryrun phase's 38-50 s took the total past 1,000 s on a
+# slow host (PERF.md, "Cells").
 FULL_N = 1_000_000
-DEFAULT_N = 100_000
+DEFAULT_N = 75_000
 
 
 def emit(obj) -> None:
@@ -5034,6 +5054,313 @@ def run_mesh_lm(torch, np, smi: str, seed: int = 0,
     return out
 
 
+DRYRUN_CELL = ("starcoder2-3b", "train_4k", False)  # (b): arch, shape, pods
+DRYRUN_CELL_S = 90                  # (b): the cell's budget, lower and trace
+OP_HOST_ROUNDS, OP_HOST_CALLS = 21, 50  # (c): rounds x calls a path
+
+
+def _stored(torch, *trees) -> int:
+    """The bytes ``trees`` store: each ``Sharded`` leaf's blocks (each
+    (block, device) once) and each plain tensor's."""
+    from repro_torch.distributed.sharding import Sharded
+    total = 0
+    for tree in trees:
+        stack = [tree]
+        while stack:
+            t = stack.pop()
+            if isinstance(t, dict):
+                stack.extend(t.values())
+            elif isinstance(t, Sharded):
+                total += t.nbytes
+            elif isinstance(t, torch.Tensor):
+                total += t.numel() * t.element_size()
+    return total
+
+
+class _GlobalOnly:
+    """A ``FlopCounterMode``'s module tracker that tracks no module: every
+    count goes to "Global". Torch's ``ModuleTracker`` hooks every
+    module's tensors and so keeps each checkpointed layer's activations
+    alive: under it the remat="full" train step of ``run_dryrun`` (a)
+    ran the card out of its 80 GB."""
+    parents = ("Global",)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+def _counted(torch, fn):
+    """(``fn()``, the FLOPs a ``FlopCounterMode`` counts around it), with
+    no module tracking (``_GlobalOnly``). Its ``bmm`` formula takes the
+    operands' shapes only: on the card the training attention's scores
+    call ``bmm``'s ``out_dtype`` overload (``models/attention.py:
+    _mm_f32``), whose third positional argument torch's own formula
+    takes for ``out_shape`` and raises."""
+    from torch.utils.flop_counter import FlopCounterMode, bmm_flop
+    fix = {torch.ops.aten.bmm:
+           lambda a, b, *_, out_shape=None, **__: bmm_flop(a, b)}
+    fc = FlopCounterMode(display=False, custom_mapping=fix)
+    fc.mod_tracker = _GlobalOnly()
+    with fc:
+        out = fn()
+    return out, fc.get_total_flops()
+
+
+def _dryrun_check(torch, what: str, lowered, flops: int, stored: int,
+                  peak) -> dict:
+    """One (a) cell: ``lowered``'s summed FLOPs and stored argument bytes
+    against the real step's, exactly; its temp estimate beside the
+    card's peak, no gate."""
+    cost, mem = lowered.cost(), lowered.memory_analysis()
+    need(cost.total.flops == flops, f"dryrun (a) {what}: lowered FLOPs "
+         f"{cost.total.flops} against the real step's {flops}")
+    need(mem.stored_argument_bytes == stored, f"dryrun (a) {what}: "
+         f"lowered argument bytes {mem.stored_argument_bytes} (once per "
+         f"(block, device)) against {stored} stored")
+    return {"flops": flops, "lowered_flops": cost.total.flops,
+            "busiest_flops": cost.busiest.flops,
+            "collective_busiest": cost.busiest.collective,
+            "stored_argument_bytes": stored,
+            "argument_size_in_bytes": mem.argument_size_in_bytes,
+            "units": {"/".join(map(str, k)): n
+                      for k, n in cost.units.items()},
+            "trace_s": lowered.trace_s,
+            "temp_size_in_bytes": mem.temp_size_in_bytes,
+            "max_memory_allocated": peak,
+            "temp_note": ("an estimate of one position's transient peak; "
+                          "one card repeated holds every position at once, "
+                          "so a position's own peak is not measured here: "
+                          "no gate")}
+
+
+def op_host_cost(torch, dev) -> dict:
+    """(c) the host time of a B8 / B9 call on three paths: the ctypes
+    wrapper (``direct``), the public op (``ops``: its checks, then the
+    wrapper, as no dispatch mode watches) and the dispatcher's operator
+    (``torch.ops.repro_torch.*``, what a FLOP counter sees), at rows 8b's
+    and 9b's shapes (the LM's prefill and last decode step): the enqueue
+    time of ``OP_HOST_CALLS`` calls, the card synchronised outside the
+    timed loops, ``OP_HOST_ROUNDS`` rounds of the three in a rotating
+    order, and the median over rounds of each path's excess over
+    ``direct`` in its round (the host's speed drifts by tens of us a call
+    between rounds). Then the dispatcher alone, free of the card: the
+    operator on "meta" tensors against its "meta" kernel called
+    directly (``q.new_empty``), 20 x 1,000 calls each."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=torch.bfloat16)
+    q, k, v = rnd(8, 24, 128), rnd(8, 2, 1056, 128), rnd(8, 2, 1056, 128)
+    length = torch.full((8,), 1056, dtype=torch.int32, device=dev)
+    qf, kf, vf = rnd(8, 24, 1024, 128), rnd(8, 2, 1024, 128), \
+        rnd(8, 2, 1024, 128)
+    mq, mk, mv, ml = (t.to("meta") for t in (q, k, v, length))
+    rows = {
+        "9b": {"direct": lambda: decode_attention_cuda(q, k, v, length),
+               "ops": lambda: ops.decode_attention(q, k, v, length),
+               "operator": lambda: torch.ops.repro_torch.decode_attention(
+                   q, k, v, length)},
+        "8b": {"direct": lambda: flash_attention_cuda(qf, kf, vf,
+                                                      causal=True, window=0),
+               "ops": lambda: ops.flash_attention(qf, kf, vf),
+               "operator": lambda: torch.ops.repro_torch.flash_attention(
+                   qf, kf, vf, True, 0)},
+        "meta": {"direct": lambda: mq.new_empty(mq.shape),
+                 "operator": lambda: torch.ops.repro_torch.decode_attention(
+                     mq, mk, mv, ml)}}
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    out = {}
+    for row, fns in rows.items():
+        names = list(fns)
+        calls = 1000 if row == "meta" else OP_HOST_CALLS
+        rounds = 20 if row == "meta" else OP_HOST_ROUNDS
+        for fn in fns.values():
+            fn()
+        per = {n: [] for n in names}
+        for r in range(rounds):
+            for n in names[r % len(names):] + names[:r % len(names)]:
+                if row != "meta":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fns[n]()
+                per[n].append((time.perf_counter() - t0) / calls * 1e6)
+            if row != "meta":
+                torch.cuda.synchronize()
+        out[row] = {f"{n}_us": med(t) for n, t in per.items()}
+        for n in names[1:]:
+            out[row][f"{n}_added_us"] = med(
+                [a - b for a, b in zip(per[n], per["direct"])])
+    return out
+
+
+def run_dryrun(torch, np, smi: str, seed: int = 0,
+               device: str = "cuda") -> dict:
+    """The dry-run tools (``launch.steps.lower_step``,
+    ``launch.dryrun``, ``launch.roofline``):
+    (a) each cell the ``mesh_lm`` phase runs, on its device map (the card
+        repeated), lowered on "meta" and held against the same real step
+        on the card: starcoder2-3b (``MESH_TRAIN``'s depth) training on
+        (2, 2), mixtral-8x7b (``MESH_SERVE``'s depth) prefill and decode
+        on (2, 4). The lowered step's FLOPs summed over positions equal
+        a ``FlopCounterMode`` count around the real step exactly (B8 and
+        B9 counted by their formulas); its argument bytes summed once
+        per (block, device) equal the bytes the real step's state
+        stores, exactly; its temp estimate is printed beside the card's
+        peak, with no gate;
+    (b) ``DRYRUN_CELL`` at full width and depth on the abstract
+        ``pod16x16`` (``launch.dryrun.run_cell``): ``ok``, the per-chip
+        FLOPs, argument bytes, collective bytes by category, ``lower_s``
+        / ``trace_s`` and the roofline row with its bottleneck; ``ok``
+        true, ``useful_flops_ratio`` over the sum of positions <= 1 (the
+        useful work is a floor), inside ``DRYRUN_CELL_S``;
+    (c) on the card only, the host time of a B8 / B9 call through the
+        public op, the ctypes wrapper and the dispatcher's operator, and
+        of the dispatcher alone (``op_host_cost``), with no gate.
+    ``device="cpu"`` rehearses (a) and (b) (point ``get_config`` at
+    smoke configs and cut ``MESH_TRAIN`` / ``MESH_SERVE``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (adamw_init_sharded,
+                                          build_prefill_step,
+                                          build_serve_step,
+                                          build_train_step, computing_units,
+                                          lower_step, shard_params)
+    from repro_torch.models import get_model
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize()) if cuda else (lambda: None)
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    peak = lambda: torch.cuda.max_memory_allocated() if cuda else None
+    out = {"phase": "dryrun", "gpu": smi}
+    ops.reset_launch_counts()
+    # (a) training: starcoder2-3b on (2, 2)
+    a = MESH_TRAIN
+    cfg = get_config(MESH_TRAIN_ARCH).replace(n_layers=a["layers"])
+    mesh = _grid_mesh(a["mesh"], dev)
+    shape = ShapeConfig("train_4k_b8", a["seq"], a["batch"], "train")
+    step, specs = build_train_step(cfg, mesh, shape)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = shard_params(get_model(cfg).init(gen, dev), specs["p_sh"],
+                          requires_grad=True)
+    opt = adamw_init_sharded(params)
+    pipe = TokenPipeline(cfg, shape, seed=seed, shardings=specs["b_sh"])
+    try:
+        _, batch = next(pipe)
+    finally:
+        pipe.close()
+    stored = _stored(torch, params, opt, batch)
+    peak_reset()
+    _, flops = _counted(torch, lambda: step(params, opt, batch))
+    sync()
+    out["train"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                    "mesh": a["mesh"], "batch": a["batch"], "seq": a["seq"],
+                    **_dryrun_check(torch, "train", lower_step(cfg, mesh,
+                                                               shape),
+                                    flops, stored, peak())}
+    del params, opt, batch, step
+    # (a) serving: mixtral-8x7b on (2, 4), prefill then decode
+    sv = MESH_SERVE
+    cfg = get_config(MESH_SERVE_ARCH).replace(n_layers=sv["layers"])
+    mesh = _grid_mesh(sv["mesh"], dev)
+    B, S, T = sv["batch"], sv["prompt"], sv["prompt"] + sv["new"]
+    model = get_model(cfg).init(gen, dev)
+    params = shard_params(model, param_shardings(cfg, model, mesh))
+    del model
+    batch = {"tokens": _lm_batch(torch, np, cfg, seed, B, S, dev)[
+        "tokens"].to(torch.int32)}
+    pshape = ShapeConfig("prefill", S, B, "prefill")
+    pf, _ = build_prefill_step(cfg, mesh, pshape)
+    peak_reset()
+    _, flops = _counted(torch, lambda: pf(params, batch))
+    sync()
+    out["prefill"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                      "mesh": sv["mesh"], "batch": B, "prompt": S,
+                      **_dryrun_check(torch, "prefill", lower_step(
+                          cfg, mesh, pshape), flops,
+                          _stored(torch, params, batch), peak())}
+    lg, cache = pf(params, batch, T)
+    token = lg.gather().argmax(-1, keepdim=True).to(torch.int32)
+    pos = torch.tensor(S, dtype=torch.int32, device=dev)
+    dshape = ShapeConfig("decode", T, B, "decode")
+    serve, _ = build_serve_step(cfg, mesh, dshape)
+    stored = _stored(torch, params, cache, token, pos)
+    peak_reset()
+    _, flops = _counted(torch, lambda: serve(params, cache, token, pos))
+    sync()
+    out["decode"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                     "mesh": sv["mesh"], "batch": B, "cache": T,
+                     **_dryrun_check(torch, "decode", lower_step(
+                         cfg, mesh, dshape), flops, stored, peak())}
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    # B8 a layer a prefill unit (the counted prefill and the cache's), B9
+    # a layer a decode unit; training takes blocked_attention
+    want = {"flash_attention": 2 * cfg.n_layers * len(computing_units(
+        cfg, mesh, B, "prefill")), "decode_attention": cfg.n_layers
+        * len(computing_units(cfg, mesh, B, "decode"))}
+    out["expected_launches"] = want
+    need(not cuda or out["launches"] == want, f"dryrun (a): launches "
+         f"{out['launches']}, not exactly {want}")
+    del params, cache, lg, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    # (b) the production cell on the abstract pod16x16
+    arch, shape_name, multi = DRYRUN_CELL
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape_name, multi)
+    cell_s = time.perf_counter() - t0
+    need(rec["ok"], f"dryrun (b) {arch} x {shape_name}: "
+         f"{rec.get('error')}\n{rec.get('traceback', '')}")
+    row = roofline.analyze(rec)
+    useful_total = roofline.model_flops_per_chip(
+        arch, shape_name, rec["n_chips"]) * rec["n_chips"]
+    ratio_sum = useful_total / rec["total_flops"]
+    need(ratio_sum <= 1.0, f"dryrun (b): useful FLOPs {useful_total} over "
+         f"the positions' sum {rec['total_flops']} is {ratio_sum} > 1: a "
+         "unit was dropped")
+    need(cell_s <= DRYRUN_CELL_S, f"dryrun (b): the cell took {cell_s} s, "
+         f"over {DRYRUN_CELL_S}")
+    out["cell"] = {
+        "arch": arch, "shape": shape_name, "mesh": rec["mesh"],
+        "ok": rec["ok"], "seconds": cell_s, "lower_s": rec["lower_s"],
+        "trace_s": rec["trace_s"], "flops_per_chip": rec["flops"],
+        "total_flops": rec["total_flops"],
+        "reference_share_flops": rec["total_flops"] / rec["n_chips"],
+        "per_chip_over_share": rec["flops"] * rec["n_chips"]
+        / rec["total_flops"],
+        "argument_size_in_bytes": rec["argument_size_in_bytes"],
+        "temp_size_in_bytes": rec["temp_size_in_bytes"],
+        "collectives": rec["walker_collectives"],
+        "units": rec["units"], "roofline": row,
+        "useful_flops_ratio_sum": ratio_sum,
+        "what_would_help": roofline.what_would_help(row),
+        "constants": {"PEAK_FLOPS": roofline.PEAK_FLOPS,
+                      "HBM_BW": roofline.HBM_BW,
+                      "LINK_BW": roofline.LINK_BW}}
+    # (c) the operators' host cost
+    if cuda:
+        out["op_host_cost"] = op_host_cost(torch, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # --------------------------------- main ------------------------------------
 
 KERNEL_META = {
@@ -5167,6 +5494,8 @@ def main(argv=None) -> int:
     want = ml["serve"]["expected_launches"]
     need(ml["serve"]["launches"] == want, f"mesh_lm (c): launches "
          f"{ml['serve']['launches']}, not exactly {want}")
+    dry = run_dryrun(torch, np, smi, args.seed)
+    emit(dry)
 
     P = args.shards
     x, graphs, blines, bout = run_build(torch, np, args.n, P, args.seed,
@@ -5182,9 +5511,9 @@ def main(argv=None) -> int:
         emit({"reduced": {"n_points": args.n, "of": FULL_N, "why": (
             "the wave builder links on the host in numpy (the "
             "reference's arithmetic); a 1M build does not fit a third "
-            f"of the {TIME_LIMIT_S} s smoke limit, and 100,000 (200,000 "
-            "before the mesh_lm phase) pays for the mesh_lm phase's "
-            "~125 s")}})
+            f"of the {TIME_LIMIT_S} s smoke limit, and 75,000 (200,000 "
+            "before the mesh_lm phase, 100,000 before the dryrun phase) "
+            "pays for those phases' ~125 s and ~50 s")}})
     g0 = graphs[0]
     n0 = len(g0.x)
     if P > 1:
@@ -5350,6 +5679,7 @@ def main(argv=None) -> int:
         n_stream = sum(c[name] for c in stream_launches)
         n_mesh = sum(c[name] for c in mesh_launches)
         n_mesh_lm = ml["serve"]["launches"].get(name, 0)
+        n_dryrun = dry["launches"].get(name, 0)
         n_lm = sum(lm[part]["launches"].get(name, 0)
                    for part in ("launcher", "timed")) \
             + sum(r["timed"]["launches"].get(name, 0)
@@ -5359,7 +5689,8 @@ def main(argv=None) -> int:
                      "launches": bout["launches"][name]
                      + sum(per_arm.values()) + sum(per_sharded.values())
                      + fout["launches"][name] + n_serve + n_replica
-                     + n_table3 + n_stream + n_mesh + n_lm + n_mesh_lm,
+                     + n_table3 + n_stream + n_mesh + n_lm + n_mesh_lm
+                     + n_dryrun,
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
                      "launches_sharded": per_sharded,
@@ -5371,6 +5702,7 @@ def main(argv=None) -> int:
                      "launches_mesh": n_mesh,
                      "launches_lm": n_lm,
                      "launches_mesh_lm": n_mesh_lm,
+                     "launches_dryrun": n_dryrun,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

@@ -10,7 +10,9 @@ reference rotates one buffer a stage with ``ppermute`` inside a
 ``shard_map`` and masks the invalid ticks; the port's hop is ``.to()``
 the next stage's device, and a stage with no valid microbatch at a
 tick does no work (the reference computes it and throws it away).
-Bubble overhead is the usual (S - 1) / (S + M - 1).
+Bubble overhead is the usual (S - 1) / (S + M - 1). Each stage's layers
+count at its grid position and each hop as the sender's
+collective-permute (``launch/step_cost.py``).
 
 Offered, as in the reference, as machinery for experiments
 (``build_pipeline_forward``), not wired into the archs' steps."""
@@ -19,6 +21,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import torch
+
+from repro_torch.launch import step_cost
 
 
 def stage_layers(n_layers: int, n_stages: int) -> Tuple[int, ...]:
@@ -58,6 +62,9 @@ def build_pipeline_forward(mesh, layer_fn: Callable, n_layers: int, *,
     stage's outputs [M, B_mb, S, D] after all layers, on its device."""
     devs = stage_devices(mesh, axis)
     n_stages = len(devs)
+    i = mesh.axis_names.index(axis)
+    pos = [step_cost.grid_index(mesh, {axis: s})
+           for s in range(mesh.devices.shape[i])]   # each stage's position
     assert n_layers % n_stages == 0, (n_layers, n_stages)
     per_stage = n_layers // n_stages
 
@@ -76,12 +83,19 @@ def build_pipeline_forward(mesh, layer_fn: Callable, n_layers: int, *,
                 if buf[s] is None:
                     continue
                 h = buf[s]
-                for l in range(per_stage):
-                    h = layer_fn({k: v[l] for k, v in local[s].items()}, h)
+                with step_cost.at(pos[s]):
+                    for l in range(per_stage):
+                        h = layer_fn({k: v[l] for k, v in local[s].items()},
+                                     h)
                 buf[s] = h
             if buf[-1] is not None:      # the last stage emits t - (S - 1)
                 outs[t - (n_stages - 1)] = buf[-1]
             # boundary activations hop one stage right
+            for s, b in enumerate(buf[:-1]):
+                if b is not None:
+                    with step_cost.at(pos[s]):
+                        step_cost.moved("collective-permute",
+                                        b.numel() * b.element_size())
             buf = [None] + [None if b is None else b.to(devs[s + 1])
                             for s, b in enumerate(buf[:-1])]
         return torch.stack(outs)

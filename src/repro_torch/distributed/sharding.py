@@ -48,6 +48,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.launch import step_cost
+
 
 class P(tuple):
     """A partition spec (the reference's ``PartitionSpec``): one entry a
@@ -464,8 +466,9 @@ class Sharded:
         carries a gradient back into each block). A single block already
         on ``device`` is returned as it is."""
         device = self.device if device is None else torch.device(device)
-        pieces = {i: p.to(device) for i, p in
-                  self._pieces(device, ranges or {}).items()}
+        pieces = self._pieces(device, ranges or {})
+        step_cost.on_gather(self, pieces)
+        pieces = {i: p.to(device) for i, p in pieces.items()}
         nd = len(self.shape)
 
         def cat(prefix, d):
@@ -483,6 +486,7 @@ class Sharded:
         ({dim: (lo, hi)}; every other dim whole), into every stored
         block it covers, in place."""
         ranges = ranges or {}
+        step_cost.on_write(self, ranges)
         for (idx, _), blk in self.blocks.items():
             sb, sv, empty = [], [], False
             for d, (lo, hi) in enumerate(self.block_range(idx)):

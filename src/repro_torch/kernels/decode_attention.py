@@ -10,15 +10,26 @@ ring of tiles where the chunk does not fit), and the last block of a
 (b, h) to finish, found by a per-(b, h) counter, merges the chunks'
 softmax states in chunk order and zeroes the counter again. Bound on the
 card: bytes (the valid K/V prefix). The plain version is
-``ref.decode_attention_ref``; ``ops.decode_attention`` picks between
-them by tensor device."""
+``ref.decode_attention_ref``.
+
+The dispatcher sees the kernel as the operator
+``repro_torch::decode_attention``, registered as
+``flash_attention.py``'s: a CUDA tensor launches the kernel, a CPU
+tensor takes the plain version, "meta" gets the output's shape, and
+``flops`` counts it. On the H100's host the operator adds 9.81-19.20
+us a call over ``decode_attention_cuda`` at row 9b's shape, 4.38-6.22
+us of it the dispatcher alone (PERF.md), past the 5 us a decode
+step's call may spend on it, so ``ops.decode_attention`` takes it only
+where a dispatch mode watches or on "meta" (``ops._watched``)."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import check_cuda, stream_of
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float,
@@ -179,3 +190,26 @@ def decode_attention_cuda(q, k, v, length):
 
 
 decode_attention_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the operator the dispatcher sees
+# --------------------------------------------------------------------------
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor length)"
+            " -> Tensor")
+_LIB.impl("decode_attention", ref.decode_attention_ref, "CPU")
+_LIB.impl("decode_attention", lambda q, k, v, length: decode_attention_cuda(
+    q.contiguous(), k.contiguous(), v.contiguous(),
+    length.to(torch.int32).contiguous()), "CUDA")
+_LIB.impl("decode_attention", lambda q, k, v, length: q.new_empty(q.shape),
+          "Meta")
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """4 B H T d: the plain version's two products over the whole cache
+    length T (not the valid prefix), as the reference's jnp oracle."""
+    B, H, d = q_shape
+    return 4 * B * H * k_shape[2] * d

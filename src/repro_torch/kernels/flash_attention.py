@@ -11,15 +11,31 @@ T and d <= 256, ragged edges masked: bf16 runs on the tensor cores
 each tile's kv range is split over several blocks whose partial states a
 second kernel merges (``split_plan``); f32 runs on the f32 FMA units (64
 x 64 tiles). Bound on the card: operations at model widths, bytes at
-small S*T. The plain version is ``ref.flash_attention_ref``;
-``ops.flash_attention`` picks between them by tensor device."""
+small S*T. The plain version is ``ref.flash_attention_ref``.
+
+The dispatcher sees the kernel as the operator
+``repro_torch::flash_attention`` (``torch.ops.repro_torch
+.flash_attention``): a CUDA tensor launches the kernel, a CPU tensor
+takes the plain version, a "meta" tensor gets the output's shape and
+dtype, and ``torch.utils.flop_counter`` counts it by ``flops``, so a
+``FlopCounterMode`` or the dry-run's counter around a step on the card
+or on "meta" sees the attention. It is registered through
+``torch.library.Library``, one Python kernel a dispatch key (lighter
+than ``torch.library.custom_op``, whose wrapper adds its own Python
+layers). Even so, on the
+H100's host the operator adds 10.26-13.17 us a call over
+``flash_attention_cuda`` at row 8b's shape, 4.38-6.22 us of it the
+dispatcher alone (PERF.md), so ``ops.flash_attention`` takes it
+only where a dispatch mode watches or on "meta" (``ops._watched``)."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import check_cuda, stream_of
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
@@ -162,3 +178,30 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int,
 
 
 flash_attention_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the operator the dispatcher sees
+# --------------------------------------------------------------------------
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window) -> Tensor")
+_LIB.impl("flash_attention", lambda q, k, v, causal, window:
+          ref.flash_attention_ref(q, k, v, causal=causal, window=window),
+          "CPU")
+_LIB.impl("flash_attention", lambda q, k, v, causal, window:
+          flash_attention_cuda(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window),
+          "CUDA")
+_LIB.impl("flash_attention", lambda q, k, v, causal, window:
+          q.new_empty(q.shape), "Meta")
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """4 B H S T d: the plain version's two matmuls (q k^T and p v) over
+    the whole S x T score matrix, no causal or window skipping, as the
+    reference's jnp oracle's dots count on the CPU."""
+    B, H, S, d = q_shape
+    return 4 * B * H * S * k_shape[2] * d

@@ -10,7 +10,12 @@ their row gathers).
 Same op names, signatures and sentinels as the reference. A CPU tensor
 takes the plain PyTorch version (``kernels/ref.py``); a CUDA tensor
 launches the hand-written kernel, and a kernel that fails to build or
-launch raises — there is no switch and no fallback. Each CUDA wrapper
+launch raises — there is no switch and no fallback. Under a dispatch
+mode (a FLOP counter) and on "meta", B8 and B9 go through the
+dispatcher as the operators ``repro_torch::flash_attention`` and
+``repro_torch::decode_attention`` (``kernels/flash_attention.py``,
+``decode_attention.py``, ``_watched``), which carry their FLOP formulas
+for ``torch.utils.flop_counter``. Each CUDA wrapper
 counts its launches in a plain integer (``launch_counts``);
 ``trip_fold_gated`` counts the fold's launches gated per row (the
 slotted search), each also one of ``trip_fold``'s. The Dist.L
@@ -274,6 +279,28 @@ def _same_attention_dtype(name, *ts):
                         f"float32 or bfloat16, got {sorted(map(str, dt))}")
 
 
+def _attention_device(*ts) -> bool:
+    """``_on_cuda`` for the attention operators, which also take "meta"
+    tensors (the dry-run counts a step there without running it): True
+    iff every tensor is on CUDA, False iff every one is on the CPU or
+    every one on "meta"; anything else raises."""
+    if {t.device.type for t in ts} == {"meta"}:
+        return False
+    return _on_cuda(*ts)
+
+
+def _watched(q) -> bool:
+    """Whether B8 / B9 go through the dispatcher as their operators
+    (``repro_torch::flash_attention`` / ``decode_attention``): on "meta",
+    and wherever a ``TorchDispatchMode`` (``FlopCounterMode``, the
+    dry-run's ``StepCounter``) is active, so that it sees them and counts
+    their FLOPs. Elsewhere the op calls the kernel's wrapper, or the
+    plain version, itself: on the H100's host the operator adds 10-19 us
+    a call over the wrapper at rows 8b and 9b, the dispatcher alone
+    4.38-6.22 (PERF.md), about the 5 us a serving call may spend on it."""
+    return q.device.type == "meta" or torch._C._len_torch_dispatch_stack() > 0
+
+
 def _refuse_graph(name, *ts) -> None:
     """The attention kernels have no backward: on the card their output
     would carry no ``grad_fn``, and backward would leave the projections
@@ -300,8 +327,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if window < 0:
         raise ValueError(f"flash_attention: window={window} < 0")
     _refuse_graph("flash_attention", q, k, v)
-    if _on_cuda(q, k, v):
+    cuda = _attention_device(q, k, v)
+    if cuda:
         _same_attention_dtype("flash_attention", q, k, v)
+    if _watched(q):
+        return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                     int(window))
+    if cuda:
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
                                     window=window)
@@ -316,8 +348,12 @@ def decode_attention(q, k, v, length, *, bk: int = 512):
     its signature; the CUDA kernel splits the cache by its own plan."""
     del bk
     _refuse_graph("decode_attention", q, k, v)
-    if _on_cuda(q, k, v, length):
+    cuda = _attention_device(q, k, v, length)
+    if cuda:
         _same_attention_dtype("decode_attention", q, k, v)
+    if _watched(q):
+        return torch.ops.repro_torch.decode_attention(q, k, v, length)
+    if cuda:
         return decode_attention_cuda(q.contiguous(), k.contiguous(),
                                      v.contiguous(),
                                      length.to(torch.int32).contiguous())

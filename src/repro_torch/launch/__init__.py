@@ -1,5 +1,6 @@
 """Launchers (port of ``repro/launch``): ``serve``, LM generation or
 pHNSW vector search; ``train``, the training loop; ``steps``, the train,
-prefill and serve steps on one card or on a mesh; ``mesh``, the
-production and host meshes. The dry-run tools (``lower_step``,
-``dryrun``, ``hlo_cost``, ``roofline``) wait for ROADMAP.md A10e."""
+prefill and serve steps on one card or on a mesh, and ``lower_step``;
+``mesh``, the production, host and abstract meshes; the dry-run tools
+``step_cost`` (the per-position step cost counter), ``dryrun`` and
+``roofline``."""

@@ -24,17 +24,21 @@ one process (``distributed/sharding.py`` says why this is not DTensor):
   pool over the whole (micro)batch, as the reference's local dispatch:
   its rows are not split, and run whole on the grid's first device.
 
-The layouts and the step builders are here; ``lower_step`` and the
-dry-run tools that read them wait for ROADMAP.md A10e."""
+Each builder's ``specs["unit"]`` is the body it runs for one computing
+unit, and each unit runs inside ``step_cost.at`` its grid position, so
+that ``lower_step`` (below) counts a step's cost per position on the
+"meta" device, each distinct unit once (``launch/step_cost.py``,
+``launch/dryrun.py``)."""
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import NamedSharding, P, Sharded
+from repro_torch.launch import step_cost
 from repro_torch.models import _reference_path, get_model
 from repro_torch.models.moe import expert_parallel
 from repro_torch.optim import AdamWConfig, adamw_update
@@ -124,9 +128,16 @@ def computing_units(cfg, mesh, rows: int, kind: str, offset: int = 0
     the row's first device. Where the MoE pools the whole batch
     (``_pooled``), every row is one unit on the grid's first device.
     Positions with no rows do not compute."""
+    return [u[1:] for u in _units(cfg, mesh, rows, kind, offset)]
+
+
+def _units(cfg, mesh, rows: int, kind: str, offset: int = 0
+           ) -> List[Tuple[int, torch.device, int, int, int]]:
+    """``computing_units`` with each unit's grid position first: [(grid
+    index, device, grid row, lo, hi)]."""
     grid = mesh.grid()
     if _pooled(cfg, mesh, kind):
-        return [(grid[0, 0], 0, offset, offset + rows)]
+        return [(0, grid[0, 0], 0, offset, offset + rows)]
     R, M = grid.shape
     bspec = shd.batch_spec(cfg, mesh, rows, kind)
     n_blk = shd.axes_size(mesh, [a for a in (bspec or ()) if a != "model"])
@@ -139,7 +150,7 @@ def computing_units(cfg, mesh, rows: int, kind: str, offset: int = 0
             a = lo + (hi - lo) * m // split
             e = lo + (hi - lo) * (m + 1) // split
             if e > a:
-                out.append((grid[r, m], r, a, e))
+                out.append((r * M + m, grid[r, m], r, a, e))
     return out
 
 
@@ -345,6 +356,18 @@ def _mesh_train_step(cfg, mesh, shape, opt_cfg, mb, api):
     gather = _Gatherer(cfg, mesh, api, skeleton, "train")
     first = mesh.devices.flat[0]
 
+    def unit(params, batch, dev, r: int, lo: int, hi: int) -> dict:
+        """One computing unit: the loss of global rows [lo, hi) on
+        ``dev`` (grid row ``r``) and its backward, the gradients left in
+        each stored block's ``.grad``; returns the loss's metrics."""
+        vals = gather(params, dev)
+        rb = {k: _take(v, lo, hi, dev) for k, v in batch.items()}
+        with shd.bound(skeleton, vals), \
+                shd.activation_rules(arules, mesh, row=r):
+            loss, m = api.loss(skeleton, rb)
+            loss.backward()
+        return m
+
     def grads_of(params, batch):
         """(grads, metrics): each parameter's gradient, the mean over the
         microbatches, as a ``Sharded`` f32 leaf in the parameter's layout
@@ -356,16 +379,11 @@ def _mesh_train_step(cfg, mesh, shape, opt_cfg, mb, api):
                 for n, key, b in stored}
         msum: Dict[str, torch.Tensor] = {}
         for i in range(mb):
-            for dev, r, lo, hi in computing_units(cfg, mesh, rows, "train",
-                                                  i * rows):
+            for pos, dev, r, lo, hi in _units(cfg, mesh, rows, "train",
+                                              i * rows):
                 w = (hi - lo) / rows
-                vals = gather(params, dev)
-                rb = {k: _take(v, lo, hi, dev) for k, v in batch.items()}
-                with shd.bound(skeleton, vals), \
-                        shd.activation_rules(arules, mesh, row=r):
-                    loss, m = api.loss(skeleton, rb)
-                    loss.backward()
-                del vals, loss
+                with step_cost.at(pos):
+                    m = unit(params, batch, dev, r, lo, hi)
                 for n, key, b in stored:
                     if b.grad is not None:
                         gsum[(n, key)].add_(b.grad.to(torch.float32),
@@ -375,6 +393,8 @@ def _mesh_train_step(cfg, mesh, shape, opt_cfg, mb, api):
                     v = v.detach().to(first) * w
                     msum[k] = v if k not in msum else msum[k] + v
         # copies of one block index on several devices: one sum, to each
+        for leaf in params.values():
+            step_cost.on_replica_sum(leaf)
         by_idx: Dict[tuple, list] = {}
         for n, key, _ in stored:
             by_idx.setdefault((n, key[0]), []).append(key)
@@ -403,7 +423,8 @@ def _mesh_train_step(cfg, mesh, shape, opt_cfg, mb, api):
                                 norm_of=norm_of)
         return params, opt_state, {**metrics, **om}
 
-    specs.update(a_opt=a_opt, o_sh=o_sh, microbatches=mb, grads=grads_of)
+    specs.update(a_opt=a_opt, o_sh=o_sh, microbatches=mb, grads=grads_of,
+                 unit=unit)
     return train_step, specs
 
 
@@ -427,29 +448,39 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig):
     lg_sh = _logits_sharding(cfg, mesh)
     gather = _Gatherer(cfg, mesh, api, skeleton, "prefill")
 
-    def prefill_step(params, batch, cache_len=None):
+    def unit(params, batch, dev, r: int, lo: int, hi: int, cache_len,
+             out: dict) -> None:
+        """One computing unit: the prompt's global rows [lo, hi) on
+        ``dev`` (grid row ``r``), written into ``out``'s "logits" and
+        "cache" (made, zeroed and laid out, by the first unit)."""
         B = next(iter(batch.values())).shape[0]
-        logits, cache = None, None
-        for dev, r, lo, hi in computing_units(cfg, mesh, B, "prefill"):
-            rb = {k: _take(v, lo, hi, dev) for k, v in batch.items()}
-            with shd.bound(skeleton, gather(params, dev)), \
-                    shd.activation_rules(arules, mesh, row=r):
-                lg, c = api.prefill(skeleton, rb, cache_len)
-            if cache is None:
+        rb = {k: _take(v, lo, hi, dev) for k, v in batch.items()}
+        with shd.bound(skeleton, gather(params, dev)), \
+                shd.activation_rules(arules, mesh, row=r):
+            lg, c = api.prefill(skeleton, rb, cache_len)
+        if "cache" not in out:
+            with step_cost.at(None):      # the step's outputs, not its work
                 glob = _tree_map(lambda _, t: torch.empty(
                     (t.shape[0], B) + tuple(t.shape[2:]), dtype=t.dtype,
                     device="meta"), c)
                 sh = cache_shardings(cfg, mesh, glob, B)
-                cache = _tree_map(lambda p, t: Sharded.zeros(
+                out["cache"] = _tree_map(lambda p, t: Sharded.zeros(
                     _at(sh, p), t.shape, t.dtype), glob)
-                logits = Sharded.zeros(lg_sh, (B,) + tuple(lg.shape[1:]),
-                                       lg.dtype)
-            _tree_map(lambda p, leaf: leaf.write(_at(c, p), {1: (lo, hi)}),
-                      cache)
-            logits.write(lg, {0: (lo, hi)})
-        return logits, cache
+                out["logits"] = Sharded.zeros(
+                    lg_sh, (B,) + tuple(lg.shape[1:]), lg.dtype)
+        _tree_map(lambda p, leaf: leaf.write(_at(c, p), {1: (lo, hi)}),
+                  out["cache"])
+        out["logits"].write(lg, {0: (lo, hi)})
 
-    specs.update(a_cache=a_cache, c_sh=c_sh)
+    def prefill_step(params, batch, cache_len=None):
+        B = next(iter(batch.values())).shape[0]
+        out = {}
+        for pos, dev, r, lo, hi in _units(cfg, mesh, B, "prefill"):
+            with step_cost.at(pos):
+                unit(params, batch, dev, r, lo, hi, cache_len, out)
+        return out["logits"], out["cache"]
+
+    specs.update(a_cache=a_cache, c_sh=c_sh, unit=unit)
     return prefill_step, specs
 
 
@@ -489,33 +520,390 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig):
     lg_sh = _logits_sharding(cfg, mesh)
     gather = _Gatherer(cfg, mesh, api, skeleton, "decode")
 
+    def unit(params, cache, token, p: int, dev, lo: int, hi: int,
+             out: dict) -> None:
+        """One computing unit: rows [lo, hi) of the cache gathered onto
+        ``dev``, one decode step, the new slot written back in place and
+        the logits into ``out["logits"]`` (made by the first unit)."""
+        B = token.shape[0]
+        mine = _tree_map(lambda _, s: s.gather(dev, {1: (lo, hi)}), cache)
+        tok = _take(token, lo, hi, dev)
+        with shd.bound(skeleton, gather(params, dev)):
+            lg, mine = api.decode_step(skeleton, mine, tok, p)
+
+        def back(path, leaf):
+            t = _at(mine, path)
+            if path[-1] in _SEQ_LEAVES:
+                T = leaf.shape[3]
+                s = p % T if _ring(cfg) else min(p, T - 1)
+                leaf.write(t[:, :, :, s:s + 1], {1: (lo, hi),
+                                                 3: (s, s + 1)})
+            else:
+                leaf.write(t, {1: (lo, hi)})
+        _tree_map(back, cache)
+        if "logits" not in out:
+            with step_cost.at(None):      # the step's output, not its work
+                out["logits"] = Sharded.zeros(
+                    lg_sh, (B,) + tuple(lg.shape[1:]), lg.dtype)
+        out["logits"].write(lg, {0: (lo, hi)})
+
     def serve_step(params, cache, token, pos):
         p = int(pos)
-        B = token.shape[0]
-        logits = None
-        for dev, _, lo, hi in computing_units(cfg, mesh, B, "decode"):
-            mine = _tree_map(lambda _, s: s.gather(dev, {1: (lo, hi)}),
-                             cache)
-            tok = _take(token, lo, hi, dev)
-            with shd.bound(skeleton, gather(params, dev)):
-                lg, mine = api.decode_step(skeleton, mine, tok, p)
+        out = {}
+        for g, dev, _, lo, hi in _units(cfg, mesh, token.shape[0],
+                                        "decode"):
+            with step_cost.at(g):
+                unit(params, cache, token, p, dev, lo, hi, out)
+        return out["logits"], cache
 
-            def back(path, leaf):
-                t = _at(mine, path)
-                if path[-1] in _SEQ_LEAVES:
-                    T = leaf.shape[3]
-                    s = p % T if _ring(cfg) else min(p, T - 1)
-                    leaf.write(t[:, :, :, s:s + 1], {1: (lo, hi),
-                                                     3: (s, s + 1)})
-                else:
-                    leaf.write(t, {1: (lo, hi)})
-            _tree_map(back, cache)
-            if logits is None:
-                logits = Sharded.zeros(lg_sh, (B,) + tuple(lg.shape[1:]),
-                                       lg.dtype)
-            logits.write(lg, {0: (lo, hi)})
-        return logits, cache
-
-    specs.update(a_cache=a_cache, c_sh=c_sh)
+    specs.update(a_cache=a_cache, c_sh=c_sh, unit=unit)
     return serve_step, specs
 
+
+
+# --------------------------------------------------------------------------
+# lower_step: a step's cost and memory per position, counted on "meta"
+# --------------------------------------------------------------------------
+
+def _empty_sharded(sharding: NamedSharding, shape, dtype,
+                   requires_grad: bool = False) -> Sharded:
+    """A ``Sharded`` leaf of ``shape`` laid out by ``sharding`` whose
+    blocks are "meta" tensors (nothing allocated)."""
+    leaf = Sharded(sharding, shape, dtype, {})
+    for key in leaf.keys():
+        if key not in leaf.blocks:
+            shp = [hi - lo for lo, hi in leaf.block_range(key[0])]
+            leaf.blocks[key] = torch.empty(shp, dtype=dtype, device="meta"
+                                           ).requires_grad_(requires_grad)
+    return leaf
+
+
+def _block_bytes(sharding: NamedSharding, shape, dtype) -> Tuple[int, int]:
+    """(the bytes of one block, the (block, device) pairs stored) of a
+    leaf of ``shape`` and ``dtype`` laid out by ``sharding``: every
+    position holds one block of each leaf, all of one shape."""
+    leaf = Sharded(sharding, shape, dtype, {})
+    n = 1
+    for lo, hi in leaf.block_range(leaf.keys()[0][0]):
+        n *= hi - lo
+    return n * torch.empty((), dtype=dtype).element_size(), \
+        len(set(leaf.keys()))
+
+
+class MemoryAnalysis:
+    """The reference's ``memory_analysis()`` sizes of one position (the
+    largest over positions), and ``stored_argument_bytes``: the
+    arguments summed once per (block, device) of the mesh given to
+    ``lower_step`` (what that mesh's cards store; on a mesh of one card
+    repeated, one copy of a replicated block)."""
+
+    def __init__(self, argument: int, output: int, alias: int, temp: int,
+                 stored_argument: int, per_position: List[dict]):
+        self.argument_size_in_bytes = argument
+        self.output_size_in_bytes = output
+        self.alias_size_in_bytes = alias
+        self.temp_size_in_bytes = temp
+        self.stored_argument_bytes = stored_argument
+        self.per_position = per_position
+
+    def __repr__(self):
+        return (f"MemoryAnalysis(argument={self.argument_size_in_bytes}, "
+                f"output={self.output_size_in_bytes}, alias="
+                f"{self.alias_size_in_bytes}, temp={self.temp_size_in_bytes},"
+                f" stored_argument={self.stored_argument_bytes})")
+
+
+class StepCost:
+    """``Lowered.cost()``: ``positions`` (a ``Cost`` a grid position),
+    ``busiest`` (the position with the most FLOPs, then bytes; what the
+    reference's per-device HLO gives), ``total`` (the sum over
+    positions), ``multiplicity`` ([(count, Cost)]: the distinct
+    per-position costs and how many positions have each) and ``units``
+    ({unit key: how many computing units share it}; each key was run
+    once unless ``lower_step(dedup=False)``)."""
+
+    def __init__(self, positions: List[step_cost.Cost], units: dict):
+        self.positions = positions
+        self.units = units
+        self.total = step_cost.Cost()
+        for c in positions:
+            self.total.add(c)
+        self.busiest_position = max(
+            range(len(positions)), key=lambda i: (
+                positions[i].flops, positions[i].bytes_accessed,
+                positions[i].collective_bytes, -i))
+        self.busiest = positions[self.busiest_position]
+        seen: Dict[str, list] = {}
+        for c in positions:
+            k = repr(c.as_dict())
+            if k in seen:
+                seen[k][0] += 1
+            else:
+                seen[k] = [1, c]
+        self.multiplicity = [tuple(v) for v in seen.values()]
+
+
+def _translate(pos: int, g_from: int, g_to: int, R: int, M: int) -> int:
+    """Grid position ``pos`` of a unit run at ``g_from``, moved with the
+    unit to ``g_to`` (rows and columns shifted, wrapping)."""
+    a, b = divmod(pos, M)
+    r1, m1 = divmod(g_from, M)
+    r2, m2 = divmod(g_to, M)
+    return ((a - r1 + r2) % R) * M + (b - m1 + m2) % M
+
+
+class Lowered:
+    """``lower_step``'s result: the step built on an abstract twin of the
+    mesh (``launch.mesh.abstract_mesh``: the same shape and axes, every
+    position a "meta" device of its own), its state as "meta" blocks,
+    and two methods: ``cost()`` (traced at its first call, ``trace_s``)
+    and ``memory_analysis()`` (from the layouts; its temp bytes 0 until
+    ``cost()`` has run)."""
+
+    def __init__(self, run, memory: MemoryAnalysis):
+        self._run = run
+        self._memory = memory
+        self._cost: Optional[StepCost] = None
+        self.trace_s: Optional[float] = None
+
+    def cost(self) -> StepCost:
+        if self._cost is None:
+            import time
+            t0 = time.perf_counter()
+            self._cost = self._run()
+            self.trace_s = time.perf_counter() - t0
+        return self._cost
+
+    def memory_analysis(self) -> MemoryAnalysis:
+        if self._cost is not None:
+            self._memory.temp_size_in_bytes = max(
+                p["temp_size_in_bytes"] for p in self._memory.per_position)
+        return self._memory
+
+
+def lower_step(cfg: ModelConfig, mesh, shape: ShapeConfig, *,
+               dedup: bool = True) -> Lowered:
+    """The port of ``repro/launch/steps.py: lower_step``: the train,
+    prefill or serve step of a (cfg, shape) cell on ``mesh`` (any
+    ``Mesh``: cards, "cpu" devices, repeated or not, or an abstract
+    one), built from ``abstract_params``, ``input_specs``,
+    ``param_specs`` and ``cache_shardings`` on the mesh's abstract twin,
+    so nothing is allocated and no kernel runs. ``cost()`` runs the
+    step's computing units (``specs["unit"]``, the body each step runs a
+    unit) under ``step_cost.StepCounter``, each at its grid position.
+    Two units are the same when they compute the same number of rows of
+    a (micro)batch of the same size in the same kind of step: their
+    gathered blocks, shapes and movements are then the same shifted
+    along the grid, so with ``dedup`` each distinct unit runs once and
+    its per-position costs are shifted to every other unit of its key
+    (``dedup=False`` runs every unit). The train step adds the
+    replicated gradients' sums and AdamW's update on each position's
+    blocks (one position's, shifted to all). ``memory_analysis()``:
+    argument, output and alias bytes a position from the layouts (the
+    train step's parameters and optimizer state, the serve step's cache,
+    donated), temp bytes the peak of a position's transient bytes under
+    the counter (an estimate: it moves by a few percent with when Python
+    frees a unit's last tensors)."""
+    kind = shape.kind
+    api = get_model(cfg)
+    from repro_torch.launch.mesh import abstract_mesh
+    twin = abstract_mesh(tuple(mesh.devices.shape), mesh.axis_names)
+    R, M = twin.grid().shape
+    specs_in = api.input_specs(shape)
+    B = shape.global_batch
+    on = lambda ns, m: NamedSharding(m, ns.spec)   # a sharding on mesh m
+    if kind == "train":
+        _, specs = build_train_step(cfg, twin, shape)
+        mb = specs["microbatches"]
+        rows = B // mb
+        units = [u for i in range(mb)
+                 for u in _units(cfg, twin, rows, kind, i * rows)]
+    else:
+        build = build_prefill_step if kind == "prefill" else \
+            build_serve_step
+        _, specs = build(cfg, twin, shape)
+        rows = B
+        units = _units(cfg, twin, B, kind)
+    p_sh, b_sh = specs["p_sh"], specs["b_sh"]
+    a_params = specs["a_params"]
+
+    # ---- memory, from the layouts
+    leaves = []                       # (sharding, shape, dtype, roles)
+    f32, i32 = torch.float32, torch.int32
+    for n, t in a_params.items():
+        leaves.append((p_sh[n], t.shape, t.dtype, "aio" if kind == "train"
+                       else "i"))
+    if kind == "train":
+        for n, t in a_params.items():
+            leaves += [(p_sh[n], t.shape, f32, "aio")] * 2     # m, v
+        leaves.append((_ns(twin), (), i32, "aio"))             # step
+    if kind == "decode":
+        for path, t in _leaves(specs["a_cache"]):
+            leaves.append((_at(specs["c_sh"], path), t.shape, t.dtype,
+                           "aio"))
+        leaves.append((b_sh["token"], specs_in["token"].shape, i32, "i"))
+        leaves.append((_ns(twin), (), i32, "i"))               # pos
+    else:
+        for k, t in specs_in.items():
+            leaves.append((b_sh[k], t.shape, t.dtype, "i"))
+    if kind == "prefill":
+        for path, t in _leaves(specs["a_cache"]):
+            leaves.append((_at(specs["c_sh"], path), t.shape, t.dtype, "o"))
+    if kind != "train":
+        lg = _logits_sharding(cfg, twin)
+        leaves.append((lg, (B, cfg.vocab), f32, "o"))
+    size = {"i": 0, "o": 0, "a": 0}
+    stored = 0
+    for sh, shp, dt, roles in leaves:
+        nb, _ = _block_bytes(sh, shp, dt)
+        for r in roles:
+            size[r] += nb
+        if "i" in roles:
+            stored += nb * _block_bytes(on(sh, mesh), shp, dt)[1]
+    per_position = [{"argument_size_in_bytes": size["i"],
+                     "output_size_in_bytes": size["o"],
+                     "alias_size_in_bytes": size["a"],
+                     "temp_size_in_bytes": 0}
+                    for _ in range(R * M)]
+    memory = MemoryAnalysis(size["i"], size["o"], size["a"], 0, stored,
+                            per_position)
+
+    # the data leaves a unit reads or writes rows of: (layout, the dim of
+    # the rows, other ranges, write)
+    data = [(Sharded(b_sh[k], t.shape, t.dtype, {}), 0, {}, False)
+            for k, t in specs_in.items() if k != "pos"]
+    if kind != "train":
+        data.append((Sharded(_logits_sharding(cfg, twin), (B, cfg.vocab),
+                             f32, {}), 0, {}, True))
+        for path, t in _leaves(specs["a_cache"]):
+            layout = Sharded(_at(specs["c_sh"], path), t.shape, t.dtype, {})
+            if kind == "prefill":
+                data.append((layout, 1, {}, True))
+                continue
+            data.append((layout, 1, {}, False))        # the gather
+            rng = {}
+            if path[-1] in _SEQ_LEAVES:                # the new slot
+                T, slot = t.shape[3], shape.seq_len - 1
+                s = slot % T if _ring(cfg) else min(slot, T - 1)
+                rng = {3: (s, s + 1)}
+            data.append((layout, 1, rng, True))
+    holders = [step_cost.holders_of(layout) for layout, *_ in data]
+
+    def moves(u) -> Dict[str, int]:
+        coords = step_cost.grid_coords(twin, u[0])
+        out = {"all-gather": 0, "all-to-all": 0}
+        for (layout, d, rng, write), h in zip(data, holders):
+            out["all-to-all" if write else "all-gather"] += \
+                step_cost.moved_bytes(layout, coords, {d: (u[3], u[4]),
+                                                       **rng}, write, h)
+        return out
+
+    def run() -> StepCost:
+        counter = step_cost.StepCounter()
+        totals = [step_cost.Cost() for _ in range(R * M)]
+        temps = [0] * (R * M)
+        seen: Dict[tuple, tuple] = {}
+        counts: Dict[tuple, int] = {}
+
+        def merge(rec, g_from, g_to):
+            costs, peaks = rec
+            for p, c in costs.items():
+                totals[_translate(p, g_from, g_to, R, M)].add(c)
+            for p, v in peaks.items():
+                q = _translate(p, g_from, g_to, R, M)
+                temps[q] = max(temps[q], v)
+
+        def record(fn, pos):
+            counter.reset()
+            with step_cost.at(pos):
+                fn()
+            return dict(counter.costs), counter.transient()
+
+        with counter:
+            if kind == "train":
+                params = {n: _empty_sharded(p_sh[n], t.shape, t.dtype, True)
+                          for n, t in a_params.items()}
+                batch = {k: _empty_sharded(b_sh[k], t.shape, t.dtype)
+                         for k, t in specs_in.items()}
+                unit = specs["unit"]
+
+                def body(u):
+                    _, dev, r, lo, hi = u
+                    unit(params, batch, dev, r, lo, hi)
+                    for leaf in params.values():
+                        for b in leaf.blocks.values():
+                            b.grad = None
+            else:
+                params = {n: _empty_sharded(p_sh[n], t.shape, t.dtype)
+                          for n, t in a_params.items()}
+                out: dict = {}
+                unit = specs["unit"]
+                if kind == "prefill":
+                    batch = {k: _empty_sharded(b_sh[k], t.shape, t.dtype)
+                             for k, t in specs_in.items()}
+
+                    def body(u):
+                        _, dev, r, lo, hi = u
+                        unit(params, batch, dev, r, lo, hi, None, out)
+                else:
+                    cache = _tree_map(lambda p, t: _empty_sharded(
+                        _at(specs["c_sh"], p), t.shape, t.dtype),
+                        specs["a_cache"])
+                    token = _empty_sharded(b_sh["token"],
+                                           specs_in["token"].shape, i32)
+
+                    def body(u):
+                        _, dev, r, lo, hi = u
+                        unit(params, cache, token, shape.seq_len - 1, dev,
+                             lo, hi, out)
+            for u in units:
+                key = (kind, u[4] - u[3], rows)
+                counts[key] = counts.get(key, 0) + 1
+                if dedup and key in seen:
+                    g0, rec, m0 = seen[key]
+                    merge(rec, g0, u[0])
+                    # the rows it reads and writes may lie elsewhere
+                    # relative to it than the first unit's did
+                    for cat, v in moves(u).items():
+                        totals[u[0]].collective[cat] += v - m0[cat]
+                    continue
+                rec = record(lambda: body(u), u[0])
+                seen[key] = (u[0], rec, moves(u))
+                merge(rec, u[0], u[0])
+            if kind == "train":
+                counter.reset()
+                for leaf in params.values():
+                    step_cost.on_replica_sum(leaf)
+                for p, c in counter.costs.items():
+                    totals[p].add(c)
+                # AdamW on position 0's blocks; every position holds one
+                # block of each leaf, all of one shape
+                blk = lambda t, dt: torch.empty(t.shape, dtype=dt,
+                                                device="meta")
+                own = {n: leaf.blocks[next(iter(leaf.blocks))]
+                       for n, leaf in params.items()}
+                grads = {n: blk(b, f32) for n, b in own.items()}
+                state = {"m": {n: blk(b, f32) for n, b in own.items()},
+                         "v": {n: blk(b, f32) for n, b in own.items()},
+                         "step": torch.empty((), dtype=i32, device="meta")}
+                opt = {n: blk(b, b.dtype) for n, b in own.items()}
+                costs, peaks = record(lambda: adamw_update(
+                    AdamWConfig(), opt, grads, state, norm_of=grads), 0)
+                for q in range(R * M):
+                    for c in costs.values():
+                        totals[q].add(c)
+                    temps[q] = max(temps[q], max(peaks.values(), default=0))
+        for q, t in enumerate(temps):
+            per_position[q]["temp_size_in_bytes"] = t
+        return StepCost(totals, counts)
+
+    return Lowered(run, memory)
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) of a nested dict's leaves, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree

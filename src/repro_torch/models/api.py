@@ -5,8 +5,8 @@ its family's implementation. Every family trains (``loss``) and serves
 (``hybrid.py``, recurrentgemma) and ssm (``ssm.py``, rwkv6).
 ``abstract_params``, ``abstract_cache`` and ``input_specs`` describe a
 cell without allocating: tensors on the "meta" device (the step
-builders' layouts read them; the dry-run tools that will lower a step
-from them wait for ROADMAP.md A10e)."""
+builders' layouts read them, and ``launch.steps.lower_step`` lowers a
+step from them)."""
 from __future__ import annotations
 
 import torch

@@ -39,6 +39,7 @@ from torch import nn
 
 from repro_torch.distributed.sharding import (Sharded, axis_size,
                                               current_mesh, current_row)
+from repro_torch.launch import step_cost
 from repro_torch.models.common import dense_init
 
 
@@ -199,13 +200,18 @@ def _apply_moe_sharded(cfg, p: MoE, x, mesh, *, row: int,
     for m in range(M):
         dev = grid[row, m]
         lo, hi = m * E_loc, (m + 1) * E_loc
-        xm = xf.to(dev)
-        router = _experts(p.router, dev, 0, E, dim=1)
-        top_w, top_e, a = _route(cfg, router, xm)
-        ym, nd = _dispatch(xm, top_w, top_e,
-                           _experts(p.e_gate, dev, lo, hi),
-                           _experts(p.e_up, dev, lo, hi),
-                           _experts(p.e_down, dev, lo, hi), lo, C)
+        with step_cost.at(row * M + m):
+            if m:
+                step_cost.moved("all-gather", xf.numel() * xf.element_size())
+            xm = xf.to(dev)
+            router = _experts(p.router, dev, 0, E, dim=1)
+            top_w, top_e, a = _route(cfg, router, xm)
+            ym, nd = _dispatch(xm, top_w, top_e,
+                               _experts(p.e_gate, dev, lo, hi),
+                               _experts(p.e_up, dev, lo, hi),
+                               _experts(p.e_down, dev, lo, hi), lo, C)
+            if m:
+                step_cost.moved("all-reduce", ym.numel() * ym.element_size())
         ym, nd = ym.to(x.device), nd.to(x.device)
         y = ym if y is None else y + ym
         n_dropped = nd if n_dropped is None else n_dropped + nd

@@ -1706,3 +1706,57 @@ def test_attention_kernels_refuse_a_graph_on_card(cuda):
     got = GenerationEngine(cfg, model, max_new=4, device=cuda).generate(batch)
     assert np.array_equal(got.tokens, want.tokens)
     assert np.array_equal(got.last_logits, want.last_logits)
+
+
+# ---- B8 and B9 as dispatcher operators (the dry-run counts them) ----
+
+@pytest.mark.parametrize("H,KV,S,T,d,causal,window", [
+    (4, 4, 64, 64, 64, True, 0), (8, 2, 33, 70, 128, True, 16),
+    (4, 1, 16, 40, 32, False, 0)])
+def test_flash_attention_counts_like_cpu_and_launches_once(
+        cuda, H, KV, S, T, d, causal, window):
+    """B8 through ``ops``: a ``FlopCounterMode`` counts its formula on
+    CUDA tensors exactly as on CPU ones (and as on "meta"), and each call
+    launches the kernel once."""
+    from torch.utils.flop_counter import FlopCounterMode
+    g = torch.Generator().manual_seed(H + S)
+    q, k, v = (torch.randn(shape, generator=g, dtype=torch.bfloat16)
+               for shape in ((2, H, S, d), (2, KV, T, d), (2, KV, T, d)))
+    counts = {}
+    for dev in ("cpu", cuda, "meta"):
+        with FlopCounterMode(display=False) as fc:
+            before = ops.launch_counts()["flash_attention"]
+            ops.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                                causal=causal, window=window)
+            counts[str(dev)] = (fc.get_total_flops(),
+                                ops.launch_counts()["flash_attention"]
+                                - before)
+    torch.cuda.synchronize()
+    want = 4 * 2 * H * S * T * d
+    assert counts == {"cpu": (want, 0), "cuda": (want, 1),
+                      "meta": (want, 0)}
+
+
+@pytest.mark.parametrize("H,KV,T,d", [(4, 4, 4096, 64), (24, 2, 1056, 128),
+                                      (16, 1, 300, 256)])
+def test_decode_attention_counts_like_cpu_and_launches_once(cuda, H, KV, T,
+                                                            d):
+    from torch.utils.flop_counter import FlopCounterMode
+    g = torch.Generator().manual_seed(H + T)
+    q = torch.randn((3, H, d), generator=g, dtype=torch.bfloat16)
+    k, v = (torch.randn((3, KV, T, d), generator=g, dtype=torch.bfloat16)
+            for _ in range(2))
+    length = torch.tensor([0, T // 2, T], dtype=torch.int32)
+    counts = {}
+    for dev in ("cpu", cuda, "meta"):
+        with FlopCounterMode(display=False) as fc:
+            before = ops.launch_counts()["decode_attention"]
+            ops.decode_attention(q.to(dev), k.to(dev), v.to(dev),
+                                 length.to(dev))
+            counts[str(dev)] = (fc.get_total_flops(),
+                                ops.launch_counts()["decode_attention"]
+                                - before)
+    torch.cuda.synchronize()
+    want = 4 * 3 * H * T * d
+    assert counts == {"cpu": (want, 0), "cuda": (want, 1),
+                      "meta": (want, 0)}

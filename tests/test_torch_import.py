@@ -73,7 +73,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.optim.compression", "repro_torch.checkpoint",
               "repro_torch.checkpoint.ckpt", "repro_torch.train",
               "repro_torch.train.loop", "repro_torch.distributed.sharding",
-              "repro_torch.distributed.pipeline", "repro_torch.launch.mesh"):
+              "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
+              "repro_torch.launch.step_cost", "repro_torch.launch.dryrun",
+              "repro_torch.launch.roofline"):
         assert m in got["modules"]
     assert got["bad"] == []
     assert got["built"] == []
