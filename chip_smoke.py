@@ -54,7 +54,16 @@ non-zero:
                 (index_select, distances, stable sort, id gather) on
                 integer rows, against the unfused path on float rows;
                 its bound counts the payload rows its gates and
-                neighbours need. Then the wide
+                neighbours need. Then the stacked kernels of the
+                sharded slotted pass (``check_stacked``: keys starting
+                "stacked"): ``fused_expand_rows`` (f32 and bf16 rows),
+                ``pq_expand_rows`` and the gated ``trip_fold`` on P = 4
+                shards' stacked leaves at the stream phase's sharded
+                bank (4 x 64 shard-major rows): bit for bit against
+                their plain versions, the P per-shard launches and the
+                library route, one device kernel a call, timed beside
+                them (``per_shard_ms``: the P launches the host loop
+                made before). Then the wide
                 tiers (phase ``wide_tiers``): the expands at M = 160 and
                 256, fused_filter at 60,000, merge_sorted at 12,816 and
                 60,100 elements, ksort_l at 13,000 and 60,000, exact
@@ -366,7 +375,15 @@ non-zero:
                 healthy bit-equal to its sync path, then shard 2 killed
                 by a ``FaultPlan`` until marked dead: every completion
                 degraded with the exact coverage, none of its ids, equal
-                to the degraded sync answers; ``slot_cache_sizes()``
+                to the degraded sync answers; its sharded runs step all
+                P shards in one pass: ``fused_expand_rows`` and
+                ``trip_fold`` launch once a layer-body trip and
+                ``trip_fold_gated`` once a slotted trip (trips counted
+                on the host, ``search_torch.trip_counts``), not P times,
+                and one full tick of each service (single and P=4) is
+                counted: ATen operations dispatched on the host, port
+                kernel launches and trips (``tick_ops``);
+                ``slot_cache_sizes()``
                 unchanged after each scheduler's warm-up; and
                 ``repro_torch.bench.load`` at 0.5 and 0.9 of capacity
                 (capacity, ``sync_tight``, the scheduler arm, the cost
@@ -732,6 +749,7 @@ def phase_kernels(torch, np, seed: int, device: str = "cuda") -> dict:
     results.update(check_fused_filter(torch, np, rng, T))
     results.update(check_fold_and_rows(torch, np, rng, T))
     results.update(check_pca_rows(torch, np, rng, T))
+    results.update(check_stacked(torch, np, rng, T))
     emit({"phase": "wide_tiers", "tiers": check_wide_tiers(torch, np, rng,
                                                            T)})
     results.update(check_attention(torch, np, rng))
@@ -805,8 +823,12 @@ def _library_fold(torch, F_d, F_i, C_d, C_i, W, Cp, dh, cand, kv,
     fd, fi = cd, ci
     if deleted is not None:
         safe = cand.clamp(min=0)
-        tomb = ((torch.take(deleted, (safe // 32).long()) >> (safe % 32))
-                & 1) != 0
+        word = (safe // 32).long()
+        if deleted.dim() == 2:      # stacked: row r reads shard r // (B / P)
+            P, nw = deleted.shape
+            word = word + (torch.arange(B, device=cand.device)
+                           // (B // P) * nw)[:, None]
+        tomb = ((torch.take(deleted, word) >> (safe % 32)) & 1) != 0
         fd = torch.where(acc & ~tomb, dh, inf)
         fi = torch.where(acc & ~tomb, cand, -1)
 
@@ -1217,6 +1239,158 @@ def check_pca_rows(torch, np, rng, T) -> dict:
                 B, W, M0, dl, kk, B * W, B * W * M0, isz), nops)[0],
             gated_share=gated / (B * W), needed_row_share=rows / (B * W * M0),
             device_kernels=calls)
+    return out
+
+
+# the stacked kernels at the stream phase's sharded bank: P shards of
+# STACKED_N nodes (the 75,000-point build's shards), S = STREAM_SLOTS
+# rows each, W = 1, M0 = 32; pca dl = 15 (f32 and bf16), pq S = 16, the
+# gated fold at ef 10 with the shards' tombstone words
+STACKED_P, STACKED_N = 4, 18_750
+
+
+def check_stacked(torch, np, rng, T) -> dict:
+    """The three per-trip kernels on stacked leaves ([P, N, ...], the B =
+    P * S rows shard-major: the sharded slotted pass over
+    ``core.distributed.stacked_db_view``), at the stream phase's sharded
+    bank: ``fused_expand_rows`` on f32 and bf16 rows and
+    ``pq_expand_rows`` on integer data, the gated ``trip_fold`` on
+    integer and float data; each bit for bit (raw f32 bits) against its
+    plain version, against P per-shard launches on the same leaves and
+    (the fold on float data, which has no -0.0) against the library
+    route; each stacked call one device kernel. Timed: the stacked
+    launch (``ms``), the P per-shard launches the host loop made before
+    (``per_shard_ms``), plain, library, and the bound on this data."""
+    from repro_torch.bench.kernel_footprint import (bound_ms,
+                                                    device_kernels,
+                                                    graph_ms)
+    from repro_torch.core.search_torch import pack_bitmap
+    from repro_torch.kernels import ops, ref
+    P, R, N, M0, W = STACKED_P, STREAM_SLOTS, STACKED_N, 32, 1
+    B = P * R
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    rows = lambda p: slice(p * R, (p + 1) * R)
+    cat = lambda outs: tuple(map(torch.cat, zip(*outs)))
+    out = {}
+
+    def same(name, got, wants):
+        torch.cuda.synchronize()
+        for what, want in wants:
+            need(all(torch.equal(bits(g), bits(w))
+                     for g, w in zip(got, want) if w is not None),
+                 f"{name}: the stacked launch differs from {what}")
+
+    def one_kernel(name, fn):
+        calls = device_kernels(fn)
+        need(calls == 1, f"{name}: {calls} device kernels a stacked call")
+        return calls
+
+    # -- fused_expand_rows --
+    adj, low = T(*(np.stack(a) for a in zip(
+        *(_pca_layer(np, rng, N, M0, 15, True) for _ in range(P)))))
+    C_i, exp, q, heap = T(*_pca_pops(np, rng, B, W, N, 15, True))
+    c_w, th, kk = C_i[:, :W], heap[:, -1], W * 16
+    for dt in ("f32", "bf16"):
+        pay = low.to(torch.bfloat16) if dt == "bf16" else low
+        name = f"fused_expand_rows{('stacked', P, R, W, M0, 15, 16, dt)}"
+        run = lambda: ops.fused_expand_rows(adj, pay, c_w, exp, q, th, kk)
+        per = lambda: [ops.fused_expand_rows(
+            adj[p], pay[p], c_w[rows(p)], exp[rows(p)], q[rows(p)],
+            th[rows(p)], kk) for p in range(P)]
+        plain = lambda: ref.fused_expand_rows_ref(adj, pay, c_w, exp, q, th,
+                                                  kk)
+        lib = lambda: _library_pca(torch, ref, adj, pay, c_w, exp, q, th, kk)
+        same(name, run(), [("the plain version", plain()),
+                           ("the per-shard launches", cat(per())),
+                           ("the library route", lib())])
+        calls = one_kernel(name, run)
+        gated = int(exp.sum())
+        needed = int(ref.popped_rows(adj, pay, c_w, exp)[1].sum())
+        out[("fused_expand_rows", ("stacked", P, R, W, M0, 15, 16, dt))] = \
+            dict(max_abs_err=0.0, ms=graph_ms(run), per_shard_ms=graph_ms(per),
+                 plain_ms=graph_ms(plain), library_ms=graph_ms(lib),
+                 bound=bound_ms(_pca_rows_bytes(B, W, M0, 15, kk, gated,
+                                                needed, pay.element_size())
+                                + (P - 1) * M0 * 4,
+                                needed * 15 * 3 + B * (W * M0) ** 2),
+                 device_kernels=calls)
+    del adj, low, pay
+
+    # -- pq_expand_rows --
+    S = 16
+    cases = [_rows_case(np, rng, R, W, M0, S, N) for _ in range(P)]
+    adj, codes = T(np.stack([c[0] for c in cases]),
+                   np.stack([c[1] for c in cases]))
+    C_i, exp, flat, heap = T(*(np.concatenate([c[i] for c in cases])
+                               for i in range(2, 6)))
+    lut = flat[:, :S * 256].reshape(B, S, 256).contiguous()
+    c_w, th, kk = C_i[:, :W], heap[:, -1], W * 16
+    name = f"pq_expand_rows{('stacked', P, R, W, M0, S, 16)}"
+    run = lambda: ops.pq_expand_rows(adj, codes, c_w, exp, lut, th, kk)
+    per = lambda: [ops.pq_expand_rows(adj[p], codes[p], c_w[rows(p)],
+                                      exp[rows(p)], lut[rows(p)],
+                                      th[rows(p)], kk) for p in range(P)]
+    plain = lambda: ref.pq_expand_rows_ref(adj, codes, c_w, exp, lut, th, kk)
+
+    def lib():
+        nb_i, mask, pay = ref.popped_rows(adj, codes, c_w, exp)
+        d = torch.gather(lut, 2, pay.long().transpose(1, 2)).sum(1)
+        d = torch.where(mask & (d < th[:, None]), d, 3.4e38)
+        sd, o = torch.sort(d, dim=1, stable=True)
+        return sd[:, :kk], torch.gather(nb_i, 1, o[:, :kk])
+
+    same(name, run(), [("the plain version", plain()),
+                       ("the per-shard launches", cat(per())),
+                       ("the library route", lib())])
+    calls = one_kernel(name, run)
+    # bytes as pq_expand_rows' row: the gated nodes' adjacency rows (and
+    # each shard's node 0 once), the codes of the slots whose neighbour
+    # is not -1, the table entries those codes name, the per-row words
+    M = W * M0
+    _, used, pay = ref.popped_rows(adj, codes, c_w, exp)
+    hits = torch.zeros((B, S, 256), dtype=torch.int32, device=adj.device)
+    hits.scatter_add_(2, pay.long().transpose(1, 2),
+                      used.int()[:, None, :].expand(B, S, M))
+    nbytes = int((hits > 0).sum()) * 4 + int(exp.sum()) * M0 * 4 \
+        + P * M0 * 4 + int(used.sum()) * S + B * (W * 5 + 4 + kk * 8)
+    out[("pq_expand_rows", ("stacked", P, R, W, M0, S, 16))] = dict(
+        max_abs_err=0.0, ms=graph_ms(run), per_shard_ms=graph_ms(per),
+        plain_ms=graph_ms(plain), library_ms=graph_ms(lib),
+        bound=bound_ms(nbytes, int(used.sum()) * S + B * M * M),
+        device_kernels=calls)
+    del adj, codes, pay, hits
+
+    # -- the gated fold, the shards' own tombstone words --
+    ef, k, kk = 10, 16, 16
+    cap = max(ef + kk, 8)
+    words, = T(np.stack([pack_bitmap(rng.random(N) < 0.01)
+                         for _ in range(P)]))
+    for integer in (True, False):
+        F_d, F_i, C_d, C_i, Cp, dh, cand, kv, _ = T(
+            *_fold_case(np, rng, B, ef, cap, k, kk, integer, n_ids=N))
+        ef_eff, pop = T(rng.integers(1, ef + 1, B).astype(np.int32),
+                        rng.random(B) < 0.6)
+        args = (F_d, F_i, C_d, C_i, W, Cp, dh, cand, kv, words)
+        gates = dict(ef_eff=ef_eff, pop=pop)
+        name = f"trip_fold_gated{('stacked', P, R, ef, cap, k, kk, W)}"
+        run = lambda: ops.trip_fold(*args, **gates)
+        per = lambda: [ops.trip_fold(
+            *(t[rows(p)] for t in args[:4]), W,
+            *(t[rows(p)] for t in args[5:9]), words[p],
+            **{n: t[rows(p)] for n, t in gates.items()}) for p in range(P)]
+        plain = lambda: ref.trip_fold_ref(*args, **gates)
+        lib = lambda: _library_fold(torch, *args, **gates)
+        wants = [("the plain version", plain()),
+                 ("the per-shard launches", cat(per()))]
+        if not integer:     # no -0.0: a radix sort may order it
+            wants.append(("the library route", lib()))
+        same(name, run(), wants)
+    calls = one_kernel(name, run)
+    nbytes, nops = _fold_cost(B, ef, cap, k, kk, True, True, words.numel())
+    out[("trip_fold_gated", ("stacked", P, R, ef, cap, k, kk, W))] = dict(
+        max_abs_err=0.0, ms=graph_ms(run), per_shard_ms=graph_ms(per),
+        plain_ms=graph_ms(plain), library_ms=graph_ms(lib),
+        bound=bound_ms(nbytes + B * 5, nops), device_kernels=calls)
     return out
 
 
@@ -2651,6 +2825,80 @@ def _sched_counters(svc) -> dict:
             "shed": sum(c.value for c in shed.children()) if shed else 0}
 
 
+def tick_ops(torch, np, svc, q) -> dict:
+    """One full tick of ``svc``'s scheduler counted on the host: a bank
+    of ``STREAM_SLOTS`` fresh queries (``q``) admitted and stepped by one
+    ``tick()`` (``tick``; the bank then drains uncounted), and one step
+    of the whole bank alone after the same queries' admission (``step``:
+    the stepper's program, up to a quantum of trips), each with
+    ``aten_ops`` the ATen operations it dispatches (each a host call; on
+    the card most are device kernels), the port's kernel ``launches``
+    (ctypes calls, not ATen ops) and the layer-body ``trips``
+    (``search_torch.trip_counts``); the step's also per slotted trip.
+    The admission is the unnoted program, so no slotted-program key is
+    added."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core import search_torch as st
+    from repro_torch.kernels import ops
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    sync = torch.cuda.synchronize if svc.device.type == "cuda" \
+        else (lambda: None)
+
+    def counted(fn) -> dict:
+        sync()
+        ops.reset_launch_counts()
+        st.reset_trip_counts()
+        Count.n = 0
+        with Count():
+            fn()
+        sync()
+        # each gated fold is also one of trip_fold's launches
+        return {"aten_ops": Count.n,
+                "launches": sum(n for name, n in ops.launch_counts().items()
+                                if name != "trip_fold_gated"),
+                "trips": st.trip_counts()}
+
+    sched = svc.scheduler()
+    for i in range(STREAM_SLOTS):
+        need(sched.submit(q[i], k=10, rid=i) == i, "tick_ops: shed")
+    out = {"tick": counted(sched.tick)}
+    sched.drain()
+    # the step alone: the same queries admitted into a fresh bank (the
+    # admission program, uncounted), then one step of the whole bank
+    sched = svc.scheduler()
+    S, dbv = sched.S, sched._db()
+    t = lambda a: torch.as_tensor(np.asarray(a), device=svc.device)
+    ef_eff = min(max(10, sched.ef_policy), sched.EF)
+    sched.state = st._slot_admit_impl(
+        dbv, sched.state, t(q[:S]),
+        t(np.asarray(svc.filt.prepare(q[:S]), np.float32)),
+        t(np.arange(S, dtype=np.int32)), t(np.full(S, ef_eff, np.int32)),
+        t(np.full(S, sched._static_cap(ef_eff), np.int32)))
+    out["step"] = counted(lambda: sched._step_call(dbv, S))
+    per = max(out["step"]["trips"]["slotted"], 1)
+    out["step"]["aten_ops_a_trip"] = out["step"]["aten_ops"] / per
+    out["step"]["launches_a_trip"] = out["step"]["launches"] / per
+    return out
+
+
+def _trips_once(launches: dict, trips: dict, what: str) -> None:
+    """Each layer-body trip launched the pca expand and the fold once,
+    and each slotted trip the gated fold once: not once a shard."""
+    every = trips["slotted"] + trips["layer"]
+    for name, want in (("fused_expand_rows", every), ("trip_fold", every),
+                       ("trip_fold_gated", trips["slotted"])):
+        need(launches[name] == want, f"stream: the {what} part launched "
+             f"{name} {launches[name]} times in {trips} trips, not once "
+             f"a trip ({want})")
+
+
 def _drain_all(sched, q, ks) -> list:
     """Submit ``q[i]`` with k ``ks[i]`` as rid i, ticking whenever the
     queue is full, then drain; every completion in retirement order."""
@@ -2682,9 +2930,13 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
     completion degraded with the exact coverage and none of its ids;
     ``slot_cache_sizes()`` unchanged after each scheduler's warm-up; and
     ``repro_torch.bench.load`` at ``STREAM_LOAD_FRACS`` of capacity.
-    Launch counts are reset just before each part and read just after."""
+    Launch counts are reset just before each part and read just after;
+    the sharded parts' kernels launch once a trip for every shard (the
+    layer-body trips counted on the host, ``search_torch.trip_counts``),
+    and one tick of each service is counted (``tick_ops``)."""
     import dataclasses
     from repro_torch.bench.load import run_load
+    from repro_torch.core import search_torch as st
     from repro_torch.core.distributed import build_sharded
     from repro_torch.core.search_torch import build_packed, slot_cache_sizes
     from repro_torch.distributed import faults
@@ -2813,8 +3065,12 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
         warm_s = slot_cache_sizes()
         ns = min(STREAM_SHARDED, len(q))
         ops.reset_launch_counts()
+        st.reset_trip_counts()
         ids_h, st_h, secs_h = _stream(ssvc, q[:ns], scheduler=None)
         launches["sharded"] = ops.launch_counts()
+        trips_h = st.trip_counts()
+        if device == "cuda":
+            _trips_once(launches["sharded"], trips_h, "sharded")
         ids_hy, _, secs_hy = _stream(ssvc, q[:ns], scheduler=False)
         same_h = bool(np.array_equal(ids_h, ids_hy.astype(np.int64)))
         victim = min(2, P - 1)
@@ -2829,10 +3085,15 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
         lc = ssvc._live_counts
         want = int(lc[live].sum()) / int(lc.sum())
         ops.reset_launch_counts()
+        st.reset_trip_counts()
         t0 = time.perf_counter()
         comps = _drain_all(ssvc.scheduler(), q[:ns], np.full(ns, 10))
         secs_k = time.perf_counter() - t0
         launches["sharded_degraded"] = ops.launch_counts()
+        trips_k = st.trip_counts()
+        if device == "cuda":
+            _trips_once(launches["sharded_degraded"], trips_k,
+                        "sharded degraded")
         lo = int(sdb.offsets[victim])
         hi = lo + int(sdb.counts[victim])
         ids_k = np.stack([c.ids for c in sorted(comps,
@@ -2851,7 +3112,8 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
             "degraded_qps": ns / secs_k, "coverage_expected": want,
             "coverage_exact": cov_ok, "victim_ids": n_victim,
             "degraded_equal_to_sync": bool(np.array_equal(
-                ids_k, fi_k.astype(np.int64)))}
+                ids_k, fi_k.astype(np.int64))),
+            "trips": trips_h, "degraded_trips": trips_k}
         need(same_h, "stream: the sharded scheduler differs from its sync "
              "path")
         need(dead and cov_ok and n_victim == 0
@@ -2861,6 +3123,8 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
              f"sync answers {out['sharded']['degraded_equal_to_sync']}")
         need(slot_cache_sizes() == warm_s, "stream: the sharded traffic "
              "added slotted-program keys")
+        out["sharded"]["tick_ops"] = tick_ops(torch, np, ssvc, q)
+        out["sharded"]["tick_ops_single"] = tick_ops(torch, np, svc, q)
         del ssvc, sdb
 
     t0 = time.perf_counter()

@@ -155,6 +155,22 @@ class ShardedDB:
             low2=None if self.low2 is None else self.low2[kt])
 
 
+def stacked_db_view(sdb: ShardedDB) -> PackedDB:
+    """The STACKED PackedDB view of a ShardedDB: every leaf keeps its
+    leading shard dim P (``shard_db`` strips it for one shard; this
+    keeps all of them), as views with no copy; ``entry`` is the [P] host
+    entries. Not searchable directly (``search_batched`` refuses it): it
+    is the operand of the slotted sharded programs
+    (``search_torch._slot_step_sharded`` and the other three), which run
+    every shard's slots in one pass over the stacked leaves, the rows
+    shard-major (row r of a [P * S] bank reads shard r // S)."""
+    return PackedDB(
+        layers=[PackedLayer(adj=a, packed_low=p)
+                for a, p in zip(sdb.adj, sdb.packed_low)],
+        low=sdb.low, high=sdb.high, entry=sdb.entries, cfg=sdb.cfg,
+        deleted=sdb.deleted, low2=sdb.low2, filter_kind=sdb.filter_kind)
+
+
 def _pad_rows(a, n: int, fill):
     """Pad axis 0 of ``a`` (a tensor or a numpy array) to ``n`` rows
     with ``fill``."""

@@ -55,11 +55,28 @@ from repro_torch.core.graph import HNSWGraph
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rank_sort_with_payload as \
     _rank_sort_with_payload
+from repro_torch.kernels.ref import shard_base as _shard_base
 from repro_torch.kernels.ref import tombstone_bit as _tombstone_bit
 
 # host check of done.all() every this many loop trips (a device->host
 # sync); extra trips after every query latched are exact no-ops
 DONE_CHECK_EVERY = 8
+
+# trips of the layer body run on the host, by kind: "slotted" (the
+# scheduler's stepper, gated per slot) and "layer" (every other layer
+# loop: the synchronous search, the descents, the insert probe). A trip
+# over a stacked view is one trip for all its shards.
+_TRIPS = {"slotted": 0, "layer": 0}
+
+
+def trip_counts() -> dict:
+    """The layer-body trips run since ``reset_trip_counts``, by kind."""
+    return dict(_TRIPS)
+
+
+def reset_trip_counts() -> None:
+    for kind in _TRIPS:
+        _TRIPS[kind] = 0
 
 
 @dataclass
@@ -89,7 +106,13 @@ class PackedDB:
     bit 31 included); None means no tombstones. Deleted nodes are
     TRAVERSED (they stay in the candidate frontier and their neighbors
     are expanded) but never RETURNED (they are kept out of the result
-    list F on the output layer)."""
+    list F on the output layer).
+
+    STACKED (``core.distributed.stacked_db_view``): every leaf keeps a
+    leading shard dim (``adj`` [shards, N, M], ``packed_low`` [shards, N,
+    M, P], ``low``, ``high``, ``deleted``, ``low2``) and ``entry`` is the
+    host array of the shards' entries. Only the slotted sharded programs take it, their rows
+    shard-major; ``search_batched`` refuses it."""
     layers: List[PackedLayer]
     low: torch.Tensor          # [N, P] filter payload rows (P may be 0)
     high: torch.Tensor         # [N, D]
@@ -251,11 +274,31 @@ def _cascade_qpca(qprep, S: int):
     return qprep[:, S * 256:]
 
 
-def _gather_rows(table, ids):
-    """table[ids] for ids [B, K] (-1 pads read row 0): [B, K, width]."""
+def _n_stacked(db) -> int:
+    """P of a stacked view (``core.distributed.stacked_db_view``), 0 for
+    one db."""
+    return int(db.high.shape[0]) if db.high.dim() == 3 else 0
+
+
+def _row_base(db, B: int, device):
+    """[B, 1] int64: each row's shard offset in nodes into the flattened
+    stacked leaves of ``db`` (rows shard-major), or None for one db."""
+    P = _n_stacked(db)
+    return None if not P else _shard_base(B, P, db.high.shape[1], device)
+
+
+def _gather_rows(table, ids, base=None):
+    """table[ids] for ids [B, K] (-1 pads read row 0): [B, K, width]. A
+    stacked table [P, N, width] gives row r shard r // (B / P)'s rows
+    (``base``: ``_row_base``'s offsets, computed here when None)."""
     B, K = ids.shape
-    return table.index_select(0, ids.clamp(min=0).reshape(-1)) \
-        .reshape(B, K, -1)
+    safe = ids.clamp(min=0)
+    if table.dim() == 3:
+        if base is None:
+            base = _shard_base(B, table.shape[0], table.shape[1], ids.device)
+        safe = safe + base
+        table = table.flatten(0, 1)
+    return table.index_select(0, safe.reshape(-1)).reshape(B, K, -1)
 
 
 def _bits(ids):
@@ -280,7 +323,7 @@ def _layer_init(db: PackedDB, start_d, start_i, *, ef: int, k: int,
     (C_d, C_i, F_d, F_i, V, Cp). ``filter_deleted`` seeds F with the
     live part of the start set only."""
     B = start_d.shape[0]
-    N = db.high.shape[0]
+    N = db.high.shape[-2]
     dev = start_d.device
     C_d = _pad_cols(start_d, CAP, INF)
     C_i = _pad_cols(start_i, CAP, -1)
@@ -330,11 +373,22 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
       progress and latches ``done`` on every slot in a trip it runs; a
       trip here takes that test on the device at its start (``go``) and
       latches nothing without it, so the host may check it only every
-      ``DONE_CHECK_EVERY`` trips."""
+      ``DONE_CHECK_EVERY`` trips.
+
+    On a stacked view (``core.distributed.stacked_db_view``) the B rows
+    are shard-major and each reads its own shard's leaves, as the
+    reference's ``vmap`` over the shards: the expand and fold kernels
+    take the stacked leaves whole (one launch for every shard), the
+    plain gathers read the flattened leaves at each row's shard offset,
+    and the slotted test ``go`` is taken per shard (the reference's loop
+    test sits inside the ``vmap``: a shard none of whose slots can
+    progress runs no trip, and latches nothing, while another does)."""
     B = q_high.shape[0]
     lay = db.layers[layer]
-    M = lay.adj.shape[1]
+    M = lay.adj.shape[-1]
     fkind = db.filter_kind
+    P = _n_stacked(db)
+    base = _row_base(db, B, q_high.device)
     if fkind == "none":
         kk = W * M          # filter bypass: every neighbor is a candidate
         deferred = False    # filter space == high-dim space
@@ -342,7 +396,7 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
         kk = W * k                               # survivors per iteration
     # the PQ tables: the cascade's are a view into its flat prep row,
     # taken once per layer (no per-step copy)
-    lut = _cascade_lut(qprep, db.low.shape[1]) if fkind == "cascade" \
+    lut = _cascade_lut(qprep, db.low.shape[-1]) if fkind == "cascade" \
         else qprep
     need_kv_row = fkind != "none" and not deferred
     dev = q_high.device
@@ -354,6 +408,7 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
     lim = steps if budget is None else budget[:, None]
 
     def body(state):
+        _TRIPS["slotted" if budget is not None else "layer"] += 1
         C_d, C_i, F_d, F_i, V, Cp, done, nsteps, dhe = state
         # the accept/termination bound: F.max over the slot's effective
         # result width (the compiled width without per-slot ef)
@@ -370,8 +425,13 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
             # slotted: the trip is real only if some slot can progress
             # (the reference's loop test); a done or budget-frozen slot
             # keeps its frontier unpopped
-            go = (~done & (nsteps < budget)).any()
-            done = torch.where(go, latched, done)
+            can = ~done & (nsteps < budget)
+            if P:
+                go = can.reshape(P, -1).any(1, keepdim=True)
+                done = torch.where(go, latched.reshape(P, -1),
+                                   done.reshape(P, -1)).reshape(B)
+            else:
+                done = torch.where(can.any(), latched, done)
             pop = ~done & (nsteps < budget)
         exp = (d_w <= bnd) & ~done[:, None] & (nsteps[:, None] + lane < lim)
         if fkind in ("pq", "cascade"):
@@ -389,8 +449,8 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
             # filter bypass: every valid neighbor of the W row gathers
             # (paper layout (3) bursts) is a candidate; gated-off slots
             # gather row 0, discarded via the mask
-            c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
-            cand = lay.adj.index_select(0, c_safe).reshape(B, W * M)
+            cand = _gather_rows(lay.adj, torch.where(exp, c_w, 0),
+                                base).reshape(B, W * M)
             kv, valid = None, (cand >= 0) & exp.repeat_interleave(M, dim=1)
         if kv is not None:
             valid = (kv < VALID_MAX) & (cand >= 0)
@@ -409,8 +469,8 @@ def _layer_body(db: PackedDB, layer: int, q_high, qprep, *, ef: int,
             dh = torch.where(valid, kv, INF)
         else:
             # -- step 3: kk irregular high-dim fetches + Dist.H --
-            dh = torch.where(valid, ops.dist_h(_gather_rows(db.high, cand),
-                                               q_high), INF)
+            dh = torch.where(valid, ops.dist_h(
+                _gather_rows(db.high, cand, base), q_high), INF)
             dhe = dhe + valid.sum(1, dtype=torch.int32)
         # -- mark visited: disjoint bit masks (valid slots are distinct
         #    ids, so the add is a bitwise or); in place --
@@ -487,6 +547,7 @@ def search_layer_batched(db: PackedDB, layer: int, q_high, qprep,
 
     Returns (F_dist [B, ef], F_idx [B, ef] ascending, steps [B] int32,
     dist_h [B] int32 = per-query Dist.H evaluations in this layer)."""
+    _refuse_stacked(db)
     return _drain(_layer_gen(db, layer, q_high, qprep, start_d, start_i,
                              ef=ef, k=k, max_steps=max_steps,
                              expand_width=expand_width,
@@ -501,7 +562,7 @@ def _layer_gen(db: PackedDB, layer: int, q_high, qprep, start_d, start_i,
     """``search_layer_batched`` as a generator: it yields just before
     each host read of ``done`` and returns the layer's result."""
     B = q_high.shape[0]
-    M = db.layers[layer].adj.shape[1]
+    M = db.layers[layer].adj.shape[-1]
     W = expand_width or db.cfg.expand_width
     kk = W * M if db.filter_kind == "none" else W * k
     CAP = max(ef + kk, 8)
@@ -531,13 +592,33 @@ def _layer_gen(db: PackedDB, layer: int, q_high, qprep, start_d, start_i,
     return F_d, F_i, nsteps, dhe
 
 
+def _entry_ids(db: PackedDB, B: int):
+    """The descent's entry column [B, 1] int32: the entry point, or on a
+    stacked view each row's shard's entry (the [P] host entries repeated
+    shard-major), copied to the device without a host sync."""
+    P = _n_stacked(db)
+    if not P:
+        return torch.full((B, 1), int(db.entry), dtype=torch.int32,
+                          device=db.device)
+    col = np.repeat(np.asarray(db.entry, np.int32), B // P)[:, None]
+    if db.device.type != "cuda":
+        return torch.from_numpy(col).to(db.device)
+    return torch.from_numpy(col).pin_memory().to(db.device,
+                                                 non_blocking=True)
+
+
 def _entry_start(db: PackedDB, queries):
     """The descent's start set: the entry point and its Dist.H, [B, 1]."""
-    B = queries.shape[0]
-    ep = torch.full((B, 1), int(db.entry), dtype=torch.int32,
-                    device=db.device)
+    ep = _entry_ids(db, queries.shape[0])
     ep_d = ops.dist_h(_gather_rows(db.high, ep), queries)
     return ep_d, ep
+
+
+def _refuse_stacked(db: PackedDB) -> None:
+    if _n_stacked(db):
+        raise ValueError("a stacked db (core.distributed.stacked_db_view) "
+                         "is not searchable directly: search the "
+                         "ShardedDB (shard_search_host) or one shard_db")
 
 
 def _check_device(db: PackedDB, device) -> None:
@@ -611,7 +692,9 @@ def search_batched(db: PackedDB, queries, qprep=None, *, pca=None,
     ``promote_mult * ef0`` PQ-space candidates that the PCA promote
     stage trims back to ``rerank_mult * ef0`` before that Dist.H pass.
     ``ef0`` and ``k_schedule`` default to the config's; ``entry``
-    overrides the descent entry point."""
+    overrides the descent entry point. A stacked view
+    (``core.distributed.stacked_db_view``) is refused."""
+    _refuse_stacked(db)
     if filt is not None and filt.kind != db.filter_kind:
         raise ValueError(f"filter mismatch: db carries a "
                          f"{db.filter_kind!r} payload, filt is "
@@ -681,8 +764,7 @@ def _descend_gen(db: PackedDB, queries, qprep,
     B = queries.shape[0]
     k_of = lambda l: k_schedule[min(l, len(k_schedule) - 1)]
     if deferred:
-        ep = torch.full((B, 1), int(db.entry), dtype=torch.int32,
-                        device=db.device)
+        ep = _entry_ids(db, B)
         pay = _gather_rows(db.low, ep)                  # [B, 1, P]
         if db.filter_kind == "pca":
             ep_d = ops.dist_l(pay, qprep)
@@ -805,9 +887,16 @@ def _rerank(db: PackedDB, queries, fi):
 # Every program is functional: it returns a new ``SlotState`` and never
 # writes a tensor of the state it was given (the body's in-place visited
 # update runs on a copy), so a state held by the caller stays as it was.
-# The sharded twins step each shard's view (``ShardedDB.shard_db``) in a
-# host loop over the stacked [P, S, ...] state, every shard dead or
-# alive; the scheduler merges the disjoint per-shard lists at retirement.
+# The sharded twins take the stacked view of a ShardedDB
+# (``core.distributed.stacked_db_view``) and the stacked [P, S, ...]
+# state and run the SAME programs once over all P shards, the state
+# viewed as [P * S, ...] shard-major, as the reference's ``vmap`` over
+# the shards: each launch of the expand and fold kernels serves every
+# shard, each shard descends from its own entry, the same admitted
+# queries go into the same slots of every shard, the width ladder steps
+# ``[:, :width]`` of every shard, and the slotted loop test is taken per
+# shard (``_layer_body``). Every shard steps, dead or alive; the
+# scheduler merges the disjoint per-shard lists at retirement.
 # ``slot_cache_sizes`` counts the distinct (program, static arguments,
 # shapes) keys each program has been called with: the counterpart of the
 # reference's compiled-program caches, which steady-state churn must not
@@ -874,9 +963,9 @@ def make_slot_state(db, n_slots: int, qprep_example, *, ef: int,
     result width (a slot's ``ef_eff`` can only narrow it).
     ``qprep_example`` is any [b, ...] filter-prep array, read only for
     its trailing shape. ``n_shards`` prepends the shard dim to every
-    field (``db`` is then a ShardedDB). ``deferred`` must match the mode
-    the slots will step in: it sizes the Cp heap to the same effective k
-    the synchronous program keeps."""
+    field (``db`` is then a ShardedDB or its stacked view). ``deferred``
+    must match the mode the slots will step in: it sizes the Cp heap to
+    the same effective k the synchronous program keeps."""
     k, _, CAP = _slot_geometry(db, ef, deferred)
     N, D = db.high.shape[-2], db.high.shape[-1]
     nw = -(-N // 32)
@@ -942,13 +1031,15 @@ def slot_cache_sizes() -> Tuple[int, ...]:
     return tuple(len(_slot_keys[name]) for name in _SLOT_PROGRAMS)
 
 
-def _scatter_rows(dst, ids, rows):
-    """``dst`` with rows ``ids`` set to ``rows``; ids outside [0, S) are
-    dropped (they land in a spare row S that is cut off)."""
-    S = dst.shape[0]
-    out = torch.cat([dst, dst[:1]])
-    out[ids] = rows.to(dst.dtype)
-    return out[:S]
+def _scatter_rows(dst, ids, rows, dim: int = 0):
+    """``dst`` with slots ``ids`` of its dim ``dim`` set to ``rows``; ids
+    outside [0, S) are dropped (they land in a spare slot S that is cut
+    off). ``dim`` 1: a stacked bank [P, S, ...] and ``rows`` [P, A, ...],
+    the same slots of every shard."""
+    S = dst.shape[dim]
+    out = torch.cat([dst, dst.narrow(dim, 0, 1)], dim)
+    out[(slice(None),) * dim + (ids,)] = rows.to(dst.dtype)
+    return out.narrow(dim, 0, S)
 
 
 def _slot_admit_impl(db: PackedDB, state: SlotState, q_new, qprep_new,
@@ -958,16 +1049,24 @@ def _slot_admit_impl(db: PackedDB, state: SlotState, q_new, qprep_new,
     per-layer programs as ``_search_batched_impl``; in filter space when
     ``deferred``) and write the fresh layer-0 state into the chosen
     slots. The admission width is fixed: pad rows carry a slot id >= S
-    and are dropped."""
+    and are dropped. On a stacked view the state is [P, S, ...] and the
+    A queries descend every shard at once, as P * A shard-major rows,
+    each shard from its own entry, into the same slots of every
+    shard."""
     ef = state.F_d.shape[-1]
     k, _, CAP = _slot_geometry(db, ef, deferred)
     ks = db.cfg.k_schedule_for(db.filter_kind, deferred)
     deferred = deferred and db.filter_kind != "none"
+    P = _n_stacked(db)
+    if P:
+        tile = lambda t: t.repeat(P, *([1] * (t.dim() - 1)))
+        q_new, qprep_new, ef_eff_new, budget_new = map(
+            tile, (q_new, qprep_new, ef_eff_new, budget_new))
     ep_d, ep, dhe, _ = _descend(db, q_new, qprep_new, ks, deferred)
     C_d, C_i, F_d, F_i, V, Cp = _layer_init(
         db, ep_d, ep, ef=ef, k=k, CAP=CAP,
         filter_deleted=db.deleted is not None)
-    S = state.done.shape[0]
+    S = state.done.shape[-1]
     ids = slot_ids.long()
     ids = torch.where((ids >= 0) & (ids < S), ids, S)
     A = q_new.shape[0]
@@ -976,7 +1075,10 @@ def _slot_admit_impl(db: PackedDB, state: SlotState, q_new, qprep_new,
                     torch.zeros((A,), dtype=torch.bool, device=dev),
                     torch.zeros((A,), dtype=torch.int32, device=dev), dhe,
                     q_new, qprep_new, ef_eff_new, budget_new)
-    return _slot_zip(lambda d, r: _scatter_rows(d, ids, r), state, new)
+    if P:
+        new = new.map(lambda t: t.unflatten(0, (P, -1)))
+    return _slot_zip(lambda d, r: _scatter_rows(d, ids, r, int(P > 0)),
+                     state, new)
 
 
 def _slot_step_impl(db: PackedDB, state: SlotState, *, quantum: int,
@@ -987,7 +1089,14 @@ def _slot_step_impl(db: PackedDB, state: SlotState, *, quantum: int,
     tested on the host every ``DONE_CHECK_EVERY`` trips; the trips in
     between are exact no-ops (see ``_layer_body``). ``deferred``
     traverses on filter distances: F then holds filter-space candidates
-    and the scheduler re-ranks at retirement."""
+    and the scheduler re-ranks at retirement. On a stacked view the
+    [P, S, ...] state steps as [P * S, ...] shard-major rows, one pass
+    for all shards; the early exit then needs every shard's slots
+    unable to progress (a shard that stopped earlier runs exact no-op
+    trips meanwhile: its loop test ``go`` is its own)."""
+    P = _n_stacked(db)
+    if P:
+        state = state.map(lambda t: t.flatten(0, 1))
     ef = state.F_d.shape[-1]
     k = state.Cp.shape[-1]
     body = _layer_body(db, 0, state.q_high, state.qprep, ef=ef, k=k,
@@ -1002,7 +1111,8 @@ def _slot_step_impl(db: PackedDB, state: SlotState, *, quantum: int,
                 not bool((~st[6] & (st[7] < state.budget)).any()):
             break
         st = body(st)
-    return dataclasses.replace(state, **dict(zip(_SLOT_FIELDS[:9], st)))
+    state = dataclasses.replace(state, **dict(zip(_SLOT_FIELDS[:9], st)))
+    return state.map(lambda t: t.unflatten(0, (P, -1))) if P else state
 
 
 def _slot_step_prefix_impl(db: PackedDB, state: SlotState, *, width: int,
@@ -1010,11 +1120,14 @@ def _slot_step_prefix_impl(db: PackedDB, state: SlotState, *, width: int,
                            deferred: bool = False) -> SlotState:
     """Step only the first ``width`` slots of the bank (the width
     ladder: slots are allocated low-first, so the scheduler steps the
-    smallest prefix covering the highest live slot)."""
-    part = _slot_step_impl(db, state.map(lambda t: t[:width]),
+    smallest prefix covering the highest live slot); on a stacked view
+    the first ``width`` slots of every shard, ``[:, :width]``."""
+    d = 1 if _n_stacked(db) else 0
+    part = _slot_step_impl(db, state.map(lambda t: t.narrow(d, 0, width)),
                            quantum=quantum, expand_width=expand_width,
                            deferred=deferred)
-    return _slot_zip(lambda f, p: torch.cat([p, f[width:]]), state, part)
+    return _slot_zip(lambda f, p: torch.cat(
+        [p, f.narrow(d, width, f.shape[d] - width)], d), state, part)
 
 
 def _slot_admit_step_impl(db: PackedDB, state: SlotState, q_new, qprep_new,
@@ -1029,11 +1142,13 @@ def _slot_admit_step_impl(db: PackedDB, state: SlotState, q_new, qprep_new,
                                   deferred=deferred)
 
 
-def _per_shard(sdb, state: SlotState, fn) -> SlotState:
-    """``fn(shard_db(p), state[p])`` for every shard p, restacked."""
-    outs = [fn(sdb.shard_db(p), state.map(lambda t: t[p]))
-            for p in range(sdb.n_shards)]
-    return _slot_zip(lambda *ts: torch.stack(ts), *outs)
+def _stacked(db) -> PackedDB:
+    """``db`` checked to be a stacked view: the sharded programs take
+    ``core.distributed.stacked_db_view(sdb)``, as the reference's."""
+    if not (isinstance(db, PackedDB) and _n_stacked(db)):
+        raise TypeError("the sharded slotted programs take a stacked view "
+                        "(core.distributed.stacked_db_view(sdb))")
+    return db
 
 
 def _slot_admit(db, state, q_new, qprep_new, slot_ids, ef_eff_new,
@@ -1050,23 +1165,22 @@ def _slot_step(db, state, quantum, expand_width, deferred=False):
                            expand_width=expand_width, deferred=deferred)
 
 
-def _slot_admit_sharded(sdb, state, q_new, qprep_new, slot_ids, ef_eff_new,
+def _slot_admit_sharded(db, state, q_new, qprep_new, slot_ids, ef_eff_new,
                         budget_new, deferred=False):
-    """Admission over a ShardedDB: each shard descends its own graph for
-    the SAME queries into the SAME slots."""
-    _note("admit_sharded", sdb, state, q_new, qprep_new, slot_ids,
-          deferred=deferred)
-    return _per_shard(sdb, state, lambda d, s: _slot_admit_impl(
-        d, s, q_new, qprep_new, slot_ids, ef_eff_new, budget_new,
-        deferred=deferred))
+    """Admission over a stacked view (``core.distributed.
+    stacked_db_view``): each shard descends its own graph for the SAME
+    queries into the SAME slots, all shards in one pass."""
+    _note("admit_sharded", _stacked(db), state, q_new, qprep_new,
+          slot_ids, deferred=deferred)
+    return _slot_admit_impl(db, state, q_new, qprep_new, slot_ids,
+                            ef_eff_new, budget_new, deferred=deferred)
 
 
-def _slot_step_sharded(sdb, state, quantum, expand_width, deferred=False):
-    _note("step_sharded", sdb, state, quantum=quantum, W=expand_width,
-          deferred=deferred)
-    return _per_shard(sdb, state, lambda d, s: _slot_step_impl(
-        d, s, quantum=quantum, expand_width=expand_width,
-        deferred=deferred))
+def _slot_step_sharded(db, state, quantum, expand_width, deferred=False):
+    _note("step_sharded", _stacked(db), state, quantum=quantum,
+          W=expand_width, deferred=deferred)
+    return _slot_step_impl(db, state, quantum=quantum,
+                           expand_width=expand_width, deferred=deferred)
 
 
 def _slot_step_prefix(db, state, width, quantum, expand_width,
@@ -1078,13 +1192,13 @@ def _slot_step_prefix(db, state, width, quantum, expand_width,
                                   deferred=deferred)
 
 
-def _slot_step_prefix_sharded(sdb, state, width, quantum, expand_width,
+def _slot_step_prefix_sharded(db, state, width, quantum, expand_width,
                               deferred=False):
-    _note("step_prefix_sharded", sdb, state, width=width, quantum=quantum,
-          W=expand_width, deferred=deferred)
-    return _per_shard(sdb, state, lambda d, s: _slot_step_prefix_impl(
-        d, s, width=width, quantum=quantum, expand_width=expand_width,
-        deferred=deferred))
+    _note("step_prefix_sharded", _stacked(db), state, width=width,
+          quantum=quantum, W=expand_width, deferred=deferred)
+    return _slot_step_prefix_impl(db, state, width=width, quantum=quantum,
+                                  expand_width=expand_width,
+                                  deferred=deferred)
 
 
 def _slot_admit_step(db, state, q_new, qprep_new, slot_ids, ef_eff_new,
@@ -1098,15 +1212,16 @@ def _slot_admit_step(db, state, q_new, qprep_new, slot_ids, ef_eff_new,
                                  deferred=deferred)
 
 
-def _slot_admit_step_sharded(sdb, state, q_new, qprep_new, slot_ids,
+def _slot_admit_step_sharded(db, state, q_new, qprep_new, slot_ids,
                              ef_eff_new, budget_new, width, quantum,
                              expand_width, deferred=False):
-    _note("admit_step_sharded", sdb, state, q_new, qprep_new, slot_ids,
-          width=width, quantum=quantum, W=expand_width, deferred=deferred)
-    return _per_shard(sdb, state, lambda d, s: _slot_admit_step_impl(
-        d, s, q_new, qprep_new, slot_ids, ef_eff_new, budget_new,
-        width=width, quantum=quantum, expand_width=expand_width,
-        deferred=deferred))
+    _note("admit_step_sharded", _stacked(db), state, q_new, qprep_new,
+          slot_ids, width=width, quantum=quantum, W=expand_width,
+          deferred=deferred)
+    return _slot_admit_step_impl(db, state, q_new, qprep_new, slot_ids,
+                                 ef_eff_new, budget_new, width=width,
+                                 quantum=quantum, expand_width=expand_width,
+                                 deferred=deferred)
 
 
 def _retire_rerank(db: PackedDB, queries, fi):

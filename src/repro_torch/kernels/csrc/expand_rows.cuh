@@ -24,7 +24,12 @@
 //     layout-(3) table [N, M0, width], ok = adj[c, j] >= 0 && gate, and
 //     id = adj[c, j], the neighbour itself. cw is read through a row
 //     stride, so the popped ids stay a view of the candidate frontier C
-//     [B, CAP].
+//     [B, CAP]. Stacked (the slotted sharded programs: every shard's
+//     slots in one launch, as the reference's vmap adds a shard axis to
+//     its Pallas grid), the tables are [P, N, M0, ...] and the B rows
+//     shard-major: row r reads shard r / shard_b's table, at node offset
+//     (r / shard_b) * shard_n (its own node 0 where gated off), and the
+//     ids it writes are that shard's local ids. Unstacked, shard_n is 0.
 //
 // Rows' slots also come as groups() = W groups of group_size() = M0
 // slots whose payload rows are contiguous (the popped nodes' [M0, width]
@@ -61,17 +66,20 @@ struct Rows {
   long long cw_stride;
   const uint8_t* gate;   // [B, W]
   int W, M0;
+  int shard_b;           // rows a shard (B when unstacked)
+  long long shard_n;     // nodes a shard's table (0 when unstacked)
   __host__ __device__ int groups() const { return W; }
   __host__ __device__ int group_size() const { return M0; }
-  // popped node w's first row of the [N * M0] tables and its gate (both
-  // words are loaded at once: the id does not wait on the gate)
+  // popped node w's first row of the [P * N * M0] tables and its gate
+  // (both words are loaded at once: the id does not wait on the gate)
   __device__ __forceinline__ size_t group_row(int row, int w,
                                               bool& g) const {
     g = gate[(size_t)row * W + w] != 0;
     const int32_t c = max(cw[(size_t)row * cw_stride + w], 0);
-    return g ? (size_t)c * M0 : 0;
+    const size_t base = (size_t)(row / shard_b) * (size_t)shard_n;
+    return (base + (g ? (size_t)c : 0)) * M0;
   }
-  // slot m's row of the [N * M0] tables and its gate
+  // slot m's row of the [P * N * M0] tables and its gate
   __device__ __forceinline__ size_t node_row(int row, int m, bool& g) const {
     const int w = m / M0;
     return group_row(row, w, g) + (m - w * M0);

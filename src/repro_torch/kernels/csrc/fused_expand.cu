@@ -24,6 +24,9 @@
 //     block written, then read back), the mask's ops, the threshold
 //     column's copy and the id gather around the kernel: one launch a
 //     trip for the pca expand, as pq_expand_rows is for the PQ one.
+//     Stacked (adj [P, N, M0], packed_low [P, N, M0, dl], rows
+//     shard-major: expand_rows.cuh's Rows adds each row's shard offset),
+//     one launch serves every shard of the slotted sharded programs.
 //
 // The gathered block is read in place and the popped rows are staged
 // (where their staging area fits shared memory), each fixed at compile
@@ -98,11 +101,13 @@ template <class Pay>
 int run_rows(const void* adj, const void* x, const void* cw,
              long long cw_stride, const void* gate, const void* q,
              const void* th, long long th_stride, void* out_d, void* out_i,
-             int B, int W, int M0, int dl, int k, int per_lane, int threads,
-             int staged, int copy, int rw, void* scratch, void* stream) {
+             int B, int W, int M0, int dl, int k, int shard_b,
+             long long shard_n, int per_lane, int threads, int staged,
+             int copy, int rw, void* scratch, void* stream) {
   const Args<Rows, Pay> a{{static_cast<const int32_t*>(adj),
                            static_cast<const int32_t*>(cw), cw_stride,
-                           static_cast<const uint8_t*>(gate), W, M0},
+                           static_cast<const uint8_t*>(gate), W, M0,
+                           shard_b, shard_n},
                           static_cast<const Pay*>(x),
                           static_cast<const float*>(q),
                           static_cast<const float*>(th), th_stride,
@@ -128,20 +133,24 @@ extern "C" int fused_expand_launch(const void* x, const void* q,
                            per_lane, threads, scratch, stream);
 }
 
+// shard_b: rows a shard (B unstacked); shard_n: nodes a shard's table
+// (0 unstacked)
 extern "C" int fused_expand_rows_launch(
     const void* adj, const void* x, const void* cw, long long cw_stride,
     const void* gate, const void* q, const void* th, long long th_stride,
     void* out_d, void* out_i, int B, int W, int M0, int dl, int k,
-    int per_lane, int threads, int staged, int copy, int rw, int bf16,
-    void* scratch, void* stream) {
+    int shard_b, long long shard_n, int per_lane, int threads, int staged,
+    int copy, int rw, int bf16, void* scratch, void* stream) {
+  if (shard_b < 1 || shard_n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   return bf16 ? run_rows<__nv_bfloat16>(
                     adj, x, cw, cw_stride, gate, q, th, th_stride, out_d,
-                    out_i, B, W, M0, dl, k, per_lane, threads, staged, copy,
-                    rw, scratch, stream)
+                    out_i, B, W, M0, dl, k, shard_b, shard_n, per_lane,
+                    threads, staged, copy, rw, scratch, stream)
               : run_rows<float>(adj, x, cw, cw_stride, gate, q, th,
                                 th_stride, out_d, out_i, B, W, M0, dl, k,
-                                per_lane, threads, staged, copy, rw, scratch,
-                                stream);
+                                shard_b, shard_n, per_lane, threads, staged,
+                                copy, rw, scratch, stream);
 }
 
 extern "C" const char* fused_expand_error_string(int err) {

@@ -13,7 +13,10 @@
 // its neighbours' codes in place, and writes the winners' neighbour ids.
 // That removes the search's index_select of the [B, W*M0, S] code block
 // (written, then read back by the kernel), the mask's ops and the id
-// gather around the kernel (kernels/pq_adc.py says which).
+// gather around the kernel (kernels/pq_adc.py says which). Stacked (adj
+// [P, N, M0], codes [P, N, M0, S], rows shard-major: expand_rows.cuh's
+// Rows adds each row's shard offset), one launch serves every shard of
+// the slotted sharded programs.
 //
 // Bound on the card: bytes. A row reads its M*S uint8 codes (512 B at
 // M=32, S=16) and, at most, its whole [S, 256] f32 table (16 KB); the
@@ -280,12 +283,18 @@ extern "C" int pq_expand_rows_launch(const void* adj, const void* codes,
                                      long long lut_stride, const void* th,
                                      long long th_stride, void* out_d,
                                      void* out_i, int B, int W, int M0,
-                                     int S, int k, int per_lane,
+                                     int S, int k, int shard_b,
+                                     long long shard_n, int per_lane,
                                      int threads, void* scratch,
                                      void* stream) {
+  // shard_b: rows a shard (B unstacked); shard_n: nodes a shard's table
+  // (0 unstacked)
+  if (shard_b < 1 || shard_n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Launch<expand_rows::Rows, RowsWarp, RowsWide> l{
       {static_cast<const int32_t*>(adj), static_cast<const int32_t*>(cw),
-       cw_stride, static_cast<const uint8_t*>(gate), W, M0},
+       cw_stride, static_cast<const uint8_t*>(gate), W, M0, shard_b,
+       shard_n},
       static_cast<const uint8_t*>(codes),
       static_cast<const float*>(lut), lut_stride,
       static_cast<const float*>(th), th_stride, static_cast<float*>(out_d),

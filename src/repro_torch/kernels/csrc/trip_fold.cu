@@ -26,6 +26,12 @@
 //   5. new F, C and heap tensors: the state is read by all three merges,
 //      so it is never written in place.
 //
+// Stacked (the slotted sharded programs: every shard's slots in one
+// launch, as the reference's vmap adds a shard axis to its Pallas grid),
+// `deleted` is [P, nw] and the B rows shard-major: row r reads the words
+// of shard r / shard_b (at r / shard_b * del_stride); unstacked,
+// del_stride is 0. Nothing else of the fold depends on the shard.
+//
 // The fold compares and moves; it does no arithmetic, so it equals its
 // plain version (kernels/ref.py: trip_fold_ref) bit for bit on any data
 // whose frontiers are ascending, -0.0 beside 0.0 (equal, resolved by
@@ -66,6 +72,8 @@ struct Args {
   const int32_t* cand;
   const float* kv;       // null: the heap is fed the C row's dists
   const int32_t* deleted;  // null: no tombstone masking of the F feed
+  long long del_stride;    // words a shard's bitmap (0: one bitmap)
+  int shard_b;             // rows a shard (B: one bitmap)
   const int32_t* ef_eff;   // null: the bound is F_d[ef - 1]
   const uint8_t* pop;      // null: every row pops W
   float* oFd;
@@ -152,6 +160,10 @@ __device__ __forceinline__ void fold_row(const Args& a, int row, int t,
   const int shift = (a.pop == nullptr || a.pop[r] != 0) ? W : 0;
   const int bslot =
       a.ef_eff == nullptr ? ef - 1 : min(max(a.ef_eff[r], 1), ef) - 1;
+  // the row's shard's tombstone words
+  const int32_t* del = a.deleted == nullptr
+      ? nullptr
+      : a.deleted + (size_t)(row / a.shard_b) * (size_t)a.del_stride;
 
   // -- one round trip: every word of the row, then the barrier --
   for (int i = t; i < ef; i += G) {
@@ -186,9 +198,9 @@ __device__ __forceinline__ void fold_row(const Args& a, int row, int t,
     const int32_t id = ci[s];
     const bool acc = v < bnd;
     bool okF = acc;
-    if (a.deleted != nullptr) {
+    if (del != nullptr) {
       const uint32_t safe = static_cast<uint32_t>(max(id, 0));
-      const uint32_t word = static_cast<uint32_t>(a.deleted[safe >> 5]);
+      const uint32_t word = static_cast<uint32_t>(del[safe >> 5]);
       okF = acc && ((word >> (safe & 31u)) & 1u) == 0u;
     }
     pv[s] = a.kv != nullptr ? (acc ? pv[s] : kInf) : (acc ? v : kInf);
@@ -280,24 +292,28 @@ __global__ void trip_fold_kernel_wide(Args a) {
 
 // threads == 0: the warp tier; else a block of `threads` per row, the
 // slice in scratch ([B, slice words] f32) when that is not null.
+// shard_b: rows a shard (B with one bitmap); del_stride: words a shard's
+// bitmap (0 with one bitmap).
 extern "C" int trip_fold_launch(const void* Fd, const void* Fi,
                                 const void* Cd, const void* Ci,
                                 const void* Cp, const void* dh,
                                 const void* cand, const void* kv,
-                                const void* deleted, const void* ef_eff,
+                                const void* deleted, long long del_stride,
+                                int shard_b, const void* ef_eff,
                                 const void* pop, void* oFd, void* oFi,
                                 void* oCd, void* oCi, void* oCp, int B,
                                 int ef, int cap, int k, int kk, int W,
                                 int threads, void* scratch, void* stream) {
   if (ef < 1 || cap < 1 || kk < 1 || W < 0 || (Cp != nullptr && k < 1) ||
-      (kv != nullptr && Cp == nullptr) || threads < 0 || threads > 1024)
+      (kv != nullptr && Cp == nullptr) || threads < 0 || threads > 1024 ||
+      shard_b < 1 || del_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(Fd), static_cast<const int32_t*>(Fi),
                static_cast<const float*>(Cd), static_cast<const int32_t*>(Ci),
                static_cast<const float*>(Cp), static_cast<const float*>(dh),
                static_cast<const int32_t*>(cand),
                static_cast<const float*>(kv),
-               static_cast<const int32_t*>(deleted),
+               static_cast<const int32_t*>(deleted), del_stride, shard_b,
                static_cast<const int32_t*>(ef_eff),
                static_cast<const uint8_t*>(pop),
                static_cast<float*>(oFd), static_cast<int32_t*>(oFi),

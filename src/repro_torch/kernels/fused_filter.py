@@ -12,6 +12,10 @@ block itself and returns the winners' neighbour ids. It replaces the
 search's ``clamp``/``where`` of the popped ids, the two ``index_select``
 (the [B, W*M0, dl] block is never written), the mask's ops, the
 threshold column's copy and the id ``gather`` around the kernel.
+Stacked (``adj`` [P, N, M0], ``packed_low`` [P, N, M0, dl]: the slotted
+sharded programs over ``core.distributed.stacked_db_view``), one launch
+expands every shard's rows, row r reading shard r // (B / P), as the
+reference's ``vmap`` adds a shard axis to the Pallas grid.
 ``fused_filter_cuda`` replaces ``fused_filter_pallas``: Dist.L + kSort.L
 with no mask and no threshold (the kernel-footprint bench's row).
 
@@ -49,11 +53,12 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
 # stream
 _FILTER_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
     + [ctypes.c_void_p] * 2
-# ..., B, W, M0, dl, k, per_lane, threads, staged, copy, rw, bf16,
-# scratch, stream
+# ..., B, W, M0, dl, k, shard_b, shard_n, per_lane, threads, staged,
+# copy, rw, bf16, scratch, stream
 _ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
     + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2 \
-    + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p] * 2
 WARPS_PER_BLOCK = 4            # csrc/filter_rows.cuh kWarpsPerBlock
 
 
@@ -208,20 +213,40 @@ def fused_expand_cuda(x, q, valid, th, k: int):
 fused_expand_cuda.launches = 0
 
 
+def stacked_layer(adj, pay, B: int, name: str):
+    """(P, N, M0, shard_b, shard_n) of a layer ``adj`` [N, M0] or stacked
+    [P, N, M0] (with its payload ``pay``) expanded for B rows: shard_b
+    rows a shard and shard_n nodes a shard's table, (B, 0) unstacked.
+    Raises unless P divides B."""
+    if adj.dim() == 2:
+        N, M0 = adj.shape
+        return 1, N, M0, max(B, 1), 0
+    if adj.dim() != 3 or pay.dim() != 4:
+        raise ValueError(f"{name}: expected a layer [N, M0] or a stacked "
+                         "layer [P, N, M0]")
+    P, N, M0 = adj.shape
+    if P < 1 or B % P:
+        raise ValueError(f"{name}: {B} rows do not split into {P} shards")
+    return P, N, M0, max(B // P, 1), N
+
+
 def fused_expand_rows_cuda(adj, packed_low, c_w, exp, q, th, k: int):
     """adj: [N, M0] int32 and packed_low: [N, M0, dl] f32 or bf16,
     contiguous (a layer of the db; its base need not be 16-byte
-    aligned); c_w: [B, W]
+    aligned), or stacked [P, N, M0] and [P, N, M0, dl] (row r reads shard
+    r // (B / P), P dividing B); c_w: [B, W]
     int32 popped ids and th: [B] f32, each with any row stride (and unit
     inner stride); exp: [B, W] bool and q: [B, dl] f32 contiguous; all
     on one CUDA device; 1 <= k <= W * M0.
     Returns (vals [B, k] f32 ascending, cand [B, k] int32 neighbour
     ids)."""
-    N, M0 = adj.shape
     B, W = c_w.shape
-    dl = packed_low.shape[2]
-    check_cuda(adj, torch.int32, (N, M0), "adj")
-    check_cuda(packed_low, PAYLOAD_DTYPES, (N, M0, dl), "packed_low",
+    P, N, M0, shard_b, shard_n = stacked_layer(adj, packed_low, B,
+                                               "fused_expand_rows")
+    lead = (N, M0) if adj.dim() == 2 else (P, N, M0)
+    dl = packed_low.shape[-1]
+    check_cuda(adj, torch.int32, lead, "adj")
+    check_cuda(packed_low, PAYLOAD_DTYPES, lead + (dl,), "packed_low",
                like=adj)
     check_cuda(exp, torch.bool, (B, W), "exp", like=adj)
     check_cuda(q, torch.float32, (B, dl), "q", like=adj)
@@ -250,9 +275,9 @@ def fused_expand_rows_cuda(adj, packed_low, c_w, exp, q, th, k: int):
              (adj.data_ptr(), packed_low.data_ptr(), c_w.data_ptr(),
               c_w.stride(0), exp.data_ptr(), q.data_ptr(), th.data_ptr(),
               th.stride(0), vals.data_ptr(), cand.data_ptr(), B, W, M0, dl,
-              k, plan["per_lane"], plan["threads"], int(plan["staged"]),
-              plan["copy"], plan["rw"], _bf16(packed_low), ptr(scratch),
-              stream_of(adj)))
+              k, shard_b, shard_n, plan["per_lane"], plan["threads"],
+              int(plan["staged"]), plan["copy"], plan["rw"],
+              _bf16(packed_low), ptr(scratch), stream_of(adj)))
     fused_expand_rows_cuda.launches += 1
     return vals, cand
 

@@ -142,6 +142,15 @@ def fused_expand(x, q, valid, th, k: int):
     return ref.fused_expand_ref(x, q, valid, th, k)
 
 
+def _stacked_rows(leaf, flat_dims: int, B: int, name: str) -> None:
+    """Check a stacked leaf (one more dim than ``flat_dims``, the shard
+    dim P first): the B rows must split into P shards."""
+    if leaf.dim() == flat_dims + 1 and (leaf.shape[0] < 1
+                                        or B % leaf.shape[0]):
+        raise ValueError(f"{name}: {B} rows do not split into "
+                         f"{leaf.shape[0]} shards")
+
+
 def fused_expand_rows(adj, packed_low, c_w, exp, q, th, k: int):
     """The pca traversal's expand with its row gathers fused: for the W
     popped ids ``c_w`` [B, W] (a strided view is read in place) and their
@@ -152,8 +161,13 @@ def fused_expand_rows(adj, packed_low, c_w, exp, q, th, k: int):
     reference's clamp); Dist.L against ``q`` [B, dl], the C_pca threshold
     ``th`` [B] (a column view is read in place), kSort.L. Returns (kv
     [B, k] ascending, cand [B, k] int32 neighbour ids); filtered-out
-    slots get kv >= VALID_MAX. k must not exceed W * M0."""
-    W, M0 = c_w.shape[1], adj.shape[1]
+    slots get kv >= VALID_MAX. k must not exceed W * M0.
+    Stacked (``core.distributed.stacked_db_view``): ``adj`` [P, N, M0]
+    and ``packed_low`` [P, N, M0, dl], the B rows shard-major (row r
+    reads shard r // (B / P); ids are the shard's own), one launch for
+    every shard; B must be a multiple of P."""
+    W, M0 = c_w.shape[1], adj.shape[-1]
+    _stacked_rows(adj, 2, c_w.shape[0], "fused_expand_rows")
     if k > W * M0:
         raise ValueError(f"fused_expand_rows: k={k} exceeds W * M0 = "
                          f"{W * M0}")
@@ -200,8 +214,13 @@ def pq_expand_rows(adj, codes, c_w, exp, lut, th, k: int):
     strided view is read in place), the C_pca threshold ``th`` [B] (a
     column view is read in place), kSort.L. Returns (kv [B, k]
     ascending, cand [B, k] int32 neighbour ids); filtered-out slots get
-    kv >= VALID_MAX. k must not exceed W * M0."""
-    W, M0 = c_w.shape[1], adj.shape[1]
+    kv >= VALID_MAX. k must not exceed W * M0.
+    Stacked (``core.distributed.stacked_db_view``): ``adj`` [P, N, M0]
+    and ``codes`` [P, N, M0, S], the B rows shard-major (row r reads
+    shard r // (B / P); ids are the shard's own), one launch for every
+    shard; B must be a multiple of P."""
+    W, M0 = c_w.shape[1], adj.shape[-1]
+    _stacked_rows(adj, 2, c_w.shape[0], "pq_expand_rows")
     if k > W * M0:
         raise ValueError(f"pq_expand_rows: k={k} exceeds W * M0 = {W * M0}")
     if _on_cuda(adj, codes, c_w, exp, lut, th):
@@ -230,8 +249,13 @@ def trip_fold(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
     with ties to the frontier, then the lower slot. The slotted search
     gates it per row: ``ef_eff`` [B] int32 in [1, ef] bounds the accept
     test by ``F_d[i, ef_eff[i] - 1]``, and a row whose ``pop`` [B] (bool)
-    is False keeps C unpopped. Returns new (F_d, F_i, C_d, C_i, Cp); the
-    inputs are not modified."""
+    is False keeps C unpopped. Stacked ``deleted`` [P, nw]
+    (``core.distributed.stacked_db_view``): the B rows are shard-major,
+    row r masked with shard r // (B / P)'s words, one launch for every
+    shard; B must be a multiple of P. Returns new (F_d, F_i, C_d, C_i,
+    Cp); the inputs are not modified."""
+    if deleted is not None:
+        _stacked_rows(deleted, 1, F_d.shape[0], "trip_fold")
     ts = [t for t in (F_d, F_i, C_d, C_i, Cp, dh, cand, kv, deleted,
                       ef_eff, pop) if t is not None]
     if _on_cuda(*ts):

@@ -19,7 +19,10 @@ uint8 (16 B per neighbor at S = 16; the reference casts them to int32
 only for the TPU). The table is passed
 with its row stride, so the cascade's strided view of its flat
 per-query row is read in place; so are the popped ids (a view of the
-frontier C) and the threshold (a column of the C_pca heap). Bound on the
+frontier C) and the threshold (a column of the C_pca heap). Stacked
+(``adj`` [P, N, M0], codes [P, N, M0, S]: the slotted sharded programs
+over ``core.distributed.stacked_db_view``), one launch expands every
+shard's rows, row r reading shard r // (B / P). Bound on the
 card: bytes (the tables). The plain versions are
 ``ref.pq_adc_expand_ref`` and ``ref.pq_expand_rows_ref``; ``ops`` picks
 between kernel and plain version by tensor device."""
@@ -32,14 +35,18 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import (check_cuda, ptr, scratch_rows,
                                          smem_optin, stream_of)
-from repro_torch.kernels.fused_filter import expand_plan
+from repro_torch.kernels.fused_filter import expand_plan, stacked_layer
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] \
     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+# adj, codes, cw, cw_stride, gate, lut, lut_stride, th, th_stride, out_d,
+# out_i, B, W, M0, S, k, shard_b, shard_n, per_lane, threads, scratch,
+# stream
 _ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
     + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p,
                                ctypes.c_longlong] \
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 
 
 def lut_rows_ok(lut) -> bool:
@@ -96,17 +103,21 @@ pq_adc_expand_cuda.launches = 0
 
 def pq_expand_rows_cuda(adj, codes, c_w, exp, lut, th, k: int):
     """adj: [N, M0] int32 and codes: [N, M0, S] uint8, contiguous (a
-    layer of the db); c_w: [B, W] int32 popped ids and th: [B] f32, each
-    with any row stride (and unit inner stride); exp: [B, W] bool
+    layer of the db), or stacked [P, N, M0] and [P, N, M0, S] (row r
+    reads shard r // (B / P), P dividing B); c_w: [B, W] int32 popped
+    ids and th: [B] f32, each with any row stride (and unit inner
+    stride); exp: [B, W] bool
     contiguous; lut: [B, S, 256] f32 with strides (r, 256, 1); all on one
     CUDA device; 1 <= k <= W * M0.
     Returns (vals [B, k] f32 ascending, cand [B, k] int32 neighbour
     ids)."""
-    N, M0 = adj.shape
     B, W = c_w.shape
-    S = codes.shape[2]
-    check_cuda(adj, torch.int32, (N, M0), "adj")
-    check_cuda(codes, torch.uint8, (N, M0, S), "codes", like=adj)
+    P, N, M0, shard_b, shard_n = stacked_layer(adj, codes, B,
+                                               "pq_expand_rows")
+    lead = (N, M0) if adj.dim() == 2 else (P, N, M0)
+    S = codes.shape[-1]
+    check_cuda(adj, torch.int32, lead, "adj")
+    check_cuda(codes, torch.uint8, lead + (S,), "codes", like=adj)
     check_cuda(exp, torch.bool, (B, W), "exp", like=adj)
     for t, name, dt in ((c_w, "c_w", torch.int32), (th, "th", torch.float32)):
         if not (isinstance(t, torch.Tensor) and t.device == adj.device
@@ -134,8 +145,8 @@ def pq_expand_rows_cuda(adj, codes, c_w, exp, lut, th, k: int):
         err = fn(adj.data_ptr(), codes.data_ptr(), c_w.data_ptr(),
                  c_w.stride(0), exp.data_ptr(), lut.data_ptr(),
                  lut.stride(0), th.data_ptr(), th.stride(0),
-                 vals.data_ptr(), cand.data_ptr(), B, W, M0, S, k,
-                 plan["per_lane"], plan["threads"], ptr(scratch),
+                 vals.data_ptr(), cand.data_ptr(), B, W, M0, S, k, shard_b,
+                 shard_n, plan["per_lane"], plan["threads"], ptr(scratch),
                  stream_of(adj))
     _build.check(lib, "pq_adc_expand", err)
     pq_expand_rows_cuda.launches += 1

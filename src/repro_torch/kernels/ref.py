@@ -71,17 +71,34 @@ def fused_expand_ref(x, q, valid, th, k: int):
     return ksort_l_ref(d, k)
 
 
+def shard_base(B: int, P: int, per: int, device):
+    """[B, 1] int64: the offset of row r's shard in a flattened stacked
+    leaf, ``(r // (B / P)) * per`` (``per`` rows or words a shard): the
+    rows of a stacked call are shard-major. Raises unless P divides B."""
+    if P < 1 or B % P:
+        raise ValueError(f"{B} rows do not split into {P} shards")
+    return (torch.arange(B, device=device) // max(B // P, 1) * per)[:, None]
+
+
 def popped_rows(adj, pay, c_w, exp):
     """The popped rows as the search gathered them before the gathers
     were fused (``repro/core/search_jax.py:_layer_body``'s lines): a
     gated-off pop reads row 0 and a -1 pop with its gate set is clamped
     to node 0; the neighbours' mask is ``adj >= 0`` and the gate.
     adj: [N, M0]; pay: [N, M0, width] (the layer's layout-(3) payload);
-    c_w, exp: [B, W]. Returns (nb_i [B, W*M0], nb_mask, nb_pay [B, W*M0,
-    width])."""
+    c_w, exp: [B, W]. Stacked (``core.distributed.stacked_db_view``):
+    adj [P, N, M0] and pay [P, N, M0, width], row r reading shard
+    r // (B / P) (its own row 0 where gated off), as the reference's
+    ``vmap`` over the shards. Returns (nb_i [B, W*M0], nb_mask, nb_pay
+    [B, W*M0, width])."""
     B, W = c_w.shape
-    M0 = adj.shape[1]
-    c_safe = torch.where(exp, c_w.clamp(min=0), 0).reshape(-1)
+    M0 = adj.shape[-1]
+    c_safe = torch.where(exp, c_w.clamp(min=0), 0)
+    if adj.dim() == 3:
+        c_safe = c_safe + shard_base(B, adj.shape[0], adj.shape[1],
+                                     c_w.device)
+        adj, pay = adj.flatten(0, 1), pay.flatten(0, 1)
+    c_safe = c_safe.reshape(-1)
     nb_i = adj.index_select(0, c_safe).reshape(B, W * M0)
     nb_mask = (nb_i >= 0) & exp.repeat_interleave(M0, dim=1)
     nb_pay = pay.index_select(0, c_safe).reshape(B, W * M0, -1)
@@ -94,7 +111,9 @@ def fused_expand_rows_ref(adj, packed_low, c_w, exp, q, th, k: int):
     the winners' indices mapped back to neighbour ids.
     adj: [N, M0] int32; packed_low: [N, M0, dl] (the layer's layout-(3)
     rows); c_w: [B, W] popped ids; exp: [B, W] bool gates; q: [B, dl];
-    th: [B]. Returns (kv [B, k] ascending, cand [B, k] int32)."""
+    th: [B]. Stacked: adj [P, N, M0] and packed_low [P, N, M0, dl], row
+    r in shard r // (B / P) (``popped_rows``). Returns (kv [B, k]
+    ascending, cand [B, k] int32, the shard's local ids)."""
     nb_i, nb_mask, nb_pay = popped_rows(adj, packed_low, c_w, exp)
     kv, ki = fused_expand_ref(nb_pay, q, nb_mask, th, k)
     return kv, torch.gather(nb_i, 1, ki.long())
@@ -106,7 +125,9 @@ def pq_expand_rows_ref(adj, codes, c_w, exp, lut, th, k: int):
     the winners' indices mapped back to neighbour ids.
     adj: [N, M0] int32; codes: [N, M0, S] uint8 (the layer's layout-(3)
     codes); c_w: [B, W] popped ids; exp: [B, W] bool gates; lut: [B, S,
-    256]; th: [B]. Returns (kv [B, k] ascending, cand [B, k] int32)."""
+    256]; th: [B]. Stacked: adj [P, N, M0] and codes [P, N, M0, S], row r
+    in shard r // (B / P) (``popped_rows``). Returns (kv [B, k]
+    ascending, cand [B, k] int32, the shard's local ids)."""
     nb_i, nb_mask, nb_pay = popped_rows(adj, codes, c_w, exp)
     kv, ki = pq_adc_expand_ref(nb_pay, lut, nb_mask, th, k)
     return kv, torch.gather(nb_i, 1, ki.long())
@@ -167,10 +188,16 @@ def rank_sort_with_payload(d, p):
 def tombstone_bit(deleted, ids):
     """The tombstone bit of each id (any shape) in the word-packed bitmap
     ``deleted`` (bit i of word i >> 5) as a bool tensor. Negative ids
-    (padding) read word 0 harmlessly; callers mask them."""
+    (padding) read word 0 harmlessly; callers mask them. Stacked
+    ``deleted`` [P, nw]: ``ids`` [B, ...] are shard-major rows, row r
+    reading shard r // (B / P)'s words."""
     safe = ids.clamp(min=0)
-    return ((torch.take(deleted, (safe // 32).long()) >> (safe % 32))
-            & 1) != 0
+    word = (safe // 32).long()
+    if deleted.dim() == 2:
+        P, nw = deleted.shape
+        base = shard_base(ids.shape[0], P, nw, ids.device)
+        word = word + base.reshape((-1,) + (1,) * (ids.dim() - 1))
+    return ((torch.take(deleted, word) >> (safe % 32)) & 1) != 0
 
 
 def trip_fold_ref(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
@@ -185,7 +212,9 @@ def trip_fold_ref(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
     gates: ``ef_eff`` [B] (in [1, ef]) bounds the accept test by
     ``F_d[i, ef_eff[i] - 1]`` instead of ``F_d[i, -1]``, and a row whose
     ``pop`` [B] is False (done, or frozen at its step budget) keeps C
-    unpopped. Returns new (F_d, F_i, C_d, C_i, Cp)."""
+    unpopped. ``deleted`` stacked [P, nw] (``core.distributed.
+    stacked_db_view``) masks row r with shard r // (B / P)'s words.
+    Returns new (F_d, F_i, C_d, C_i, Cp)."""
     B, kk = dh.shape
     ef = F_d.shape[1]
     if ef_eff is None:

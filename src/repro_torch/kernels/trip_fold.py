@@ -15,7 +15,10 @@ only compares and moves, so it equals the plain version
 by tensor device. The slotted search gates it per row: ``ef_eff`` picks
 the slot of F that bounds the accept test, and ``pop`` keeps C unshifted
 on a row that is done or frozen at its step budget; without them the
-kernel runs the synchronous search's fold."""
+kernel runs the synchronous search's fold. Stacked tombstone words
+[P, nw] (the slotted sharded programs over
+``core.distributed.stacked_db_view``) fold every shard's rows in one
+launch, row r masked with shard r // (B / P)'s words."""
 from __future__ import annotations
 
 import ctypes
@@ -27,8 +30,10 @@ from repro_torch.kernels._launch import (SMEM_DEFAULT, check_cuda, ptr,
                                          scratch_rows, smem_optin, stream_of,
                                          warps_for)
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
-    + [ctypes.c_void_p] * 2
+# Fd, Fi, Cd, Ci, Cp, dh, cand, kv, deleted, del_stride, shard_b, ef_eff,
+# pop, the five outputs, B, ef, cap, k, kk, W, threads, scratch, stream
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int] \
+    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
 WARPS_PER_BLOCK = 4            # csrc/trip_fold.cu kWarpsPerBlock
 WARP_MAX_FEED = 64             # the warp tier's widest feed (W * k)
 
@@ -64,7 +69,8 @@ def trip_fold_cuda(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
     ascending (C as it was before the trip's pop of W); Cp: [B, k] f32
     ascending, or None (the filter bypass); dh/cand: [B, kk] f32/int32;
     kv: [B, kk] f32, or None (the heap is fed the C row's dists; needs
-    Cp); deleted: the tombstone words [nw] int32, or None; ef_eff: [B]
+    Cp); deleted: the tombstone words [nw] int32, stacked [P, nw] (row r
+    reads shard r // (B / P)'s, P dividing B), or None; ef_eff: [B]
     int32 in [1, ef], the slot of F that bounds each row's accept test,
     or None (slot ef - 1); pop: [B] bool or uint8, 0 where the row keeps
     C unpopped, or None (every row pops). All contiguous on one CUDA
@@ -85,9 +91,18 @@ def trip_fold_cuda(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
         if Cp is None:
             raise ValueError("trip_fold: kv feeds the heap; Cp is None")
         check_cuda(kv, torch.float32, (B, kk), "kv", like=F_d)
+    shard_b, del_stride = max(B, 1), 0
     if deleted is not None:
         check_cuda(deleted, torch.int32, tuple(deleted.shape), "deleted",
                    like=F_d)
+        if deleted.dim() == 2:
+            P = deleted.shape[0]
+            if P < 1 or B % P:
+                raise ValueError(f"trip_fold: {B} rows do not split into "
+                                 f"{P} shards")
+            shard_b, del_stride = max(B // P, 1), deleted.shape[1]
+        elif deleted.dim() != 1:
+            raise ValueError("deleted: expected [nw] or [P, nw] words")
     if ef_eff is not None:
         check_cuda(ef_eff, torch.int32, (B,), "ef_eff", like=F_d)
     if pop is not None:
@@ -111,7 +126,8 @@ def trip_fold_cuda(F_d, F_i, C_d, C_i, W: int, Cp, dh, cand, kv=None,
     with torch.cuda.device(dev):
         err = fn(F_d.data_ptr(), F_i.data_ptr(), C_d.data_ptr(),
                  C_i.data_ptr(), ptr(Cp), dh.data_ptr(), cand.data_ptr(),
-                 ptr(kv), ptr(deleted), ptr(ef_eff), ptr(pop),
+                 ptr(kv), ptr(deleted), del_stride, shard_b, ptr(ef_eff),
+                 ptr(pop),
                  oFd.data_ptr(), oFi.data_ptr(),
                  oCd.data_ptr(), oCi.data_ptr(), ptr(oCp), B, ef, cap, k,
                  kk, W, plan["threads"], ptr(scratch), stream_of(F_d))

@@ -30,10 +30,13 @@ fixed bank of slots over the resumable slotted search state
     counters land on the service's registry, each tick in a
     ``sched.tick`` span.
 
-Sharded backends step every shard's slots (``_slot_step_sharded``, a
-host loop over the shards); retirement needs the done latch on every
-LIVE shard and merges the disjoint per-shard lists on the host (a
-stable sort: lower shard, then lower slot). Dead shards (``ShardHealth``
+Sharded backends step every shard's slots in one pass over the stacked
+view of the ``ShardedDB`` (``core.distributed.stacked_db_view``, the
+reference's operand: ``_slot_step_sharded`` runs the stacked [P, S]
+bank as P * S rows, one launch of each per-trip kernel for all
+shards); retirement needs the done latch on every LIVE shard and
+merges the disjoint per-shard lists on the host (a stable sort: lower
+shard, then lower slot). Dead shards (``ShardHealth``
 when the service carries a fault policy, else ``set_live``) are left
 out of the done gate and the merge, and completions carry exact
 coverage.
@@ -54,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import search_torch as st
+from repro_torch.core.distributed import stacked_db_view
 
 
 class SchedulerUnsupported(RuntimeError):
@@ -211,7 +215,8 @@ class StreamScheduler:
     # -- plumbing ----------------------------------------------------------
 
     def _db(self):
-        return self.svc.sdb if self.sharded else self.svc.db
+        return stacked_db_view(self.svc.sdb) if self.sharded \
+            else self.svc.db
 
     def _live(self) -> np.ndarray:
         """[P] live-shard mask: the service's fault-plane health when it

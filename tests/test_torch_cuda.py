@@ -1760,3 +1760,204 @@ def test_decode_attention_counts_like_cpu_and_launches_once(cuda, H, KV, T,
     want = 4 * 3 * H * T * d
     assert counts == {"cpu": (want, 0), "cuda": (want, 1),
                       "meta": (want, 0)}
+
+
+# --------------- the stacked kernels (the sharded slotted pass) --------------
+
+STACKED_P, STACKED_ROWS = 4, 64      # the stream phase's bank: P x S rows
+
+
+def _stacked_rows_case(rng, P, R, W, N, M0, width, kind):
+    """A stacked layer (adj [P, N, M0] with -1 tails; integer layout-(3)
+    rows or uint8 codes [P, N, M0, width]), P * R shard-major rows of
+    popped ids (a view of a wider frontier, some -1; row 2 a -1 pop with
+    its gate set), gates (row 0 all clear), integer queries, a flat
+    integer table row (the cascade's layout) and a heap whose last column
+    is the threshold."""
+    B = P * R
+    adj = rng.integers(0, N, (P, N, M0)).astype(np.int32)
+    tails = rng.integers(0, M0 // 2, (P, N))
+    adj[np.arange(M0)[None, None, :] >= M0 - tails[..., None]] = -1
+    if kind == "pq":
+        pay = rng.integers(0, 256, (P, N, M0, width)).astype(np.uint8)
+    else:
+        pay = rng.integers(0, 16, (P, N, M0, width)).astype(np.float32)
+    C_i = rng.integers(-1, N, (B, W + 7)).astype(np.int32)
+    exp = rng.random((B, W)) < 0.8
+    exp[0] = False
+    C_i[2, 0], exp[2, 0] = -1, True
+    q = rng.integers(0, 16, (B, width)).astype(np.float32)
+    flat = rng.integers(0, 1 << 16, (B, width * 256 + 15)).astype(np.float32)
+    scale = float(width << 15) if kind == "pq" else 64.0 * width
+    heap = np.sort(rng.random((B, 4)) * scale, 1).astype(np.float32)
+    heap[::2, -1] = INF
+    heap[1, -1] = 0.0
+    return adj, pay, C_i, exp, q, flat, heap
+
+
+def _stacked_expand(kind, adj, pay, c_w, exp, q, lut, th, kk, op):
+    """``op`` (ops or ref) of the expand of ``kind`` on these leaves."""
+    if kind == "pq":
+        return op.pq_expand_rows(adj, pay, c_w, exp, lut, th, kk) \
+            if op is ops else ref.pq_expand_rows_ref(adj, pay, c_w, exp, lut,
+                                                     th, kk)
+    if op is ops:
+        return ops.fused_expand_rows(adj, pay, c_w, exp, q, th, kk)
+    return ref.fused_expand_rows_ref(adj, pay, c_w, exp, q, th, kk)
+
+
+def _check_stacked_expand(dev, kind, P, R, W, N, M0, width, k, seed):
+    """The stacked expand of ``kind`` ("f32", "bf16" or "pq") against its
+    plain version and against P per-shard launches, bit for bit; one
+    launch counted for the stacked call."""
+    rng = np.random.default_rng(seed)
+    adj, pay, C_i, exp, q, flat, heap = _t(dev, *_stacked_rows_case(
+        rng, P, R, W, N, M0, width, kind))
+    if kind == "bf16":
+        pay = pay.to(torch.bfloat16)
+    B = P * R
+    lut = flat[:, :width * 256].reshape(B, width, 256)
+    c_w, th, kk = C_i[:, :W], heap[:, -1], W * k
+    name = "pq_expand_rows" if kind == "pq" else "fused_expand_rows"
+    before = ops.launch_counts()[name]
+    got = _stacked_expand(kind, adj, pay, c_w, exp, q, lut, th, kk, ops)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    want = _stacked_expand(kind, adj, pay, c_w, exp, q, lut, th, kk, ref)
+    rows = lambda p: slice(p * R, (p + 1) * R)
+    per = [_stacked_expand(kind, adj[p], pay[p], c_w[rows(p)], exp[rows(p)],
+                           q[rows(p)], lut[rows(p)], th[rows(p)], kk, ops)
+           for p in range(P)]
+    torch.cuda.synchronize()
+    for w in (want, tuple(map(torch.cat, zip(*per)))):
+        assert torch.equal(_bits(got[0]), _bits(w[0]))
+        assert torch.equal(got[1], w[1])
+    assert bool((got[0][0] == INF).all())
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "pq"])
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+def test_stacked_expand_rows_match_plain_and_per_shard(cuda, W, kind):
+    """The expands on a stacked layer (P = 4 shards, 64 rows each: the
+    stream phase's sharded bank): one launch for every shard, equal to
+    the plain version and to the per-shard launches, in the warp tier
+    (W = 1, 2, 4: 32, 64, 128 slots) and the block tier (W = 8)."""
+    width = 16 if kind == "pq" else 15
+    _check_stacked_expand(cuda, kind, STACKED_P, STACKED_ROWS, W, 3000, 32,
+                          width, 16, 100 * W + len(kind))
+
+
+@pytest.mark.parametrize("kind", ["f32", "pq"])
+def test_stacked_expand_rows_global_tier(cuda, kind):
+    """A stacked row past the card's opt-in shared memory (W = 4 popped
+    nodes of M0 = 16,384 slots): the global tier, equal the same way."""
+    from repro_torch.kernels._launch import smem_optin
+    from repro_torch.kernels.fused_filter import expand_plan
+    assert expand_plan(4 * 16384, smem_optin(cuda))["tier"] == "global"
+    _check_stacked_expand(cuda, kind, 2, 2, 4, 64, 16384, 4, 20, 7)
+
+
+# (B, ef, k, W, kk, heap, kv row): the pca bank's fold (warp tier), the
+# pca-deferred bank's (no kv row), the bypass, W = 8 (block tier) and a
+# frontier past shared memory (global tier), each over P = 4 shards'
+# tombstone words
+STACKED_FOLD_SHAPES = [(256, 10, 16, 1, 16, True, True),
+                       (256, 30, 16, 1, 16, True, False),
+                       (256, 100, 0, 1, 32, False, False),
+                       (256, 10, 16, 8, 128, True, True),
+                       (8, 30000, 16, 1, 32, True, True)]
+
+
+@pytest.mark.parametrize("shape", STACKED_FOLD_SHAPES)
+def test_stacked_trip_fold_matches_plain_and_per_shard(cuda, shape):
+    """The fold with stacked tombstone words [P, nw] (row r masked with
+    shard r // (B / P)'s): one launch, gated and ungated, equal bit for
+    bit to the plain version and to the per-shard launches, on integer
+    and float data."""
+    B, ef, k, W, kk, heap, kv_row = shape
+    P, cap = STACKED_P, max(ef + kk, 8)
+    for integer in (True, False):
+        rng = np.random.default_rng(5 * ef + kk + integer)
+        F_d, F_i, C_d, C_i, Cp, dh, cand, kv, _ = _t(
+            cuda, *_fold_case(rng, B, ef, cap, k, kk, integer))
+        words, = _t(cuda, np.stack([_fold_case(rng, 1, 1, 8, 1, 1, True)[-1]
+                                    for _ in range(P)]))
+        ef_eff, pop = _t(cuda, rng.integers(1, ef + 1, B).astype(np.int32),
+                         rng.random(B) < 0.6)
+        rows = lambda p: slice(p * (B // P), (p + 1) * (B // P))
+        for gates in ({}, {"ef_eff": ef_eff, "pop": pop}):
+            args = (F_d, F_i, C_d, C_i, W, Cp if heap else None, dh, cand,
+                    kv if kv_row else None, words)
+            before = ops.launch_counts()
+            got = ops.trip_fold(*args, **gates)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            assert after["trip_fold"] == before["trip_fold"] + 1
+            assert after["trip_fold_gated"] == \
+                before["trip_fold_gated"] + bool(gates)
+            want = ref.trip_fold_ref(*args, **gates)
+            cut = lambda t, p: None if t is None else t[rows(p)]
+            per = [ops.trip_fold(*(cut(t, p) for t in args[:4]), W,
+                                 *(cut(t, p) for t in args[5:9]), words[p],
+                                 **{n: t[rows(p)] for n, t in gates.items()})
+                   for p in range(P)]
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                if w is None:
+                    assert g is None
+                    continue
+                assert torch.equal(_bits(g), _bits(w))
+                assert torch.equal(_bits(g),
+                                   _bits(torch.cat([o[i] for o in per])))
+
+
+def test_stacked_kernels_refuse_a_ragged_batch(cuda):
+    """B not a multiple of the P shards raises, on the card as on the
+    CPU, before any launch."""
+    rng = np.random.default_rng(3)
+    adj, low, C_i, exp, q, flat, heap = _t(cuda, *_stacked_rows_case(
+        rng, 4, 8, 1, 100, 16, 4, "f32"))
+    _, codes, *_ = _t(cuda, *_stacked_rows_case(rng, 4, 8, 1, 100, 16, 4,
+                                                "pq"))
+    cut = slice(0, 31)
+    lut = flat[cut, :4 * 256].reshape(31, 4, 256)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="shards"):
+        ops.fused_expand_rows(adj, low, C_i[cut, :1], exp[cut], q[cut],
+                              heap[cut, -1], 8)
+    with pytest.raises(ValueError, match="shards"):
+        ops.pq_expand_rows(adj, codes, C_i[cut, :1], exp[cut], lut,
+                           heap[cut, -1], 8)
+    F_d, F_i, C_d, C_i2, Cp, dh, cand, kv, w = _t(
+        cuda, *_fold_case(rng, 31, 10, 26, 16, 16, True))
+    with pytest.raises(ValueError, match="shards"):
+        ops.trip_fold(F_d, F_i, C_d, C_i2, 1, Cp, dh, cand, kv,
+                      torch.stack([w] * 4))
+    assert ops.launch_counts() == before
+
+
+def test_sharded_scheduler_launches_once_a_trip(cuda):
+    """The sharded stream on the card (P = 3) steps every shard in one
+    pass: each layer-body trip, counted on the host, launches the pca
+    expand and the fold once, the gated fold once a slotted trip, and
+    not once a shard; bit-equal to the synchronous shard loop."""
+    from repro_torch.core import distributed
+    from repro_torch.core import search_torch as st
+    from repro_torch.serve.vector_service import VectorSearchService
+    cfg, graphs, filt = _int_mutable_setup(900, 3)
+    x = np.concatenate([g.x for g in graphs])
+    q = np.random.default_rng(4).integers(0, 8, (64, 16)).astype(np.float32)
+    sdb = distributed.build_sharded(x, cfg, filt, 3, graphs=graphs,
+                                    device=cuda)
+    svc = VectorSearchService(sdb, filt=filt, batch_size=32, device=cuda)
+    svc.scheduler()
+    ops.reset_launch_counts()
+    st.reset_trip_counts()
+    ids, stats = svc.run_stream(q)
+    torch.cuda.synchronize()
+    counts, trips = ops.launch_counts(), st.trip_counts()
+    assert stats["path"] == "scheduler" and trips["slotted"] > 0
+    assert counts["trip_fold_gated"] == trips["slotted"]
+    assert counts["trip_fold"] == trips["slotted"] + trips["layer"]
+    assert counts["fused_expand_rows"] == trips["slotted"] + trips["layer"]
+    assert np.array_equal(ids, svc.run_stream_sync(q)[0])
