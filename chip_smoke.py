@@ -213,7 +213,7 @@ non-zero:
                 with seed ``seed + s``; ``graph_invariants`` must hold for
                 each;
   5. pq_train — the PQ codebook (16 x 256, density-aware from the shard
-                graphs' levels in shard order, 8 Lloyd iterations on a 20k
+                graphs' levels in shard order, 4 Lloyd iterations on a 20k
                 subsample) and the codes of all ``--n`` points, host
                 numpy, timed as their own stage; the PCA is fitted on all
                 points;
@@ -267,9 +267,9 @@ non-zero:
  10b. serve  — the README quickstart on the card at shard 0's size:
                 ``MutableIndex.from_graph`` (the pca filter) with
                 ``reserve(65536)`` and ``VectorSearchService(batch_size=
-                --batch)``: the ``--queries`` queries served, 8,192 fresh
-                points upserted (64 calls of ``insert_batch`` 128, each
-                timed), 2,500 original ids deleted (5 calls, timed), the
+                --batch)``: the ``--queries`` queries served, 4,096 fresh
+                points upserted (32 calls of ``insert_batch`` 128, each
+                timed; a ``reduced`` line), 2,500 original ids deleted (5 calls, timed), the
                 queries served again (no deleted id; recall@10 against the
                 live points >= 0.80), self-recall of the inserted points
                 (own id at rank 0) >= 0.95, ``save`` -> ``load`` on the
@@ -285,7 +285,7 @@ non-zero:
                 ``FaultPlan`` -> degraded, coverage the live-count share
                 exactly, none of its ids; ``recover_shard(2)`` -> full
                 coverage and the healthy ids; a corrupt answer
-                quarantined; 4,096 round-robin upserts found by the next
+                quarantined; 2,048 round-robin upserts found by the next
                 queries (self-recall >= 0.95), the stacked db of the
                 epoch before them unchanged; a deferred search of the
                 index; the one-npz snapshot round-trips bit-equal (each
@@ -326,9 +326,6 @@ non-zero:
                 entry, dists and tombstone words; and ``compact()`` on the
                 card's 8k index with a quarter deleted (the remap dense,
                 recall@10 against the live points >= 0.80);
- 12. filters  — the 8k filters table (first 64 queries, B=64) beside the
-                tracked ``BENCH_table3.json`` -> ``filters`` rows; each
-                recall within 0.02 of the tracked one;
  13. replica  — (runs after 10c) the serve phase's setup cloned into a
                 ``ReplicaSet`` of three replicas, each with its own copy
                 of the index on the card: the ``--queries`` queries
@@ -345,23 +342,10 @@ non-zero:
                 checkpoint and recovery, and peak device memory; the
                 queries and the upserts must launch ``trip_fold``,
                 ``fused_expand_rows`` and ``dist_h``;
- 14. table3   — (runs after 13) the paper's Table III and Fig 5 on shard
-                0's graph over the first 200 queries: the host oracle's
-                HNSW-CPU and pHNSW-CPU rows (this machine's CPU; its time
-                measured on 20 queries first, and the count cut, with a
-                ``reduced`` line, if the four passes would pass 90 s),
-                the six rows of the cost model of the PAPER's 65 nm
-                processor (not the card) with its orderings held,
-                ``layout3_memory``, the Fig 5 energy rows, and the card's
-                batched rows ``table3/pHNSW-torch-batched/pca`` and
-                ``/none`` at ``--batch`` on the same queries padded to
-                one batch: the pca recall@10 within 0.02 of pHNSW-CPU's;
-                ``record_search_stats`` folds the pca batch into a fresh
-                registry (its seven families) and prints the measured
-                and predicted us per query and their ratio;
- 14b. stream  — (runs after 14) the continuous-batching scheduler:
+ 14. stream   — (runs after 13) the continuous-batching scheduler:
                 shard 0's ``MutableIndex`` behind a service of 64 (the
-                bank's S = 64 slots): 10k queries through
+                bank's S = 64 slots): 5k queries (a ``reduced`` line)
+                through
                 ``run_stream()`` (the scheduler) and
                 ``run_stream_sync()``, bit-equal, with QPS, p50 and p99
                 of each and the escalations (a 1k-query pilot of the
@@ -389,8 +373,37 @@ non-zero:
                 (capacity, ``sync_tight``, the scheduler arm, the cost
                 bridge); the scheduler parts must launch the gated fold,
                 the sync part never;
- 15. the ``{"kernels": [...]}`` line (each kernel's ``launches`` sums
-     every main-path run, ``launches_replica``, ``launches_table3``,
+ 15. benches  — (runs after 11, on its cached 8k fixture and trained
+                filters) the paper's benches through the runner,
+                ``repro_torch.bench.run.main([...])``, one call a mode,
+                each writing its JSON: ``--build --n-points 2000`` (the
+                reference CI's gate size: wave recall@10 >= 0.95, both
+                graphs' invariants, levels and entry equal to the
+                oracle's, ``recall_delta`` >= -0.01; ``speedup_vs_ref``
+                recorded), ``--faults`` (8k, P = 4: coverage the live
+                share exactly at each dead-shard count, ``recall_full``
+                within 0.02 of ``BENCH_table3.json`` -> ``faults``,
+                ``recall_survivor`` >= 0.90 at one dead shard, no new
+                search-program key over the kill / failover / recover
+                cycle, recovered coverage 1.0), the full suite at 8k
+                (``--fast``: Table III with the former ``table3``
+                phase's checks — the card's pca recall within 0.02 of
+                the host oracle's, the modeled processor's orderings
+                with Fig 5's energies — and the filters A/B within 0.02
+                of ``BENCH_table3.json`` -> ``filters``, the former
+                filters table; Fig 2; the kernel footprint; the PQ
+                ablation, each tracked mode within 0.02 and pq64 at 64
+                bytes a vector and >= 0.60; the churn bench on one
+                index), ``--churn --shards 4`` (both churns: final
+                recall@10 against the live set >= 0.80, no deleted id
+                answered, live size and tombstone fraction from the op
+                counts) and ``--perf-smoke`` with ``--filter pq`` (>=
+                0.60), ``--filter cascade --deferred`` (>= 0.80) and
+                ``--shards 4`` (the (1, 4) mesh row >= 0.80); each
+                call's path must launch its kernels; then the cost
+                bridge on one 8k pca batch (its seven families);
+ 16. the ``{"kernels": [...]}`` line (each kernel's ``launches`` sums
+     every main-path run, ``launches_replica``, ``launches_benches``,
      ``launches_stream``, ``launches_mesh``, ``launches_lm`` (the
      lm and lm_families phases' timed generates) and
      ``launches_dryrun`` included), the
@@ -401,8 +414,8 @@ Launch counts are reset just before each main-path run (the footprint
 bench, the lm phase, each lm_families generate, the train phase's timed
 steps, the dryrun phase's real steps, the build, each
 single-shard arm, each sharded arm, each mesh run,
-each part of the serve, replica and stream phases and the table3 batched
-rows) and read just after. The degraded, resilient and mesh phases need
+each part of the serve, replica and stream phases and each runner call
+of the benches phase) and read just after. The degraded, resilient and mesh phases need
 P >= 2 and are skipped at ``--shards 1``, which otherwise gives the
 single-shard smoke
 over all ``--n`` points. It needs no network and one card, and exits
@@ -420,15 +433,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TIME_LIMIT_S = 1200
-# SIFT1M is 1M points; the smoke builds 75k by default. The wave
+# SIFT1M is 1M points; the smoke builds 40k by default. The wave
 # builder's linking runs in numpy on the host (the reference's
 # arithmetic, kept so the graph can be held bit-for-bit against it) and
 # takes ~93% of the build: a 1M build does not fit a third of the time
-# limit; 200k did, until the mesh_lm phase needed its ~125 s, and 100k,
+# limit; 200k did, until the mesh_lm phase needed its ~125 s, 100k,
 # until the dryrun phase's 38-50 s took the total past 1,000 s on a
-# slow host (PERF.md, "Cells").
+# slow host, and 75k, until the benches phase's ~125 s (PERF.md,
+# "Cells").
 FULL_N = 1_000_000
-DEFAULT_N = 75_000
+DEFAULT_N = 40_000
+# the smoke's PQ codebook: 4 Lloyd iterations (the config's 8 before the
+# benches phase; 4 is what the reference's benches train plain PQ with),
+# ~21 s of host numpy on 20k points instead of ~43
+PQ_TRAIN_ITERS = 4
 
 
 def emit(obj) -> None:
@@ -1243,7 +1261,9 @@ def check_pca_rows(torch, np, rng, T) -> dict:
 
 
 # the stacked kernels at the stream phase's sharded bank: P shards of
-# STACKED_N nodes (the 75,000-point build's shards), S = STREAM_SLOTS
+# STACKED_N nodes (the shards of a 75,000-point build, the smoke's size
+# when these rows were first timed, kept so they stay comparable), S =
+# STREAM_SLOTS
 # rows each, W = 1, M0 = 32; pca dl = 15 (f32 and bf16), pq S = 16, the
 # gated fold at ef 10 with the shards' tombstone words
 STACKED_P, STACKED_N = 4, 18_750
@@ -1948,12 +1968,13 @@ def _profile_match(name: str, key: str) -> bool:
 def train_filters(np, x, cfg, levels, pca) -> tuple:
     """The filters of every arm, fitted once on all points: the PCA, and
     ONE PQ codebook trained density-aware (weights ``level + 1``, the
-    shard graphs' levels in shard order) at the config's
-    ``pq_train_iters`` and shared by the pq and cascade arms, with the
-    codes encoded once. Host numpy, the reference's arithmetic (so the
+    shard graphs' levels in shard order) at ``PQ_TRAIN_ITERS`` Lloyd
+    iterations and shared by the pq and cascade arms, with the codes
+    encoded once. Host numpy, the reference's arithmetic (so the
     codebook is bit-identical to ``repro.core.pq``'s)."""
     import dataclasses
     from repro_torch.core import filters
+    cfg = dataclasses.replace(cfg, pq_train_iters=PQ_TRAIN_ITERS)
     t0 = time.perf_counter()
     fpq = filters.make_filter(dataclasses.replace(cfg, filter_kind="pq"),
                               x, seed=0, levels=levels)
@@ -2160,12 +2181,11 @@ MESH_QUERIES = 2_048
 
 
 def mesh_devices(torch, P: int, device: str = "cuda") -> list:
-    """P devices for a (1, P) mesh: the first P cards when there are as
-    many, else the first card P times (on the CPU, "cpu" P times)."""
-    if device != "cuda":
-        return [device] * P
-    return [f"cuda:{i if torch.cuda.device_count() >= P else 0}"
-            for i in range(P)]
+    """P device names for a (1, P) mesh (``bench.table3_qps.mesh_devices``):
+    the first P cards when there are as many, else the first card P times
+    (on the CPU, "cpu" P times)."""
+    from repro_torch.bench.table3_qps import mesh_devices as devices
+    return [str(d) for d in devices(P, device)]
 
 
 def run_mesh(torch, np, sdbs, filts, q, batch: int, device: str = "cuda",
@@ -2381,11 +2401,12 @@ def run_resilient(torch, np, sdb, filt, q, device: str) -> dict:
 
 # ------------------------------ serving ------------------------------------
 
-# the serve phases' sizes: shard 0's index reserved to 65,536 slots, 8,192
-# upserts (64 probes of insert_batch 128), 2,500 deletes; the sharded
-# index takes 4,096 upserts round-robin
-SERVE_RESERVE, SERVE_UPSERTS, SERVE_DELETES = 65_536, 8_192, 2_500
-SHARDED_UPSERTS = 4_096
+# the serve phases' sizes: shard 0's index reserved to 65,536 slots, 4,096
+# upserts (32 probes of insert_batch 128; 8,192 before the benches
+# phase), 2,500 deletes; the sharded index takes 2,048 upserts
+# round-robin (4,096 before)
+SERVE_RESERVE, SERVE_UPSERTS, SERVE_DELETES = 65_536, 4_096, 2_500
+SHARDED_UPSERTS = 2_048
 # the kernels each serving part must launch: the probe's on upsert, the
 # search's on query, and the merge's and the deferred entry's on the
 # sharded deferred search
@@ -2800,10 +2821,10 @@ def run_serve_mesh(torch, np, sidx, qb, batch: int, device: str) -> dict:
 # deferred and sharded parts' query counts; the load bench's offered
 # loads, request size, seconds per point and queries (its closed loops
 # serve them all, a request at a time)
-STREAM_SLOTS, STREAM_QUERIES, STREAM_MIXED = 64, 10_000, 2_000
+STREAM_SLOTS, STREAM_QUERIES, STREAM_MIXED = 64, 5_000, 2_000
 STREAM_KS, STREAM_K_SHARES = (10, 50, 100), (0.45, 0.45, 0.10)
 STREAM_DEFERRED, STREAM_SHARDED = 2_000, 1_000
-STREAM_LOAD_FRACS, STREAM_LOAD_REQ, STREAM_LOAD_SECONDS = (0.5, 0.9), 16, 3.0
+STREAM_LOAD_FRACS, STREAM_LOAD_REQ, STREAM_LOAD_SECONDS = (0.5, 0.9), 16, 2.0
 STREAM_LOAD_QUERIES = 256
 # the pilot's queries, and the time the two run_stream passes may take
 # (past it their query count is cut)
@@ -3150,10 +3171,6 @@ def run_stream_phase(torch, np, g, graphs, x, filt, q, gt, seed: int,
 # in while replica 0 is dead (the gap its recovery replays)
 REPLICAS, REPLICA_UPSERTS, REPLICA_DELETES, REPLICA_GAP = 3, 8, 500, 4
 REPLICA_KERNELS = ("trip_fold", "fused_expand_rows", "dist_h")
-# phase table3: the reference bench's 200 queries, and the host oracle's
-# time budget on the card machine's CPU (past it the queries are cut)
-TABLE3_QUERIES, TABLE3_HOST_BUDGET_S = 200, 90.0
-TABLE3_KERNELS = ("trip_fold", "fused_expand_rows", "dist_h")
 # the seven metric families of the cost bridge
 BRIDGE_FAMILIES = ("phnsw_search_steps", "phnsw_search_dist_h_evals",
                    "phnsw_search_coverage", "phnsw_search_batches_total",
@@ -3309,83 +3326,236 @@ def run_replica(torch, np, g, filt, q, batch: int, seed: int, n_base: int,
     return out
 
 
-def run_table3(torch, np, g, x, pca, filt, q, gt, batch: int,
-               device: str = "cuda") -> dict:
-    """The paper's Table III and Fig 5 on ``g`` (shard 0's graph) over the
-    first ``TABLE3_QUERIES`` queries: the host oracle's HNSW-CPU and
-    pHNSW-CPU rows (timed on this machine's CPU; a pilot of 20 queries
-    first, and the query count cut if the four passes would pass
-    ``TABLE3_HOST_BUDGET_S``), the six rows of the cost model of the
-    paper's 65 nm processor from the oracle's traces (its orderings
-    held), ``layout3_memory``, and the card's batched pca and none rows
-    at ``batch`` on the same queries padded to one batch: the pca
-    recall@10 within 0.02 of pHNSW-CPU's. ``record_search_stats`` folds
-    the card's pca batch into a fresh registry. Launch counts are reset
-    just before the batched rows and read just after."""
-    from repro_torch.bench import table3_qps as t3q
-    from repro_torch.bench.fig5_energy import energy_rows
-    from repro_torch.kernels import ops
-    from repro_torch.obs import Registry, record_search_stats
-    out = {"phase": "table3", "n_points": len(g.x), "batch": batch}
-    t_phase = time.perf_counter()
-    x_low = filt.encode(x)
-    n = min(TABLE3_QUERIES, len(q))
-    pilot = min(20, n)
-    t0 = time.perf_counter()
-    t3q.host_rows(g, x_low, pca, q[:pilot], gt[:pilot])
-    out["host_pilot"] = {"queries": pilot,
-                         "seconds": time.perf_counter() - t0}
-    projected = out["host_pilot"]["seconds"] * n / pilot
-    if projected > TABLE3_HOST_BUDGET_S:
-        n_cut = max(pilot, int(n * TABLE3_HOST_BUDGET_S / projected))
-        emit({"reduced": {"table3_queries": n_cut, "of": n, "why": (
-            f"the host oracle's four passes would take {projected:.1f} s "
-            f"on this machine's CPU, over the {TABLE3_HOST_BUDGET_S} s "
-            "the smoke gives them")}})
-        n = n_cut
-    qn, gtn = q[:n], gt[:n]
-    out["queries"] = n
-    rows, traces, host = t3q.host_rows(g, x_low, pca, qn, gtn)
-    out["host"] = host
-    crows, t3 = t3q.cost_rows(traces, n, x.shape[1], x_low.shape[1])
-    out["cost_model"] = "the paper's 65 nm pHNSW processor with DDR4 / " \
-        "HBM1.0 (core/cost_model.py), not the card"
-    ops.reset_launch_counts()
-    brows, ms = t3q.batched_rows(g.cfg, x, g, pca, qn, gtn, batch=batch,
-                                 reps=5, device=device)
-    out["launches"] = ops.launch_counts()
-    rows += crows + [t3q.layout3_row(ms[0]["bytes_layout3"], x)] + brows
-    rows += energy_rows(t3)
-    out["rows"] = [{"name": nm, "us": us, "derived": d}
-                   for nm, us, d in rows]
-    pca_m, none_m = ms
-    out["batched"] = {m["name"]: {k: m[k] for k in (
-        "qps", "us_per_query", "recall", "steps_mean", "dist_h_mean",
-        "wall_s")} for m in ms}
-    gap = abs(pca_m["recall"] - host["phnsw_recall"])
-    out["recall_gap_vs_host"] = gap
-    need(gap <= 0.02, f"table3: the card's pca recall@10 "
-         f"{pca_m['recall']} is {gap} from the host oracle's "
-         f"{host['phnsw_recall']}")
+def _derived(text: str) -> dict:
+    """A bench row's ``derived`` column as a dict (numbers as floats)."""
+    out = {}
+    for part in text.split(";"):
+        k, _, v = part.partition("=")
+        try:
+            out[k] = float(v)
+        except ValueError:
+            out[k] = v
+    return out
+
+
+def _bench_rows(doc: dict) -> dict:
+    return {r["name"]: {"us": r["us"], **_derived(r["derived"])}
+            for r in doc["rows"]}
+
+
+def check_build_bench(doc: dict) -> None:
+    need(doc["recall_at_10_wave"] >= 0.95, f"benches build: wave "
+         f"recall@10 {doc['recall_at_10_wave']} < 0.95")
+    need(doc["invariants_ok"], "benches build: graph invariants fail")
+    need(doc["levels_match"] and doc["entry_match"], "benches build: "
+         "the wave graph's levels or entry differ from the oracle's")
+    need(doc["recall_delta"] >= -0.01, f"benches build: recall_delta "
+         f"{doc['recall_delta']} < -0.01")
+
+
+def check_faults_bench(doc: dict, tracked: dict) -> None:
+    for pt, tr in zip(doc["curve"], tracked["curve"]):
+        k = pt["dead_shards"]
+        need(pt["coverage"] == pt["live_share"], f"benches faults dead{k}: "
+             f"coverage {pt['coverage']} != live share {pt['live_share']}")
+        need(abs(pt["recall_full"] - tr["recall_full"]) <= 0.02,
+             f"benches faults dead{k}: recall_full {pt['recall_full']} vs "
+             f"tracked {tr['recall_full']}")
+    need(len(doc["curve"]) == len(tracked["curve"]),
+         "benches faults: the curve's length differs from the tracked one")
+    need(doc["curve"][1]["recall_survivor"] >= 0.90, "benches faults: "
+         f"recall_survivor at one dead shard "
+         f"{doc['curve'][1]['recall_survivor']} < 0.90")
+    need(doc["zero_recompiles"], "benches faults: the cycle added search "
+         "program keys")
+    need(doc["recovered_coverage"] == 1.0, "benches faults: recovered "
+         f"coverage {doc['recovered_coverage']}")
+
+
+def check_churn_bench(doc: dict, what: str) -> None:
+    need(doc["recall_at_10"] >= 0.80, f"benches {what}: final recall@10 "
+         f"{doc['recall_at_10']} < 0.80")
+    need(doc["non_live_returned"] == 0, f"benches {what}: "
+         f"{doc['non_live_returned']} deleted ids in the final answers")
+    need(doc["live"] == doc["expected_live"], f"benches {what}: live "
+         f"{doc['live']} != {doc['expected_live']} from the op counts")
+    need(doc["tombstone_frac"] == doc["expected_tombstone_frac"],
+         f"benches {what}: tombstone_frac {doc['tombstone_frac']} != "
+         f"{doc['expected_tombstone_frac']} from the op counts")
+
+
+def check_table3_bench(t3: dict, fig5: dict, tracked: dict) -> dict:
+    """The Table III rows' checks (the host oracle against the card's pca
+    row; the modeled processor's orderings) and the filters A/B against
+    the tracked ``BENCH_table3.json`` -> ``filters``."""
+    rows, erows = _bench_rows(t3), _bench_rows(fig5)
+    pca = rows["table3/pHNSW-torch-batched/pca"]["recall@10"]
+    host = rows["table3/pHNSW-CPU"]["recall@10"]
+    need(abs(pca - host) <= 0.02, f"benches table3: the card's pca "
+         f"recall@10 {pca} is {abs(pca - host)} from the host oracle's "
+         f"{host}")
     for d in ("DDR4", "HBM"):
-        need(t3["pHNSW"][d].qps > t3["pHNSW-Sep"][d].qps
-             and t3["pHNSW"][d].qps > t3["HNSW-Std"][d].qps,
-             f"table3: the modeled pHNSW is not the fastest on {d}")
-        need(t3["pHNSW"][d].energy_uj < min(t3["HNSW-Std"][d].energy_uj,
-                                            t3["pHNSW-Sep"][d].energy_uj),
-             f"table3: the modeled pHNSW is not the lowest energy on {d}")
-    for v in t3:
-        need(t3[v]["HBM"].qps >= t3[v]["DDR4"].qps,
-             f"table3: {v} is slower on HBM than on DDR4")
+        qps = {v: rows[f"table3/{v}/{d}"]["qps"]
+               for v in ("HNSW-Std", "pHNSW-Sep", "pHNSW")}
+        en = {v: erows[f"fig5/{v}/{d}"]["energy_uj"] for v in qps}
+        need(qps["pHNSW"] > max(qps["pHNSW-Sep"], qps["HNSW-Std"]),
+             f"benches table3: the modeled pHNSW is not the fastest on {d}")
+        need(en["pHNSW"] < min(en["pHNSW-Sep"], en["HNSW-Std"]),
+             f"benches fig5: the modeled pHNSW is not the lowest energy "
+             f"on {d}")
+    for v in ("HNSW-Std", "pHNSW-Sep", "pHNSW"):
+        need(rows[f"table3/{v}/HBM"]["qps"] >= rows[f"table3/{v}/DDR4"]["qps"],
+             f"benches table3: {v} is slower on HBM than on DDR4")
+    filters = {}
+    for mode, t in tracked.items():
+        got = t3["filters"][mode]
+        need(abs(got["recall"] - t["recall"]) <= 0.02, f"benches filters "
+             f"A/B: {mode} recall {got['recall']} vs tracked {t['recall']}")
+        need(got["bytes_per_vec"] == t["bytes_per_vec"], f"benches "
+             f"filters A/B: {mode} bytes_per_vec {got['bytes_per_vec']}")
+        filters[mode] = {"recall": got["recall"],
+                         "tracked_recall": t["recall"],
+                         "dist_h_mean": got["dist_h_mean"],
+                         "tracked_dist_h_mean": t["dist_h_mean"]}
+    return {"pca_recall": pca, "host_recall": host, "filters": filters}
+
+
+def check_ablation_bench(doc: dict, tracked: dict) -> None:
+    for mode, t in tracked.items():
+        got = doc["modes"][mode]
+        need(abs(got["recall"] - t["recall"]) <= 0.02, f"benches "
+             f"pq_ablation: {mode} recall {got['recall']} vs tracked "
+             f"{t['recall']}")
+    pq64 = doc["modes"]["pq64"]
+    need(pq64["bytes_per_vec"] == 64, f"benches pq_ablation: pq64 "
+         f"bytes_per_vec {pq64['bytes_per_vec']}")
+    need(pq64["recall"] >= 0.60, f"benches pq_ablation: pq64 recall "
+         f"{pq64['recall']} < 0.60")
+
+
+def check_bridge(torch, np, device: str) -> dict:
+    """The cost bridge on one of the 8k fixture's pca batches (the
+    runner's Table III does not fold one): ``record_search_stats`` into a
+    fresh registry must fill the seven families."""
+    from repro_torch.bench.common import batched_filter_ab, load_bench_db
+    from repro_torch.obs import Registry, record_search_stats
+    cfg, x, g, pca, _, q, gt = load_bench_db(BENCH_FIXTURE_N, 64,
+                                             device=device)
+    m = batched_filter_ab(cfg, x, g, pca, q, gt, batch=64, reps=1,
+                          modes=[("pca", False)], device=device)[0]
     reg = Registry()
-    br = record_search_stats(pca_m["stats"], wall_s=pca_m["wall_s"],
-                             n_queries=n, registry=reg, cfg=g.cfg,
-                             filt=filt)
+    br = record_search_stats(m["stats"], wall_s=m["wall_s"],
+                             n_queries=m["queries"], registry=reg, cfg=cfg,
+                             filt=m["filt"])
     missing = [f for f in BRIDGE_FAMILIES if reg.get(f) is None]
-    need(not missing, f"table3: the bridge left out {missing}")
-    out["bridge"] = {k: br[k] for k in ("steps_mean", "dist_h_mean",
-                                        "measured_us", "predicted_us",
-                                        "cost_ratio")}
+    need(not missing, f"benches: the bridge left out {missing}")
+    return {k: br[k] for k in ("steps_mean", "dist_h_mean", "measured_us",
+                               "predicted_us", "cost_ratio")}
+
+
+# the runner's 8k fixture (``--fast`` / ``--perf-smoke``), which the
+# parity phase builds and caches
+BENCH_FIXTURE_N = 8000
+# phase benches: each runner call (``repro_torch.bench.run``), its name,
+# its flags and the kernels its path must launch. ``suite`` is the full
+# suite at 8k (--fast): Table III with the filters A/B, Fig 2, Fig 5, the
+# kernel footprint, the PQ ablation and the single-index churn
+BENCH_MODES = [
+    ("build", ["--build", "--n-points", "2000"], ("trip_fold", "dist_h")),
+    ("faults", ["--faults"], ("fused_expand_rows", "trip_fold", "dist_h",
+                              "ksort_l")),
+    ("suite", ["--fast"], ("fused_expand_rows", "pq_expand_rows",
+                           "trip_fold", "dist_h", "dist_l", "ksort_l",
+                           "fused_filter", "flash_attention",
+                           "decode_attention")),
+    ("churn_p4", ["--churn", "--shards", "4"],
+     ("fused_expand_rows", "trip_fold", "dist_h", "ksort_l")),
+    ("perf_pq", ["--perf-smoke", "--filter", "pq"],
+     ("pq_expand_rows", "trip_fold", "dist_h")),
+    ("perf_cascade", ["--perf-smoke", "--filter", "cascade", "--deferred"],
+     ("pq_expand_rows", "trip_fold", "dist_h", "dist_l")),
+    ("perf_p4", ["--perf-smoke", "--shards", "4"],
+     ("fused_expand_rows", "trip_fold", "dist_h", "ksort_l")),
+]
+
+
+def run_benches(torch, np, smi: str, device: str = "cuda") -> dict:
+    """The paper's benches through the runner, ``repro_torch.bench.run
+    .main([...])``, each mode into its own JSON directory, and each held
+    to its bars: build (wave recall >= 0.95, invariants, levels and entry
+    equal to the oracle's, ``recall_delta`` >= -0.01), faults (coverage
+    the live share exactly, ``recall_full`` within 0.02 of the tracked
+    curve, ``recall_survivor`` >= 0.90 at one dead shard, zero new
+    program keys, recovered coverage 1.0), churn single (the suite's) and
+    P = 4 (recall >= 0.80, no deleted id, live size and tombstone
+    fraction from the op counts), the suite's Table III and Fig 5 (the
+    checks of the former ``table3`` phase) and filters A/B and the PQ
+    ablation (recall within 0.02 of ``BENCH_table3.json``; pq64 at 64
+    bytes and >= 0.60), the perf-smoke rows (pq >= 0.60, cascade-deferred
+    and the P = 4 sharded row >= 0.80). Launch counts are reset just
+    before each runner call and read just after; each mode's kernels must
+    launch."""
+    import tempfile
+    from repro_torch.bench import run as bench_run
+    from repro_torch.kernels import ops
+    tracked = json.loads((ROOT / "BENCH_table3.json").read_text())
+    out = {"phase": "benches", "nvidia_smi": smi, "modes": {}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phnsw_benches_") as tmp:
+        docs = {}
+        for name, argv, kernels in BENCH_MODES:
+            d = Path(tmp) / name
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            bench_run.main(argv + ["--device", device, "--out", str(d)])
+            secs = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            docs[name] = {f.stem: json.loads(f.read_text())
+                          for f in sorted(d.glob("*.json"))}
+            out["modes"][name] = {"argv": argv, "seconds": secs,
+                                  "launches": counts}
+            if device == "cuda":
+                for k in kernels:
+                    need(counts[k] > 0, f"benches {name}: never launched {k}")
+        b = docs["build"]["build"]
+        check_build_bench(b)
+        out["build"] = {k: b[k] for k in (
+            "n_points", "wave_vps", "ref_vps", "speedup_vs_ref",
+            "recall_at_10_wave", "recall_at_10_ref", "recall_delta",
+            "levels_match", "entry_match", "invariants_ok")}
+        f = docs["faults"]["faults"]
+        check_faults_bench(f, tracked["faults"])
+        out["faults"] = {k: f[k] for k in (
+            "curve", "healthy_query_ms", "degraded_query_ms", "failover_ms",
+            "reseed_ms", "recovered_coverage", "zero_recompiles")}
+        suite = docs["suite"]
+        out["table3"] = check_table3_bench(
+            suite["table3_qps"], suite["fig5_energy"], tracked["filters"])
+        out["table3"]["rows"] = suite["table3_qps"]["rows"]
+        check_ablation_bench(suite["pq_ablation"], tracked["filters"])
+        out["pq_ablation"] = suite["pq_ablation"]["modes"]
+        for name, doc in (("churn", suite["churn"]),
+                          ("churn_p4", docs["churn_p4"]["churn"])):
+            check_churn_bench(doc, name)
+            out[name] = {k: doc[k] for k in (
+                "n_shards", "qps", "p99_ms", "upserts_per_s",
+                "deletes_per_s", "recall_at_10", "live", "tombstone_frac",
+                "pca_drift")}
+        perf = {}
+        for name, row, floor in (
+                ("perf_pq", "table3/pHNSW-torch-batched/pq", 0.60),
+                ("perf_cascade",
+                 "table3/pHNSW-torch-batched/cascade-deferred", 0.80),
+                ("perf_p4", "table3/pHNSW-torch-sharded/p4-pca", 0.80),
+                ("perf_p4", "table3/pHNSW-torch-batched/pca", 0.80)):
+            r = _bench_rows(docs[name]["table3_qps"])[row]
+            need(r["recall@10"] >= floor, f"benches {name}: {row} recall@10 "
+                 f"{r['recall@10']} < {floor}")
+            perf[row] = {"qps": r["qps"], "recall_at_10": r["recall@10"],
+                         "us_per_query": r["us"]}
+        out["perf_smoke"] = perf
+        out["fig2"] = docs["suite"]["fig2_kselect"]["rows"][-1]
+    out["bridge"] = check_bridge(torch, np, device)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3508,24 +3678,16 @@ def check_bf16_arms(outs, phase: str) -> None:
 PARITY_MODES = {"pq": ("pq", False, None), "pq-deferred": ("pq", True, 3),
                 "pca-deferred": ("pca", True, 3),
                 "cascade-deferred": ("cascade", True, 2)}
-# the rows of BENCH_table3.json -> filters, as batched_filter_ab runs them
-TABLE_MODES = {"pca": ("pca", False, None), "pq": ("pq", False, None),
-               "none": ("none", False, None),
-               "pca-deferred": ("pca", True, 3),
-               "cascade-deferred": ("cascade", True, 2)}
-
-
 def _bench_filters(np, cfg, x, pca, levels):
-    """The 8k bench's filters (``benchmarks/common.make_bench_filter``):
-    the adopted PCA; PQ at 4 Lloyd iterations; the cascade at the
-    config's 8, adopting the PCA; both density-aware from ``levels``."""
-    import dataclasses
+    """The 8k bench's filters (``bench.common.make_bench_filter``, which
+    the benches phase then finds trained): the adopted PCA; PQ at 4 Lloyd
+    iterations; the cascade at the config's 8, adopting the PCA; both
+    density-aware from ``levels``."""
+    from repro_torch.bench.common import make_bench_filter
     from repro_torch.core import filters
-    mk = lambda kind, iters: filters.make_filter(
-        dataclasses.replace(cfg, filter_kind=kind, pq_train_iters=iters),
-        x, pca=pca, levels=levels)
-    return {"pca": filters.PCAFilter(pca), "pq": mk("pq", 4),
-            "cascade": mk("cascade", cfg.pq_train_iters),
+    return {"pca": filters.PCAFilter(pca),
+            "pq": make_bench_filter("pq", cfg, x, pca, levels),
+            "cascade": make_bench_filter("cascade", cfg, x, pca, levels),
             "none": filters.IdentityFilter(dim=x.shape[1])}
 
 
@@ -3558,30 +3720,21 @@ def _search_all(torch, g, filt, q, deferred, rm, device, dbs, batch=None):
             cat([o[2]["dist_h_evals"] for o in outs]), db)
 
 
-def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
-    """The 8k bench fixture (SIFT50k-shaped config at 8000 points, seed
-    0, 200 queries): one graph, built on ``device``, packed on
-    ``device`` and on the CPU; the pca check, then every other filter
-    mode on float data (recall within 0.005, ids equal for >= 99% of
-    queries) and on integer data (bit-identical ids, dists, steps and
-    Dist.H counts). Then the filters table over the first 64 queries at
-    B=64, held to the tracked ``BENCH_table3.json`` -> ``filters``
-    recall within 0.02. Returns (parity dict, table dict)."""
-    import dataclasses
-    from repro_torch.configs.sift1m_phnsw import SMALL
-    from repro_torch.core.graph import HNSWGraph, build_hnsw
-    from repro_torch.core.pca import fit_pca
+def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> dict:
+    """The 8k bench fixture (``bench.common.load_bench_db(8000, 200)``:
+    SIFT50k-shaped config at 8000 points, seed 0, 200 queries): one
+    graph, built on ``device``, packed on ``device`` and on the CPU; the
+    pca check, then every other filter mode on float data (recall within
+    0.005, ids equal for >= 99% of queries) and on integer data
+    (bit-identical ids, dists, steps and Dist.H counts). (The filters
+    table is the benches phase's, from the runner.)"""
+    from repro_torch.bench.common import load_bench_db
+    from repro_torch.core.graph import HNSWGraph
     from repro_torch.core.search_torch import build_packed, search_batched
-    from repro_torch.data.vectors import (brute_force_topk, make_queries,
-                                          make_sift_like)
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(SMALL, n_points=8000, name="sift8k")
-    x = make_sift_like(8000, seed=seed)
-    q = make_queries(x, 200, seed=seed + 1)
-    gt = brute_force_topk(x, q, 10)
-    g = build_hnsw(x, cfg, seed=seed, device=device)
-    pca = fit_pca(x, cfg.d_low)
-    xl = pca.transform(x).astype(np.float32)
+    # the benches' fixture (``experiments/data/``), built on ``device``
+    # here and cached for the benches phase
+    cfg, x, g, pca, xl, q, gt = load_bench_db(8000, 200, device=device)
     res, outs = {}, {}
     for dev in (device, "cpu"):
         db = build_packed(g, xl, device=dev)
@@ -3676,30 +3829,7 @@ def run_parity(torch, np, seed: int = 0, device: str = "cuda") -> tuple:
                   torch, np, cfg, x, q[:SHARDED_PARITY_QUERIES],
                   gt[:SHARDED_PARITY_QUERIES], filts, ifilts, seed, device)}
     parity["seconds"] = time.perf_counter() - t0
-
-    # --- the filters table: first 64 queries at B=64 on the card ---
-    tracked = json.loads((ROOT / "BENCH_table3.json").read_text())["filters"]
-    rows = {}
-    for mode, (kind, deferred, rm) in TABLE_MODES.items():
-        _, fi, st, dhe, db = _search_all(torch, g, filts[kind], q[:64],
-                                         deferred, rm, device, dbs, 64)
-        rec = recall_at_10(fi.numpy(), gt[:64])
-        t = tracked[mode]
-        rows[mode] = {"recall": rec, "tracked_recall": t["recall"],
-                      "dist_h_mean": float(dhe.float().mean()),
-                      "tracked_dist_h_mean": t["dist_h_mean"],
-                      "steps_mean": float(st.sum(0).float().mean()),
-                      "bytes_per_vec": filts[kind].bytes_per_vec,
-                      "tracked_bytes_per_vec": t["bytes_per_vec"],
-                      "sidecar_bytes_per_vec": getattr(
-                          filts[kind], "mid_bytes_per_vec", 0),
-                      "bytes_layout3": db.bytes_layout3,
-                      "bytes_sidecar": db.bytes_sidecar}
-        need(abs(rec - t["recall"]) <= 0.02,
-             f"8k filters table: {mode} recall {rec} vs tracked "
-             f"{t['recall']}")
-    return parity, {"phase": "filters_8k", "queries": 64, "batch": 64,
-                    "rows": rows}
+    return parity
 
 
 def _mutate_int(np, idx, rng, n_up: int, n_del: int) -> list:
@@ -5775,9 +5905,10 @@ def main(argv=None) -> int:
         emit({"reduced": {"n_points": args.n, "of": FULL_N, "why": (
             "the wave builder links on the host in numpy (the "
             "reference's arithmetic); a 1M build does not fit a third "
-            f"of the {TIME_LIMIT_S} s smoke limit, and 75,000 (200,000 "
-            "before the mesh_lm phase, 100,000 before the dryrun phase) "
-            "pays for those phases' ~125 s and ~50 s")}})
+            f"of the {TIME_LIMIT_S} s smoke limit, and 40,000 (200,000 "
+            "before the mesh_lm phase, 100,000 before the dryrun phase, "
+            "75,000 before the benches phase) pays for those phases' "
+            "~125 s, ~50 s and ~125 s")}})
     g0 = graphs[0]
     n0 = len(g0.x)
     if P > 1:
@@ -5792,6 +5923,12 @@ def main(argv=None) -> int:
     pca = fit_pca(x, g0.cfg.d_low)
     filts, codes, tout = train_filters(
         np, x, g0.cfg, np.concatenate([g.levels for g in graphs]), pca)
+    emit({"reduced": {"pq_train_iters": PQ_TRAIN_ITERS,
+                      "of": g0.cfg.pq_train_iters, "why": (
+        "the codebook's Lloyd iterations run in host numpy (~5 s each on "
+        "20k points); 4, the reference benches' plain-PQ schedule, pays "
+        f"for part of the benches phase within the {TIME_LIMIT_S} s "
+        "smoke limit")}})
     emit(tout)
     q = make_queries(x, args.queries, seed=args.seed + 1)
     gt0 = ground_truth(torch, x[:n0], q, 10, "cuda")
@@ -5885,6 +6022,13 @@ def main(argv=None) -> int:
     serve_launches = [serve["launches"][part]
                       for part in ("query", "upsert", "delete",
                                    "query_after")]
+    emit({"reduced": {"serve_upserts": SERVE_UPSERTS, "of": 8_192,
+                      "sharded_upserts": SHARDED_UPSERTS, "of_sharded": 4_096,
+                      "why": (
+        "the upserts' probes and host linking take ~0.5 s a call of 128; "
+        "halving both pays for part of the benches phase within the "
+        f"{TIME_LIMIT_S} s smoke limit, and the self-recall and "
+        "frozen-epoch checks need no more")}})
     if P > 1:
         sserve = run_serve_sharded(torch, np, graphs, filts["pca"], q, gt,
                                    args.batch, args.seed, args.n)
@@ -5903,11 +6047,6 @@ def main(argv=None) -> int:
         for name in REPLICA_KERNELS:
             need(rep["launches"][part][name] > 0,
                  f"replica: the {part} part never launched {name}")
-    t3 = run_table3(torch, np, g0, x[:n0], pca, filts["pca"], q, gt0,
-                    args.batch)
-    emit(t3)
-    for name in TABLE3_KERNELS:
-        need(t3["launches"][name] > 0, f"table3: never launched {name}")
     stream = run_stream_phase(torch, np, g0, graphs, x, filts["pca"], q, gt0,
                               args.seed)
     emit(stream)
@@ -5919,6 +6058,13 @@ def main(argv=None) -> int:
                  f"stream: the {part} part never launched {name}")
     stream_launches = [c for part, c in stream["launches"].items()
                        if part != "sync"]
+    emit({"reduced": {"stream_queries": STREAM_QUERIES, "of": 10_000,
+                      "load_point_seconds": STREAM_LOAD_SECONDS, "of_s": 3.0,
+                      "why": (
+        "the scheduler and sync passes check bits and take rates; half "
+        "the queries and 2 s a load point (each point still offers at "
+        "least 20 requests) pay for part of the benches phase within the "
+        f"{TIME_LIMIT_S} s smoke limit")}})
     del x, graphs, g0
 
     emit({"reduced": {"sharded_parity_queries": SHARDED_PARITY_QUERIES,
@@ -5928,9 +6074,11 @@ def main(argv=None) -> int:
         "the sharded parity checks bits and id agreement, not rates; the "
         "lm_families and train phases need its time within the "
         f"{TIME_LIMIT_S} s smoke limit")}})
-    parity, table = run_parity(torch, np)
+    parity = run_parity(torch, np)
     emit(parity)
-    emit(table)
+    benches = run_benches(torch, np, smi)
+    emit(benches)
+    bench_launches = [m["launches"] for m in benches["modes"].values()]
 
     rows = []
     for name, (route, src, replaces, shape) in KERNEL_META.items():
@@ -5939,7 +6087,7 @@ def main(argv=None) -> int:
         per_sharded = {s["arm"]: s["launches"][name] for s in shouts}
         n_serve = sum(c[name] for c in serve_launches)
         n_replica = sum(c[name] for c in rep["launches"].values())
-        n_table3 = t3["launches"][name]
+        n_benches = sum(c[name] for c in bench_launches)
         n_stream = sum(c[name] for c in stream_launches)
         n_mesh = sum(c[name] for c in mesh_launches)
         n_mesh_lm = ml["serve"]["launches"].get(name, 0)
@@ -5953,7 +6101,7 @@ def main(argv=None) -> int:
                      "launches": bout["launches"][name]
                      + sum(per_arm.values()) + sum(per_sharded.values())
                      + fout["launches"][name] + n_serve + n_replica
-                     + n_table3 + n_stream + n_mesh + n_lm + n_mesh_lm
+                     + n_benches + n_stream + n_mesh + n_lm + n_mesh_lm
                      + n_dryrun,
                      "launches_build": bout["launches"][name],
                      "launches_search": per_arm,
@@ -5961,7 +6109,7 @@ def main(argv=None) -> int:
                      "launches_footprint": fout["launches"][name],
                      "launches_serve": n_serve,
                      "launches_replica": n_replica,
-                     "launches_table3": n_table3,
+                     "launches_benches": n_benches,
                      "launches_stream": n_stream,
                      "launches_mesh": n_mesh,
                      "launches_lm": n_lm,

@@ -8,7 +8,9 @@ package loads in the other."""
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import subprocess
 import time
 from pathlib import Path
 
@@ -16,6 +18,43 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[3]
 DATA_DIR = ROOT / "experiments" / "data"
+
+
+def synchronizer(device):
+    """A callable that waits for ``device``'s queued work (the host
+    clock's end point for every timed section); a no-op on the CPU."""
+    import torch
+    if torch.device(device).type == "cuda":
+        return torch.cuda.synchronize
+    return lambda: None
+
+
+def card(device) -> dict:
+    """What a bench's numbers were measured on: torch's name for the
+    device and, on a card, ``nvidia-smi``'s name and power limit (the
+    line ``--query-gpu=name,power.limit``), None where it cannot be
+    read."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"device": str(dev), "card": None, "nvidia_smi": None}
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        smi = None
+    return {"device": str(dev), "card": torch.cuda.get_device_name(dev),
+            "nvidia_smi": smi}
+
+
+def recall_mean(ids, gt, at: int) -> float:
+    """Mean recall@``at`` of the id rows ``ids`` against ``gt``."""
+    from repro_torch.core.search_ref import recall_at
+    ids = np.asarray(ids)
+    return float(np.mean([recall_at(ids[i], gt[i], at)
+                          for i in range(len(gt))]))
 
 
 def load_bench_db(n_points: int = 50_000, n_queries: int = 200, *,
@@ -48,12 +87,28 @@ def load_bench_db(n_points: int = 50_000, n_queries: int = 200, *,
     return cfg, x, g, pca, x_low, q, gt
 
 
+# the PQ-trained filters a process has fitted, by (kind, config, data):
+# Lloyd training takes seconds on the host at the benches' sizes, and the
+# runner's modes train the same codebooks again and again
+_TRAINED: dict = {}
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.sha1()
+    for a in arrays:
+        a = np.ascontiguousarray(a) if a is not None else np.empty(0)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
 def make_bench_filter(kind: str, cfg, x, pca, levels=None):
     """The filter used by the batched benches: adopt the cached PCA for
     "pca"/"cascade", fit PQ/identity from cfg (4 Lloyd iterations for
     plain PQ, the config's schedule for the cascade). "pq<N>" (e.g.
     "pq64") overrides cfg.pq_n_sub. ``levels`` trains the codebooks
-    density-aware."""
+    density-aware. A PQ or cascade filter is trained once a process for
+    the same kind, config, points, PCA and levels."""
     from repro_torch.core.filters import PCAFilter, make_filter
     if kind == "pca":
         return PCAFilter(pca, low_dtype=cfg.low_dtype)
@@ -61,10 +116,14 @@ def make_bench_filter(kind: str, cfg, x, pca, levels=None):
     if kind.startswith("pq") and kind != "pq":
         kind, n_sub = "pq", int(kind[2:])
     iters = cfg.pq_train_iters if kind == "cascade" else 4
-    return make_filter(dataclasses.replace(cfg, filter_kind=kind,
-                                           pq_n_sub=n_sub,
-                                           pq_train_iters=iters), x,
-                       pca=pca, levels=levels)
+    fcfg = dataclasses.replace(cfg, filter_kind=kind, pq_n_sub=n_sub,
+                               pq_train_iters=iters)
+    if kind not in ("pq", "cascade"):
+        return make_filter(fcfg, x, pca=pca, levels=levels)
+    key = (repr(fcfg), _digest(x, pca.mean, pca.components, levels))
+    if key not in _TRAINED:
+        _TRAINED[key] = make_filter(fcfg, x, pca=pca, levels=levels)
+    return _TRAINED[key]
 
 
 def batched_filter_ab(cfg, x, g, pca, q, gt, *, batch: int = 64,
@@ -81,13 +140,12 @@ def batched_filter_ab(cfg, x, g, pca, q, gt, *, batch: int = 64,
     (``wall_s``, device synchronised) and its ``return_stats`` telemetry
     (``stats``)."""
     import torch
-    from repro_torch.core.search_ref import recall_at
     from repro_torch.core.search_torch import build_packed, search_batched
 
     modes = modes or [("pca", False), ("pq", False), ("none", False),
                       ("pca", True), ("cascade", True)]
     dev = torch.device(device)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync = synchronizer(dev)
     n = min(batch, len(q))
     qb = np.asarray(q[:n], np.float32)
     if n < batch:
@@ -115,9 +173,7 @@ def batched_filter_ab(cfg, x, g, pca, q, gt, *, batch: int = 64,
             _, fi, stc = search_batched(db, qd, return_stats=True, **kw)
         sync()
         dt = (time.perf_counter() - t0) / reps
-        fi = fi.cpu().numpy()[:n]
-        rec = float(np.mean([recall_at(fi[i], gt[i], cfg.recall_at)
-                             for i in range(n)]))
+        rec = recall_mean(fi.cpu().numpy()[:n], gt[:n], cfg.recall_at)
         dhe = stc["dist_h_evals"].cpu().numpy()[:n]
         steps = stc["steps_total"].cpu().numpy()[:n]
         out.append({

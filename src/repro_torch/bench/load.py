@@ -351,13 +351,16 @@ def run_load(svc, q, gt, *, req_size: int = 16,
 
 
 def main(n_points: int = 8_000, *, device="cuda", n_requests: int = 120,
-         out: Optional[str] = None):
+         out: Optional[str] = None, prom_path: Optional[str] = None):
     """The bench over the cached SIFT-like fixture
     (``bench.common.load_bench_db``, its first 64 queries) served by a
-    pca service of 64 on ``device``, at ``run_load``'s defaults."""
+    pca service of 64 on ``device``, at ``run_load``'s defaults.
+    ``prom_path`` receives the Prometheus text of the run's registry
+    (row ``obs/prometheus``)."""
     from repro_torch.bench.common import emit, load_bench_db
     from repro_torch.core.filters import PCAFilter
     from repro_torch.core.search_torch import build_packed
+    from repro_torch.obs import prometheus_families, to_prometheus
     from repro_torch.serve.vector_service import VectorSearchService
 
     cfg, _, g, pca, x_low, q, gt = load_bench_db(n_points, 64,
@@ -367,6 +370,13 @@ def main(n_points: int = 8_000, *, device="cuda", n_requests: int = 120,
     svc = VectorSearchService(db, filt=filt, batch_size=64,
                               device=device)
     res = run_load(svc, q, gt, n_requests=n_requests)
+    if prom_path:
+        text = to_prometheus(svc.stats.registry)
+        with open(prom_path, "w") as f:
+            f.write(text)
+        res["rows"].append(("obs/prometheus", 0.0,
+                            f"families={len(prometheus_families(text))};"
+                            f"path={prom_path}"))
     emit(res["rows"])
     if out:
         with open(out, "w") as f:
@@ -381,5 +391,7 @@ if __name__ == "__main__":
     ap.add_argument("--n", type=int, default=8_000)
     ap.add_argument("--requests", type=int, default=120)
     ap.add_argument("--out", help="also write rows and points as JSON")
+    ap.add_argument("--prom-out", help="write the Prometheus text here")
     a = ap.parse_args()
-    main(a.n, device=a.device, n_requests=a.requests, out=a.out)
+    main(a.n, device=a.device, n_requests=a.requests, out=a.out,
+         prom_path=a.prom_out)

@@ -1961,3 +1961,96 @@ def test_sharded_scheduler_launches_once_a_trip(cuda):
     assert counts["trip_fold"] == trips["slotted"] + trips["layer"]
     assert counts["fused_expand_rows"] == trips["slotted"] + trips["layer"]
     assert np.array_equal(ids, svc.run_stream_sync(q)[0])
+
+
+# ---- the paper's benches (repro_torch.bench.*) card against CPU ----------
+
+@pytest.fixture
+def bench_fixture(cuda, tmp_path, monkeypatch):
+    """The benches' cached fixture in ``tmp_path`` at 1,000 points, built
+    on the card; the CPU runs load the same graph."""
+    from repro_torch.bench import common
+    monkeypatch.setattr(common, "DATA_DIR", tmp_path / "data")
+    return common.load_bench_db(1_000, 32, device="cuda")
+
+
+def test_build_bench_card_equals_cpu(cuda):
+    from repro_torch.bench import build
+    cfg, x, pca, q, gt = build.bench_data(500, 32)
+    got = {dev: build.run_build(cfg, x, pca, q, gt, device=dev)["entry"]
+           for dev in ("cuda", "cpu")}
+    for k in ("levels_match", "entry_match", "invariants_ok",
+              "mean_deg0_ref"):
+        assert got["cuda"][k] == got["cpu"][k]
+    assert got["cuda"]["levels_match"] and got["cuda"]["entry_match"]
+    for k in ("recall_at_10_ref", "recall_at_10_wave"):
+        assert abs(got["cuda"][k] - got["cpu"][k]) <= 0.005
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_churn_bench_card_equals_cpu(cuda, bench_fixture, n_shards):
+    from repro_torch.bench.churn import run_churn
+    cfg, x, g, pca, _, q, _ = bench_fixture
+    got = {dev: run_churn(cfg, x, g, pca, q, rounds=3, n_shards=n_shards,
+                          device=dev)["entry"] for dev in ("cuda", "cpu")}
+    c, h = got["cuda"], got["cpu"]
+    for k in ("upserts", "deletes", "live", "expected_live",
+              "tombstone_frac", "non_live_returned"):
+        assert c[k] == h[k], k
+    assert c["live"] == c["expected_live"] and c["non_live_returned"] == 0
+    assert abs(c["recall_at_10"] - h["recall_at_10"]) <= 0.02
+    assert c["pca_drift"] == pytest.approx(h["pca_drift"], rel=1e-4)
+    assert ops.launch_counts()["trip_fold"] > 0
+
+
+def test_faults_bench_card_equals_cpu(cuda):
+    from repro_torch.bench.faults import faults_index, run_faults
+    got = {}
+    for dev in ("cuda", "cpu"):
+        idx, qb = faults_index(1_000, 16, 4, device=dev)
+        got[dev] = run_faults(idx, qb, reps=1, device=dev)["entry"]
+    c, h = got["cuda"], got["cpu"]
+    for pc, ph in zip(c["curve"], h["curve"]):
+        assert pc["coverage"] == ph["coverage"] == pc["live_share"]
+        assert abs(pc["recall_full"] - ph["recall_full"]) <= 0.02
+        assert abs(pc["recall_survivor"] - ph["recall_survivor"]) <= 0.02
+    assert c["zero_recompiles"] and h["zero_recompiles"]
+    assert c["recovered_coverage"] == h["recovered_coverage"] == 1.0
+
+
+def test_pq_ablation_bench_card_equals_cpu(cuda, bench_fixture):
+    from repro_torch.bench.pq_ablation import run_pq_ablation
+    cfg, x, g, pca, _, q, gt = bench_fixture
+    got = {dev: run_pq_ablation(cfg, x, g, pca, q, gt, device=dev)["modes"]
+           for dev in ("cuda", "cpu")}
+    assert list(got["cuda"]) == list(got["cpu"])
+    for mode, c in got["cuda"].items():
+        h = got["cpu"][mode]
+        for k in ("bytes_per_vec", "sidecar_bytes_per_vec", "rerank_mult",
+                  "promote_mult", "bytes_layout3"):
+            assert c[k] == h[k], (mode, k)
+        assert abs(c["recall"] - h["recall"]) <= 0.02, mode
+        assert c["dist_h_mean"] == pytest.approx(h["dist_h_mean"], rel=0.02)
+    assert ops.launch_counts()["pq_expand_rows"] > 0
+
+
+@pytest.mark.parametrize("argv", [["--filter", "cascade", "--deferred"],
+                                  ["--shards", "2"]])
+def test_runner_perf_smoke_card_equals_cpu(cuda, bench_fixture, tmp_path,
+                                           argv):
+    import json
+    from repro_torch.bench import run
+    docs = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        run.main(["--perf-smoke", "--n-points", "1000", "--device", dev,
+                  "--out", str(d)] + argv)
+        docs[dev] = json.loads((d / "table3_qps.json").read_text())
+    names = [[r["name"] for r in docs[dev]["rows"]] for dev in docs]
+    assert names[0] == names[1]
+    for row_c, row_h in zip(docs["cuda"]["rows"], docs["cpu"]["rows"]):
+        if "torch" in row_c["name"]:
+            rc = float(row_c["derived"].split("recall@10=")[1][:5])
+            rh = float(row_h["derived"].split("recall@10=")[1][:5])
+            assert abs(rc - rh) <= 0.02, row_c["name"]
+    assert docs["cuda"]["card"] == torch.cuda.get_device_name(0)

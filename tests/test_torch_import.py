@@ -56,6 +56,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
               "repro_torch.bench.table3_qps",
               "repro_torch.bench.fig5_energy",
               "repro_torch.bench.fig2_kselect",
+              "repro_torch.bench.build", "repro_torch.bench.churn",
+              "repro_torch.bench.faults", "repro_torch.bench.pq_ablation",
+              "repro_torch.bench.run",
               "repro_torch.configs.registry",
               "repro_torch.configs.starcoder2_3b",
               "repro_torch.models", "repro_torch.models.common",
